@@ -1,0 +1,142 @@
+"""Config system of the PyTorch port (a copy of the reference package's).
+
+Every architecture is described by a single frozen ``ModelConfig``. Field
+names are identical to the reference config, so a config built there
+converts with ``ModelConfig(**dataclasses.asdict(cfg))``. The config fully
+determines parameter shapes, the layer plan and the cache structure. Fields
+that only the reference's XLA path reads (``attn_impl``, ``remat``,
+``scan_unroll``, ``moe_groups``) are kept for that round trip.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class LayerSpec:
+    """A homogeneous group of layers (one run of the layer plan).
+
+    kind:
+      - "attn"  : GQA attention + (dense swiglu | MoE) FFN
+      - "mamba" : Mamba2 SSM mixer + no separate FFN (mixer includes gating)
+      - "rwkv"  : RWKV6 time-mix + channel-mix
+      - "shared_attn" : Zamba-style shared-parameter attention block (params
+        are reused across every invocation; each invocation has its own cache)
+    """
+    kind: str
+    count: int
+    # attention options
+    window: Optional[int] = None      # sliding window; None = full attention
+    cross_attn: bool = False          # whisper decoder cross-attention
+    causal: bool = True               # False for encoder blocks
+    moe: bool = False
+    # per-layer window override (e.g. gemma3 local/global pattern); length == count
+    windows: Optional[Tuple[Optional[int], ...]] = None
+
+    def layer_windows(self) -> Tuple[Optional[int], ...]:
+        if self.windows is not None:
+            assert len(self.windows) == self.count
+            return self.windows
+        return (self.window,) * self.count
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    # identity
+    name: str
+    arch_type: str                      # dense | moe | ssm | hybrid | audio | vlm
+    source: str = ""                    # citation for the config
+    # core dims
+    num_layers: int = 0
+    d_model: int = 0
+    num_heads: int = 0
+    num_kv_heads: int = 0
+    head_dim: int = 0                   # 0 -> d_model // num_heads
+    d_ff: int = 0
+    vocab_size: int = 0
+    # attention details
+    rope_theta: float = 10000.0
+    qkv_bias: bool = False              # qwen1.5
+    sliding_window: Optional[int] = None       # uniform SWA (mixtral)
+    local_global_ratio: int = 0         # gemma3: N local layers per 1 global
+    local_window: Optional[int] = None  # window of local layers
+    # MoE
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_impl: str = "dense_all"         # dense_all | dropping (perf path)
+    moe_capacity_factor: float = 1.25
+    moe_groups: int = 1                 # dropping: group-local dispatch
+                                        # (set to the data-shard count so
+                                        # gathers never cross devices)
+    router_aux_coef: float = 0.01
+    # SSM (RWKV6 / Mamba2)
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    # Zamba-style hybrid: one shared attention block after every k SSM layers
+    hybrid_attn_every: int = 0
+    # encoder-decoder (whisper): encoder layer count + stub frame count
+    encoder_layers: int = 0
+    encoder_seq: int = 1500
+    # VLM stub: number of prepended patch embeddings
+    num_patches: int = 0
+    # misc
+    norm_eps: float = 1e-5
+    dtype: str = "bfloat16"
+    tie_embeddings: bool = True
+    attn_impl: str = "xla"              # xla | pallas | pallas_interpret
+    attn_block_q: int = 256             # chunked-attention query block
+    ring_cache: bool = False            # sliding-window layers keep only the
+                                        # last `window` KV entries (vLLM-style
+                                        # ring buffer) — long_500k §Perf item
+    remat: bool = True                  # checkpoint each layer-run in training
+    scan_unroll: bool = False           # unroll layer scans (analysis mode:
+                                        # XLA cost_analysis counts while-loop
+                                        # bodies ONCE, so rooflines lower
+                                        # with unroll=True for exact FLOPs)
+
+    # ----- derived -----
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // self.num_heads if self.num_heads else 0
+
+    def layer_plan(self) -> Tuple[LayerSpec, ...]:
+        """Group layers into homogeneous runs (the port raises on every
+        run that is not dense full attention)."""
+        if self.arch_type == "ssm":  # rwkv6
+            return (LayerSpec(kind="rwkv", count=self.num_layers),)
+        if self.arch_type == "hybrid":  # zamba2: k mamba layers then shared attn
+            k = self.hybrid_attn_every
+            assert k > 0 and self.num_layers % k == 0
+            groups = self.num_layers // k
+            plan = []
+            for _ in range(groups):
+                plan.append(LayerSpec(kind="mamba", count=k))
+                plan.append(LayerSpec(kind="shared_attn", count=1))
+            return tuple(plan)
+        if self.local_global_ratio:  # gemma3 pattern: N local then 1 global
+            n = self.local_global_ratio
+            w = self.local_window
+            plan = []
+            remaining = self.num_layers
+            while remaining > 0:
+                c = min(n, remaining)
+                plan.append(LayerSpec(kind="attn", count=c, window=w))
+                remaining -= c
+                if remaining > 0:
+                    plan.append(LayerSpec(kind="attn", count=1, window=None))
+                    remaining -= 1
+            return tuple(plan)
+        moe = self.num_experts > 0
+        return (LayerSpec(kind="attn", count=self.num_layers, moe=moe,
+                          window=self.sliding_window,
+                          cross_attn=self.encoder_layers > 0),)
+
+    @property
+    def attn_layer_count(self) -> int:
+        return sum(s.count for s in self.layer_plan()
+                   if s.kind in ("attn", "shared_attn"))

@@ -1,0 +1,145 @@
+"""GQA self-attention with KVComm support (port of the reference block).
+
+Modes: ``train`` (causal over S tokens, no cache) and ``cached`` (S new
+tokens written into a per-layer cache buffer laid out
+``[ sender prefix (prefix_len) | self tokens ... | pad ]``).
+
+``cache_len`` and ``pos_shift`` are Python ints on the uniform path and
+(B,) int tensors on ragged continuous-batching rows; ``prefix_lens`` gives
+each row's real prefix length inside the bucket. ``ctx_valid`` is the
+layer's selection flag (a Python bool: selections are frozen on the host).
+The cache buffers are updated in place (the reference donated them); the
+caller must treat the passed buffers as consumed. Sliding windows and the
+ring cache are not ported yet.
+
+``backend="kernel"`` sends one-token decode (S == 1, no mass) to the
+ragged decode kernel, the counterpart of the reference's ``"pallas"``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.ragged_decode import per_row as _rows
+from repro_torch.kernels.ragged_decode import ragged_decode
+from repro_torch.models.layers import attention_core, dense_init, rope
+
+
+def init_attn(gen, cfg, dtype, device):
+    d = cfg.d_model
+    Hq, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    p = {"wq": dense_init(gen, (d, Hq * Dh), dtype, device),
+         "wk": dense_init(gen, (d, Hkv * Dh), dtype, device),
+         "wv": dense_init(gen, (d, Hkv * Dh), dtype, device),
+         "wo": dense_init(gen, (Hq * Dh, d), dtype, device)}
+    if cfg.qkv_bias:
+        for n, h in (("q", Hq), ("k", Hkv), ("v", Hkv)):
+            p[f"b{n}"] = torch.zeros((h * Dh,), dtype=dtype, device=device)
+    return p
+
+
+def _proj(p, x, name, H, Dh):
+    y = x @ p[f"w{name}"]
+    if f"b{name}" in p:
+        y = y + p[f"b{name}"]
+    B, S, _ = x.shape
+    return y.reshape(B, S, H, Dh)
+
+
+def self_attention(p, cfg, x, *, mode: str, causal: bool = True,
+                   use_rope: bool = True, window: Optional[int] = None,
+                   pos_shift=0, prefix_len: int = 0,
+                   ctx_valid: Optional[bool] = None, cache_k=None,
+                   cache_v=None, cache_len=None, prefix_lens=None,
+                   collect_mass: bool = False, backend: str = "reference"):
+    """Returns (out, (cache_k, cache_v) or (k, v), mass)."""
+    if window is not None:
+        raise NotImplementedError("sliding-window layers are not ported yet")
+    B, S, _ = x.shape
+    dev = x.device
+    Hq, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q = _proj(p, x, "q", Hq, Dh)
+    k = _proj(p, x, "k", Hkv, Dh)
+    v = _proj(p, x, "v", Hkv, Dh)
+    ar = torch.arange(S, device=dev)
+
+    if mode == "train":
+        pos = pos_shift + ar
+        if use_rope:
+            pb = pos[None].expand(B, S)
+            q = rope(q, pb, cfg.rope_theta)
+            k = rope(k, pb, cfg.rope_theta)
+        out, mass = attention_core(q, k, v, q_pos=pos, kv_pos=pos,
+                                   causal=causal)
+        return out.reshape(B, S, -1) @ p["wo"], (k, v), mass
+
+    ragged = (isinstance(cache_len, torch.Tensor)
+              or isinstance(pos_shift, torch.Tensor)
+              or prefix_lens is not None)
+    if ragged:
+        clen = _rows(cache_len, B, dev)
+        shift = _rows(pos_shift, B, dev)
+        q_pos = (shift + clen - prefix_len)[:, None] + ar[None]   # (B, S)
+    else:
+        q_pos = pos_shift + cache_len - prefix_len + ar             # (S,)
+    if use_rope:
+        pb = q_pos if q_pos.dim() == 2 else q_pos[None].expand(B, S)
+        q = rope(q, pb, cfg.rope_theta)
+        k = rope(k, pb, cfg.rope_theta)
+
+    # write the new entries in place; like the reference's
+    # dynamic_update_slice, the start is clamped to [0, Smax - S]
+    # (torch indexing neither clamps nor rejects negative starts)
+    Smax = cache_k.shape[1]
+    if ragged:
+        start = clen.clamp(min=0, max=Smax - S)
+        rows = torch.arange(B, device=dev)[:, None]
+        cols = start[:, None].long() + ar[None]
+        cache_k[rows, cols] = k.to(cache_k.dtype)
+        cache_v[rows, cols] = v.to(cache_v.dtype)
+    else:
+        start = max(0, min(cache_len, Smax - S))
+        cache_k[:, start:start + S] = k.to(cache_k.dtype)
+        cache_v[:, start:start + S] = v.to(cache_v.dtype)
+
+    if backend == "kernel" and S == 1 and not collect_mass:
+        # positions are baked into q and the cache (RoPE above), so only
+        # the validity geometry ships: kv_len = valid entries, pfx = real
+        # prefix entries (0 where ctx_valid masks an unselected layer)
+        kvl = _rows(cache_len, B, dev) + S
+        pfx = None
+        if prefix_len:
+            pfx = (prefix_lens if prefix_lens is not None
+                   else _rows(prefix_len, B, dev))
+            if ctx_valid is False:
+                pfx = torch.zeros_like(pfx)
+        o = ragged_decode(q[:, 0], cache_k, cache_v, kvl, pfx,
+                          prefix_len=prefix_len)
+        return o.reshape(B, S, -1) @ p["wo"], (cache_k, cache_v), None
+
+    idx = torch.arange(Smax, device=dev)
+    if ragged:
+        shift2 = shift[:, None]
+        kv_pos = (torch.where(idx[None] < prefix_len, idx[None],
+                              shift2 + idx[None] - prefix_len)
+                  if prefix_len else shift2 + idx[None])
+        valid = idx[None] < (clen + S)[:, None]
+        if prefix_len and prefix_lens is not None:
+            # the bucket pad [real, prefix_len) never holds sender KV
+            valid = valid & ~((idx[None] >= prefix_lens[:, None])
+                              & (idx[None] < prefix_len))
+    else:
+        kv_pos = (torch.where(idx < prefix_len, idx,
+                              pos_shift + idx - prefix_len)
+                  if prefix_len else pos_shift + idx)
+        valid = idx < cache_len + S
+    if prefix_len and ctx_valid is False:
+        valid = valid & (idx >= prefix_len)
+    mass_mask = (idx < prefix_len) if (collect_mass and prefix_len) else None
+    # decode (S == 1): every valid slot precedes the query by construction,
+    # so the causal comparison is dead work there
+    out, mass = attention_core(q, cache_k, cache_v, q_pos=q_pos,
+                               kv_pos=kv_pos, kv_valid=valid,
+                               causal=causal and S > 1, mass_mask=mass_mask)
+    return out.reshape(B, S, -1) @ p["wo"], (cache_k, cache_v), mass

@@ -5,13 +5,21 @@
 
 Phases, each printing one JSON line; any failure raises and exits non-zero:
 
-  1. device and build — the card's name and power limit (nvidia-smi), the
-     ragged decode kernel built from csrc/ with nvcc, its ptxas report.
-  2. kernel vs plain — the CUDA kernel against its plain PyTorch version at
-     the tiny test shapes (float32, dead rows, prefix_len 0, odd Skv), the
-     full-width serving shape and a long-cache shape (bf16), timed with CUDA
-     events beside the plain version, scaled_dot_product_attention (timed
-     only, as a yardstick) and the card's bound for the same work.
+  1. device and build — the card's name and power limit (nvidia-smi), all
+     four kernels built from csrc/ side by side (one nvcc per source),
+     each one's ptxas report.
+  2. kernel vs plain — the K1 CUDA kernel against its plain PyTorch version
+     at the tiny test shapes (float32, dead rows, prefix_len 0, odd Skv),
+     the full-width serving shape and a long-cache shape (bf16). Every
+     kernel-vs-plain case (here and in phases 4 and 5) is checked element
+     by element, |kernel - plain| <= atol * rms(plain) + rtol * |plain|:
+     float32 2e-5 (RWKV6 1e-4); bf16 1e-2, one ulp of the output's final
+     rounding, against a plain version computed in float32; the float32
+     Eq. (1) mass 1e-4 absolute. Each case is then timed with CUDA events
+     beside the plain version, scaled_dot_product_attention (timed only,
+     as a yardstick) and the card's bound for the same work: around the
+     call ("ms", host enqueue included) and around the call queued behind
+     a sleeping kernel ("device_ms", the kernels alone).
   3. float32 parity at a small size — the scheduler on the kernel backend
      against serve_serial on the plain backend, token for token (TF32 off).
   4. full-width serving — llama3.2-3b-pair as published, random weights
@@ -20,7 +28,18 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
      at capacity 4 through InMemoryTransport and SerializedTransport(int8);
      every ragged step must launch the kernel once per layer; one step's
      logits are compared between the kernel and the plain backend.
-  5. the kernels line — one JSON object listing every kernel of the path.
+  5. the kernel entry point — repro_torch.kernels.ops driven at full
+     published widths with the K2/K3/K4 counters at 0 (llama3.2-3b-pair
+     prefills with and without the Eq. (1) mass, a gemma3-4b local
+     window layer, a 32k decode cache, a windowed decode, the rwkv6-1.6b
+     scan), then every case, with tiny float32 ones (dead rows, a window,
+     non-causal unaligned lengths), held against its plain version and
+     timed as in phase 2.
+  6. sharded decode — launch.distributed_decode.run over the 32k cache in
+     8 shards (counter at 0 first): one K3 launch per shard plus the
+     monolithic decode, the LSE combine checked against both; then its
+     sharded_decode timed beside the monolithic decode.
+  7. the kernels line — one JSON object listing every kernel (K1-K4).
 
 The second-to-last line is nvidia-smi's name and power limit; the last line
 is {"ok": true, "device": {...}}.
@@ -61,16 +80,31 @@ def leaves(tree):
     return [tree]
 
 
-def time_ms(fn, iters=20, flush=None):
+def time_ms(fn, iters=20, flush=None, warmup=3, queue_ahead=False):
     """Mean device time of fn() over ``iters`` launches (CUDA events
-    around each call; ``flush`` runs outside the timed window)."""
+    around each call; ``flush`` runs outside the timed window). The window
+    also holds the host's time to enqueue fn()'s kernels, which is most of
+    a call with microseconds of device work; ``queue_ahead`` keeps the card
+    busy (``torch.cuda._sleep``) while the host enqueues, so the window
+    holds the kernels alone: one untimed call measures the host's enqueue
+    time, and the sleep lasts about twice that (at least ~1 ms)."""
     import torch
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
+    cycles = 0
+    if queue_ahead:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        enqueue_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        cycles = max(2_000_000, int(enqueue_s * 4e9))   # ~2 GHz clock
     total = 0.0
     for _ in range(iters):
         if flush is not None:
             flush()
+        if cycles:
+            torch.cuda._sleep(cycles)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -82,67 +116,81 @@ def time_ms(fn, iters=20, flush=None):
 
 
 # ---------------------------------------------------------------------------
-# phase 2 / 5 helper: one kernel-vs-plain case at given tensors
+# kernel-vs-plain cases: each a dict of the wrapper's call, its plain version
+# and the library yardstick on the same tensors, the bytes and flops its bound
+# counts, and a tolerance per output
 # ---------------------------------------------------------------------------
-def kernel_case(name, q, k, v, kv_len, pfx, prefix_len, *, tol, flush):
+# |kernel - plain| <= atol * rms(plain) + rtol * |plain|, element by element.
+# The plain versions compute in float32 as the kernels do, so a bf16 output
+# may differ by the one ulp of its final rounding (at most 2**-7 of the
+# value); the float32 Eq. (1) mass differs only by summation order.
+BF16_TOLS = (1e-2, 1e-2)
+MASS_TOLS = (1e-4, 0.0)
+
+
+def sdpa(q, k, v, mask):
+    """scaled_dot_product_attention on (B, H, S, D) views with a boolean
+    mask: the library yardstick, timed only, never called by the port."""
     import torch
     import torch.nn.functional as F
+    if tuple(int(x) for x in torch.__version__.split(".")[:2]) >= (2, 5):
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                              enable_gqa=True)
+    G = q.shape[1] // k.shape[1]
+    return F.scaled_dot_product_attention(
+        q, k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1),
+        attn_mask=mask)
+
+
+def tol_ratio(got, want, atol, rtol):
+    """The largest |got - want| / (atol * rms(want) + rtol * |want|) over the
+    elements (the check passes at <= 1) and the largest |got - want|."""
+    if not want.numel():
+        return 0.0, 0.0
+    a, b = got.double(), want.double()
+    diff = (a - b).abs()
+    allow = atol * float(b.square().mean().sqrt()) + rtol * b.abs()
+    return (float((diff / allow.clamp_min(1e-300)).max()),
+            float(diff.max()))
+
+
+def rd_case(name, q, k, v, kv_len, pfx, prefix_len):
+    """A K1 case: the ragged two-segment decode; its dead rows must be
+    exact zeros. Its plain version rounds scores and probabilities to the
+    input dtype, as the JAX oracle does, so the check runs it on the same
+    inputs in float32 (the timing runs it as it is)."""
+    import torch
     from repro_torch.kernels.ragged_decode import (ragged_decode,
                                                    ragged_decode_reference)
-    launches0 = ragged_decode.launches
-    out = ragged_decode(q, k, v, kv_len, pfx, prefix_len=prefix_len)
-    ref = ragged_decode_reference(q, k, v, kv_len, pfx,
-                                  prefix_len=prefix_len)
-    torch.cuda.synchronize()
-    err = float((out.float() - ref.float()).abs().max())
-    scale = float(ref.float().abs().max())
-    rel = err / max(scale, 1e-30)
     B, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
-    G = Hq // Hkv
     idx = torch.arange(Skv, device=q.device)[None]
     allow = torch.where(idx < prefix_len, idx < pfx[:, None],
                         idx < kv_len[:, None])
     dead = allow.sum(1) == 0
-    check(torch.all(out[dead] == 0), f"{name}: dead rows are not zero")
-    check(torch.isfinite(out.float()).all(), f"{name}: non-finite output")
-    if q.dtype == torch.float32:
-        check(err <= tol + tol * scale, f"{name}: max err {err} > {tol}")
-    else:
-        check(rel <= tol, f"{name}: relative err {rel} > {tol}")
-    # the least time the card needs: each attended K/V row read once (plus
-    # q, out and the lengths), and 4*D flops per attended (row, q head)
     n_att = int(allow.sum())
     isz = q.element_size()
-    nbytes = 2 * n_att * Hkv * D * isz + 2 * q.numel() * isz + 8 * B
-    flops = 4 * n_att * Hkv * G * D
-    dname = str(q.dtype).replace("torch.", "")
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dname]
-    ms = time_ms(lambda: ragged_decode(q, k, v, kv_len, pfx,
-                                       prefix_len=prefix_len), flush=flush)
-    plain_ms = time_ms(lambda: ragged_decode_reference(
-        q, k, v, kv_len, pfx, prefix_len=prefix_len), flush=flush)
-    # library yardstick (timed only, never used by the port): SDPA with the
-    # two-segment mask as attn_mask
-    qs = q[:, :, None, :]
     ks, vs = k.transpose(1, 2), v.transpose(1, 2)
-    mask = allow[:, None, None, :]
-    if tuple(int(x) for x in torch.__version__.split(".")[:2]) >= (2, 5):
-        lib = lambda: F.scaled_dot_product_attention(           # noqa: E731
-            qs, ks, vs, attn_mask=mask, enable_gqa=True)
-    else:
-        ke = ks.repeat_interleave(G, dim=1)
-        ve = vs.repeat_interleave(G, dim=1)
-        lib = lambda: F.scaled_dot_product_attention(           # noqa: E731
-            qs, ke, ve, attn_mask=mask)
-    library_ms = time_ms(lib, flush=flush)
-    ragged_decode.launches = launches0   # comparison launches never count
-    return {"case": name, "B": B, "Hq": Hq, "Hkv": Hkv, "D": D, "Skv": Skv,
-            "prefix_len": prefix_len, "dtype": dname, "attended": n_att,
-            "max_abs_err": err, "rel_err": rel, "tol": tol, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    return {"name": name, "kernel": "ragged_decode", "counter": ragged_decode,
+            "dtype": q.dtype, "tols": [(2e-5, 2e-5) if q.dtype ==
+                                       torch.float32 else BF16_TOLS],
+            "run": lambda: ragged_decode(q, k, v, kv_len, pfx,
+                                         prefix_len=prefix_len),
+            "plain": lambda: ragged_decode_reference(q, k, v, kv_len, pfx,
+                                                     prefix_len=prefix_len),
+            "check_plain": lambda: ragged_decode_reference(
+                q.float(), k.float(), v.float(), kv_len, pfx,
+                prefix_len=prefix_len).to(q.dtype),
+            "library": lambda: sdpa(q[:, :, None, :], ks, vs,
+                                    allow[:, None, None, :]),
+            "extra_check": lambda out: check(
+                bool(torch.all(out[dead] == 0)),
+                f"{name}: dead rows are not zero"),
+            # each attended K/V row read once, q, out and the lengths
+            "nbytes": 2 * n_att * Hkv * D * isz + 2 * q.numel() * isz + 8 * B,
+            "flops": 4 * n_att * Hq * D, "plain_iters": 20,
+            "shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "D": D, "Skv": Skv,
+                      "prefix_len": prefix_len, "attended": n_att}}
 
 
 def random_case(dev, dtype, B, Skv, P, Hq, Hkv, D, seed, n_dead=0):
@@ -161,30 +209,35 @@ def random_case(dev, dtype, B, Skv, P, Hq, Hkv, D, seed, n_dead=0):
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
+KERNEL_SOURCES = ("ragged_decode", "flash_attention", "flash_decode",
+                  "rwkv_scan")
+
+
 def phase_build():
+    """Build every kernel of the port at once (one nvcc per source)."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    _build.load("ragged_decode")
-    ptxas = [ln.strip() for ln in _build.build_log("ragged_decode")
-             .splitlines() if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "kernel": "ragged_decode",
-          "seconds": time.perf_counter() - t0, "ptxas": ptxas})
+    _build.load_all(KERNEL_SOURCES)
+    seconds = time.perf_counter() - t0
+    for name in KERNEL_SOURCES:
+        ptxas = [ln.strip() for ln in _build.build_log(name).splitlines()
+                 if "registers" in ln or "spill" in ln]
+        emit({"phase": "build", "kernel": name, "seconds": seconds,
+              "ptxas": ptxas})
 
 
 def phase_kernel_vs_plain(dev, flush):
     import torch
     cases = []
     shapes = [
-        ("tiny_prefix_free_odd", torch.float32, 4, 37, 0, 4, 2, 16, 2e-5, 1),
-        ("tiny_prefix", torch.float32, 4, 24, 8, 4, 2, 16, 2e-5, 2),
-        ("full_width_serving", torch.bfloat16, 4, 2079, 2064, 24, 8, 128,
-         2e-2, 0),
-        ("long_cache", torch.bfloat16, 8, 4096, 2048, 24, 8, 128, 2e-2, 0),
+        ("tiny_prefix_free_odd", torch.float32, 4, 37, 0, 4, 2, 16, 1),
+        ("tiny_prefix", torch.float32, 4, 24, 8, 4, 2, 16, 2),
+        ("full_width_serving", torch.bfloat16, 4, 2079, 2064, 24, 8, 128, 0),
+        ("long_cache", torch.bfloat16, 8, 4096, 2048, 24, 8, 128, 0),
     ]
-    for i, (name, dt, B, S, P, Hq, Hkv, D, tol, dead) in enumerate(shapes):
+    for i, (name, dt, B, S, P, Hq, Hkv, D, dead) in enumerate(shapes):
         q, k, v, kl, pf = random_case(dev, dt, B, S, P, Hq, Hkv, D, i, dead)
-        cases.append(kernel_case(name, q, k, v, kl, pf, P, tol=tol,
-                                 flush=flush))
+        cases.append(compare_case(rd_case(name, q, k, v, kl, pf, P), flush))
         emit({"phase": "kernel_vs_plain", **cases[-1]})
     return cases
 
@@ -402,6 +455,312 @@ def phase_full_width(dev, smi):
     return runs, main_launches
 
 
+# ---------------------------------------------------------------------------
+# the kernel entry point (repro_torch.kernels.ops: K2, K3, K4) and the
+# sequence-sharded decode
+# ---------------------------------------------------------------------------
+def fa_case(dev, name, dtype, B, Sq, Sc, Hq, Hkv, D, *, causal=True,
+            window=None, mass=False, seed):
+    """A K2 case: inputs, the ops call, its plain version, the SDPA
+    yardstick, and the bytes and flops its bound counts."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (
+        attention_mask, flash_attention, flash_attention_reference)
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(*s, generator=g).to(dev, dtype)
+               for s in ((B, Sq, Hq, D), (B, Sc + Sq, Hkv, D),
+                         (B, Sc + Sq, Hkv, D)))
+    kw = dict(context_len=Sc, q_offset=Sc, causal=causal, window=window,
+              collect_mass=mass)
+    allow = attention_mask(Sq, Sc + Sq, context_len=Sc, q_offset=Sc,
+                           causal=causal, window=window, device=dev)
+    n_att = int(allow.sum()) * B * Hq
+    isz = q.element_size()
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    tols = ([(2e-5, 2e-5)] * 2 if dtype == torch.float32
+            else [BF16_TOLS, MASS_TOLS])
+    return {"name": name, "kernel": "flash_attention", "counter":
+            flash_attention, "dtype": dtype, "tols": tols,
+            "run": lambda: ops.flash_attention(q, k, v, **kw),
+            "plain": lambda: flash_attention_reference(q, k, v, **kw),
+            "library": lambda: sdpa(qt, kt, vt, allow),
+            "nbytes": (2 * q.numel() + k.numel() + v.numel()) * isz
+            + (4 * B if mass else 0),
+            "flops": 4 * D * n_att, "plain_iters": 5,
+            "shape": {"B": B, "Sq": Sq, "Skv": Sc + Sq, "context_len": Sc,
+                      "Hq": Hq, "Hkv": Hkv, "D": D, "causal": causal,
+                      "window": window, "collect_mass": mass,
+                      "attended_pairs": n_att}}
+
+
+def fd_case(dev, name, dtype, B, S, Hq, Hkv, D, kv_len, *, window=None,
+            seed):
+    """A K3 case (normalised decode) in the same form as ``fa_case``."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_decode import (decode_mask, flash_decode,
+                                                  flash_decode_reference)
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(B, Hq, D, generator=g).to(dev, dtype)
+    k = torch.randn(B, S, Hkv, D, generator=g).to(dev, dtype)
+    v = torch.randn(B, S, Hkv, D, generator=g).to(dev, dtype)
+    lens = torch.as_tensor(kv_len, dtype=torch.int32).to(dev)
+    allow = decode_mask(S, lens, window)
+    n_att = int(allow.sum())
+    isz = q.element_size()
+    qs, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    return {"name": name, "kernel": "flash_decode", "counter": flash_decode,
+            "dtype": dtype, "tols": [(2e-5, 2e-5) if dtype == torch.float32
+                                     else BF16_TOLS],
+            "run": lambda: ops.decode_attention(q, k, v, lens, window=window),
+            "plain": lambda: flash_decode_reference(q, k, v, lens,
+                                                    window=window),
+            "library": lambda: sdpa(qs, kt, vt, allow[:, None, None]),
+            "nbytes": 2 * n_att * Hkv * D * isz + 2 * q.numel() * isz + 4 * B,
+            "flops": 4 * n_att * Hq * D, "plain_iters": 10,
+            "shape": {"B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "D": D,
+                      "window": window, "attended": n_att}}
+
+
+def wkv_case(dev, name, B, T, H, hd, *, seed, plain_iters=2):
+    """A K4 case; no single PyTorch call computes the scan (library null)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rwkv_scan import wkv6, wkv6_reference
+    g = torch.Generator().manual_seed(seed)
+    r, k, v = (torch.randn(B, T, H, hd, generator=g).to(dev)
+               for _ in range(3))
+    w = torch.sigmoid(torch.randn(B, T, H, hd, generator=g)).to(dev)
+    u = torch.randn(H, hd, generator=g).to(dev)
+    s0 = (0.1 * torch.randn(B, H, hd, hd, generator=g)).to(dev)
+    n = B * T * H * hd
+    return {"name": name, "kernel": "wkv6", "counter": wkv6,
+            "dtype": torch.float32, "tols": [(1e-4, 1e-4)] * 2,
+            "run": lambda: ops.wkv6_scan(r, k, v, w, u, s0),
+            "plain": lambda: wkv6_reference(r, k, v, w, u, s0),
+            "library": None,
+            # r, k, v, w read and y written once; u; the state in and out
+            "nbytes": 4 * (5 * n + H * hd + 2 * B * H * hd * hd),
+            # y_j = sum_i r_i S_ij + v_j sum_i r_i u_i k_i and
+            # S_ij = w_i S_ij + k_i v_j: 5 flops per (token, head, key,
+            # value), and 5 per (token, head, value) for the u term
+            "flops": 5 * n * hd + 5 * n, "plain_iters": plain_iters,
+            "shape": {"B": B, "T": T, "H": H, "hd": hd}}
+
+
+def entry_point_cases(dev):
+    """Tiny float32 cases (dead rows, a window, non-causal unaligned
+    lengths) and cases at the published widths of llama3.2-3b, gemma3-4b
+    and rwkv6-1.6b."""
+    import numpy as np
+    import torch
+    f32, bf16 = torch.float32, torch.bfloat16
+    rng = np.random.default_rng(0)
+    tiny = [
+        fa_case(dev, "fa_tiny_context_mass", f32, 2, 24, 16, 4, 2, 32,
+                mass=True, seed=1),
+        fa_case(dev, "fa_tiny_noncausal_unaligned", f32, 1, 12, 0, 2, 2,
+                16, causal=False, seed=2),
+        fa_case(dev, "fa_tiny_window", f32, 1, 70, 0, 2, 1, 16, window=9,
+                seed=3),
+        fd_case(dev, "fd_tiny_dead_rows", f32, 3, 40, 4, 2, 16, [0, 17, 40],
+                seed=4),
+        fd_case(dev, "fd_tiny_window", f32, 2, 300, 8, 2, 64, [300, 123],
+                window=50, seed=5),
+        wkv_case(dev, "wkv_tiny", 2, 40, 3, 16, seed=6,
+                 plain_iters=5),
+    ]
+    full = [
+        # llama3.2-3b-pair: a sender prefill of 2,049 tokens
+        fa_case(dev, "sender_prefill_2049", bf16, 1, 2049, 0, 24, 8, 128,
+                seed=7),
+        # the receiver's bucketed prefill over a 2,049-token context
+        fa_case(dev, "receiver_prefill_mass", bf16, 4, 32, 2049, 24, 8, 128,
+                mass=True, seed=8),
+        # gemma3-4b local layer: sliding window 1024
+        fa_case(dev, "gemma3_local_window", bf16, 1, 4096, 0, 8, 4, 256,
+                window=1024, seed=9),
+        # llama3.2-3b widths over a 32k cache, ragged lengths
+        fd_case(dev, "long_cache_32k", bf16, 4, 32768, 24, 8, 128,
+                rng.integers(16384, 32769, 4), seed=10),
+        # gemma3-4b local layer decode: window 1024 over an 8k cache
+        fd_case(dev, "gemma3_window_decode", bf16, 4, 8192, 8, 4, 256,
+                rng.integers(1024, 8193, 4), window=1024, seed=11),
+        # rwkv6-1.6b: 32 heads of 64, 2,048 tokens
+        wkv_case(dev, "rwkv6_1_6b_scan", 4, 2048, 32, 64, seed=12),
+    ]
+    return tiny, full
+
+
+def _pieces(x):
+    return [p for p in (x if isinstance(x, tuple) else (x,))
+            if p is not None]
+
+
+def compare_case(case, flush):
+    """The kernel against its plain version on the same inputs, element by
+    element at the case's tolerance for each output, then timed beside it,
+    the library call and the bound. The launches made here are taken back
+    off the counter."""
+    import torch
+    counter = case["counter"]
+    launches0 = counter.launches
+    got = _pieces(case["run"]())
+    want = _pieces(case.get("check_plain", case["plain"])())
+    torch.cuda.synchronize()
+    name = case["name"]
+    check(len(got) == len(want) <= len(case["tols"]), f"{name}: output count")
+    err, rel, ratio = 0.0, 0.0, 0.0
+    for a, b, (atol, rtol) in zip(got, want, case["tols"]):
+        check(a.shape == b.shape, f"{name}: shape {a.shape} vs {b.shape}")
+        check(bool(torch.isfinite(a.float()).all()),
+              f"{name}: non-finite output")
+        r, e = tol_ratio(a, b, atol, rtol)
+        check(r <= 1.0, f"{name}: |kernel - plain| reaches {r:.3g}x its "
+              f"bound {atol} * rms + {rtol} * |plain| (max abs err {e:.3g})")
+        s = float(b.float().abs().max()) if b.numel() else 0.0
+        err, rel = max(err, e), max(rel, e / max(s, 1e-30))
+        ratio = max(ratio, r)
+    if "extra_check" in case:
+        case["extra_check"](got[0])
+    dname = str(case["dtype"]).replace("torch.", "")
+    t_bytes = case["nbytes"] / HBM_BYTES_PER_S
+    t_ops = case["flops"] / PEAK_FLOPS[dname]
+    ms = time_ms(case["run"], flush=flush)
+    plain_ms = time_ms(case["plain"], iters=case["plain_iters"],
+                       flush=flush, warmup=1)
+    library_ms = (time_ms(case["library"], flush=flush)
+                  if case["library"] is not None else None)
+    dev_ms = {k: time_ms(case[k], iters=case["plain_iters"] if k == "plain"
+                         else 20, flush=flush, warmup=0, queue_ahead=True)
+              if case[k] is not None else None
+              for k in ("run", "plain", "library")}
+    counter.launches = launches0
+    return {"case": name, "kernel": case["kernel"], "dtype": dname,
+            **case["shape"], "max_abs_err": err, "rel_err": rel,
+            "tols": case["tols"][:len(got)], "tol_ratio": ratio, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "device_ms": dev_ms["run"], "plain_device_ms": dev_ms["plain"],
+            "library_device_ms": dev_ms["library"]}
+
+
+def phase_entry_point(dev, flush, smi):
+    """Drive ops.flash_attention / decode_attention / wkv6_scan at the full
+    published widths with the counters at 0 (the slice's main path), then
+    hold every case against its plain version and time it."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.rwkv_scan import wkv6
+    tiny, full = entry_point_cases(dev)
+    counters = (flash_attention, flash_decode, wkv6)
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0                      # the main path starts here
+    t0 = time.perf_counter()
+    outs = [case["run"]() for case in full]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    for case, out in zip(full, outs):
+        for p in _pieces(out):
+            check(bool(torch.isfinite(p.float()).all()),
+                  f"{case['name']}: non-finite output on the main path")
+    want = {"flash_attention": 3, "flash_decode": 2, "wkv6": 1}
+    check(launches == want, f"entry point launches {launches} != {want}")
+    del outs
+    emit({"phase": "entry_point_main_path", "cases": [c["name"]
+                                                      for c in full],
+          "launches": launches, "wall_s": wall, "card": smi})
+    results = []
+    for case in tiny + full:
+        results.append(compare_case(case, flush))
+        emit({"phase": "entry_point_kernel_vs_plain", **results[-1]})
+    return launches, results
+
+
+def phase_sharded_decode(dev, smi, flush, B=4, Hq=24, Hkv=8, D=128,
+                         S=32768, n=8):
+    """launch.distributed_decode.run at full width: the long_cache_32k
+    geometry split into 8 shards of 4,096, one K3 partials launch per shard
+    plus one for the monolithic decode, combined with the LSE rule; then
+    the device time of its sharded_decode (partials and combine, one
+    device) beside the monolithic one."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_reference)
+    from repro_torch.launch import distributed_decode
+    kv_len = np.random.default_rng(0).integers(S // 2, S + 1, B)
+    torch.cuda.synchronize()
+    flash_decode.launches = 0                # this path starts here
+    t0 = time.perf_counter()
+    res = distributed_decode.run(B, Hq, Hkv, D, S, n, "bfloat16",
+                                 device=dev, seed=0, kv_len=kv_len)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = flash_decode.launches
+    check(launches == n + 1, f"sharded decode: {launches} K3 launches, "
+          f"expected {n} shards + 1")
+    comb = res["combined"]
+    check(comb.shape == (B, Hq, D) and bool(torch.isfinite(comb).all()),
+          "sharded decode: bad combined output")
+    # the float32 combine against the bf16 monolithic decode and the plain
+    # decode on the same bf16 inputs: one bf16 rounding apart
+    q, k, v = (torch.from_numpy(x).to(dev, torch.bfloat16)
+               for x in distributed_decode.make_inputs(B, Hq, Hkv, D, S, 0))
+    lens = torch.as_tensor(kv_len, dtype=torch.int32, device=dev)
+    plain = flash_decode_reference(q, k, v, lens)
+    ratios = {}
+    for other, ref in (("monolithic", res["full"]), ("plain", plain)):
+        ratios[other], _ = tol_ratio(comb, ref.float(), *BF16_TOLS)
+        check(ratios[other] <= 1.0, f"sharded decode vs {other}: "
+              f"{ratios[other]:.3g}x the bound {BF16_TOLS}")
+    rel = res["max_abs_err"] / max(res["scale"], 1e-30)
+    sharded = lambda: distributed_decode.sharded_decode(    # noqa: E731
+        q, k, v, lens, n)
+    monolithic = lambda: ops.decode_attention(q, k, v, lens)  # noqa: E731
+    times = {"sharded_ms": time_ms(sharded, flush=flush),
+             "monolithic_ms": time_ms(monolithic, flush=flush),
+             "sharded_device_ms": time_ms(sharded, flush=flush,
+                                          queue_ahead=True),
+             "monolithic_device_ms": time_ms(monolithic, flush=flush,
+                                             queue_ahead=True)}
+    flash_decode.launches = launches
+    out = {"phase": "sharded_decode", "B": B, "Hq": Hq, "Hkv": Hkv, "D": D,
+           "S_total": S, "shards": n, "kv_len": [int(x) for x in kv_len],
+           "launches": launches, "combine_vs_monolithic_rel": rel,
+           "tol_ratio_vs_monolithic": ratios["monolithic"],
+           "tol_ratio_vs_plain": ratios["plain"], "tols": BF16_TOLS,
+           "partial_bytes_per_shard": res["partial_bytes_per_shard"],
+           "kv_bytes_per_shard": res["kv_bytes_per_shard"],
+           **times, "wall_s_with_input_generation": wall, "card": smi}
+    emit(out)
+    return out
+
+
+def kernel_entry(results, name, source, replaces, launches, main_case):
+    main = next(r for r in results if r["case"] == main_case)
+    mine = [r for r in results if r["kernel"] == name]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "main_case": main_case,
+            "device_ms": main["device_ms"],
+            "tol_ratio": max(r["tol_ratio"] for r in mine),
+            "shape": {k: v for k, v in main.items() if k not in (
+                "case", "kernel", "max_abs_err", "rel_err", "tols",
+                "tol_ratio", "ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "device_ms", "plain_device_ms",
+                "library_device_ms")}}
+
+
 def main() -> int:
     try:
         import torch
@@ -434,22 +793,35 @@ def main() -> int:
     layer = next(e for e in st["table"]["layers"] if e["prefix"])
     B = layer["k"].shape[0]
     q = torch.randn(B, 24, 128, device=dev, dtype=layer["k"].dtype)
-    main = kernel_case("main_path_selected_layer", q, layer["k"], layer["v"],
-                       st["table"]["len"] + 1, st["prefix_lens"],
-                       st["dst_prefix"], tol=2e-2, flush=flush)
+    main = compare_case(rd_case(
+        "main_path_selected_layer", q, layer["k"], layer["v"],
+        st["table"]["len"] + 1, st["prefix_lens"], st["dst_prefix"]), flush)
     emit({"phase": "kernel_at_main_path_shape", **main})
     steps = sum(r["stats"]["steps"] for r in runs.values())
-    kernels = {"kernels": [{
-        "name": "ragged_decode", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/ragged_decode.cu",
-        "replaces": "src/repro/kernels/ragged_decode.py:46",
-        "launches": launches, "launches_per_step": launches // max(steps, 1),
-        "max_abs_err": max(c["max_abs_err"] for c in cases + [main]),
-        "ms": main["ms"], "plain_ms": main["plain_ms"],
-        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-        "library_ms": main["library_ms"], "shape": {
-            k: main[k] for k in ("B", "Hq", "Hkv", "D", "Skv",
-                                 "prefix_len", "dtype", "attended")}}]}
+    del runs, st, layer, q
+    torch.cuda.empty_cache()
+    ep_launches, ep_results = phase_entry_point(dev, flush, smi)
+    sharded = phase_sharded_decode(dev, smi, flush)
+    results = cases + [main] + ep_results
+    kernels = {"kernels": [
+        {**kernel_entry(results, "ragged_decode",
+                        "src/repro_torch/kernels/csrc/ragged_decode.cu",
+                        "src/repro/kernels/ragged_decode.py:46", launches,
+                        "main_path_selected_layer"),
+         "launches_per_step": launches // max(steps, 1)},
+        kernel_entry(results, "flash_attention",
+                     "src/repro_torch/kernels/csrc/flash_attention.cu",
+                     "src/repro/kernels/flash_attention.py:31",
+                     ep_launches["flash_attention"], "sender_prefill_2049"),
+        kernel_entry(results, "flash_decode",
+                     "src/repro_torch/kernels/csrc/flash_decode.cu",
+                     "src/repro/kernels/flash_decode.py:32",
+                     ep_launches["flash_decode"] + sharded["launches"],
+                     "long_cache_32k"),
+        kernel_entry(results, "wkv6",
+                     "src/repro_torch/kernels/csrc/rwkv_scan.cu",
+                     "src/repro/kernels/rwkv_scan.py:25",
+                     ep_launches["wkv6"], "rwkv6_1_6b_scan")]}
     emit(kernels)
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

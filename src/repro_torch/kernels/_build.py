@@ -2,8 +2,10 @@
 library with a plain C interface, and load it with ``ctypes``.
 
 The library lands in ``<repo>/build/kernels/`` (listed in ``.gitignore``),
-named by a hash of the source and flags, so a fresh checkout builds on
-first use and an edited source rebuilds. Nothing is built at import time.
+named by a hash of the source, the headers of ``csrc/`` and the flags, so a
+fresh checkout builds on first use and an edited source or header
+rebuilds. Nothing is built at import time. ``load_all`` starts one ``nvcc``
+per source at once, so several kernels build in the time of the slowest.
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -32,26 +34,54 @@ def _nvcc() -> str:
     return path
 
 
+def _paths(name: str):
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.name.encode() + hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
+    return (src, BUILD_DIR / f"{name}-{digest}.so",
+            BUILD_DIR / f"{name}-{digest}.log")
+
+
+def load_all(names: Iterable[str]) -> Dict[str, ctypes.CDLL]:
+    """Build (if needed) and load ``csrc/<name>.cu`` for every name, with
+    the missing builds running side by side."""
+    wanted = list(dict.fromkeys(names))
+    names = [n for n in wanted if n not in _LIBS]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for name in names:
+        src, lib_path, log_path = _paths(name)
+        if lib_path.exists():
+            continue
+        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp.so")
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                                 str(src)], stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        jobs.append((src, tmp, lib_path, log_path, proc))
+    failed = []
+    for src, tmp, lib_path, log_path, proc in jobs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {src}:\n{err}")
+            continue
+        log_path.write_text(out + err)
+        os.replace(tmp, lib_path)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for name in names:
+        _, lib_path, log_path = _paths(name)
+        _LOGS[name] = log_path.read_text() if log_path.exists() else ""
+        _LIBS[name] = ctypes.CDLL(str(lib_path))
+    return {n: _LIBS[n] for n in wanted}
+
+
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``."""
-    if name in _LIBS:
-        return _LIBS[name]
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib_path = BUILD_DIR / f"{name}-{digest}.so"
-    log_path = BUILD_DIR / f"{name}-{digest}.log"
-    if not lib_path.exists():
-        tmp = BUILD_DIR / f"{name}-{digest}.{os.getpid()}.tmp.so"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(src)], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
-        log_path.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib_path)
-    _LOGS[name] = log_path.read_text() if log_path.exists() else ""
-    _LIBS[name] = ctypes.CDLL(str(lib_path))
+    if name not in _LIBS:
+        load_all([name])
     return _LIBS[name]
 
 

@@ -1,0 +1,153 @@
+"""Prefill attention over ``[context | self]`` with the fused Eq. (1)
+context mass.
+
+Replaces the Pallas kernel ``src/repro/kernels/flash_attention.py``
+(``_flash_kernel``). KV rows ``[0, context_len)`` are the sender prefix at
+absolute positions ``[0, context_len)``; self rows sit at ``q_offset + j``
+and query row i at ``q_offset + i``. Masks: causal on those positions,
+optional sliding ``window``, GQA. With ``collect_mass`` the second result
+is the attention mass on the context prefix, averaged over heads and query
+rows (the paper's Eq. (1)), shape (B,).
+
+The function is the oracle's (``ref.mha_reference``): no padding takes
+part, whatever the causal flag. (The Pallas kernel pads Sq and Skv to its
+block sizes and masks only with the padded lengths, so with
+``causal=False`` and unaligned lengths its zero keys leak into the
+softmax.) Rows that attend nothing give zeros.
+
+A long prefill is bound by operations, a short query over a long context
+by bytes; the CUDA kernel (``csrc/flash_attention.cu``) stages K/V tiles
+through shared memory with an online softmax and skips tiles outside the
+causal or window band. See the source for the design.
+
+``flash_attention`` takes its plain PyTorch version only for tensors on the
+CPU; for CUDA tensors it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+
+NEG_INF = -1e30
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
+             + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_int,
+                                           ctypes.c_void_p])
+
+
+def attention_mask(Sq: int, Skv: int, *, context_len: int = 0,
+                   q_offset: int = 0, causal: bool = True,
+                   window: Optional[int] = None, device=None) -> torch.Tensor:
+    """(Sq, Skv) bool mask of the attended (query row, KV row) pairs."""
+    q_pos = q_offset + torch.arange(Sq, device=device)[:, None]
+    idx = torch.arange(Skv, device=device)[None, :]
+    kv_pos = torch.where(idx < context_len, idx,
+                         q_offset + (idx - context_len))
+    allow = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+    if causal:
+        allow &= kv_pos <= q_pos
+    if window is not None:
+        allow &= (q_pos - kv_pos) < window
+    return allow
+
+
+def flash_attention_reference(q, k, v, *, context_len: int = 0,
+                              q_offset: int = 0, causal: bool = True,
+                              window: Optional[int] = None,
+                              collect_mass: bool = False):
+    """Plain PyTorch version (a port of ``ref.mha_reference``), computed in
+    float32 and returned in q's dtype; rows that attend nothing give zeros.
+    q: (B, Sq, Hq, D); k/v: (B, Skv, Hkv, D). Returns (out, mass|None)."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    allow = attention_mask(Sq, Skv, context_len=context_len,
+                           q_offset=q_offset, causal=causal, window=window,
+                           device=q.device)
+    qg = q.float().reshape(B, Sq, Hkv, G, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()).mul_(
+        1.0 / math.sqrt(D))
+    s.masked_fill_(~allow, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = s.sub_(m).exp_().masked_fill_(~allow, 0.0)       # in place: s is big
+    l = p.sum(dim=-1, keepdim=True)
+    p.div_(l.clamp_min(1e-30))
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    out = out.reshape(B, Sq, Hq, D).to(q.dtype)
+    mass = None
+    if collect_mass:
+        ctx = (torch.arange(Skv, device=q.device) < context_len).float()
+        mass = (p @ ctx).mean(dim=(1, 2, 3))
+    return out, mass
+
+
+def _launch(q, k, v, context_len, q_offset, causal, window, collect_mass):
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention takes one of {list(_DTYPE_CODE)} "
+                        f"for q, k and v; got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if Hq % Hkv or not 1 <= D <= 256:
+        raise ValueError(f"unsupported geometry Hq={Hq} Hkv={Hkv} D={D} "
+                         "(needs Hq a multiple of Hkv and D <= 256)")
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"shape mismatch q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} v{tuple(v.shape)}")
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
+        raise ValueError("flash_attention needs a contiguous head dim")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("all flash_attention inputs must share a device")
+    if window is not None and window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
+    rows = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+            if collect_mass else None)
+    if B and Sq:
+        lib = _build.load("flash_attention")
+        fn = lib.flash_attention_launch
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 None if rows is None else rows.data_ptr(), B, Sq, Skv, Hq,
+                 Hkv, D, int(context_len), int(q_offset), int(bool(causal)),
+                 -1 if window is None else int(window), *q.stride()[:3],
+                 *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+                 1.0 / math.sqrt(D), _DTYPE_CODE[q.dtype],
+                 torch.cuda.current_stream(q.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                               f"error {err}")
+        flash_attention.launches += 1
+    # the per-row masses reduce to Eq. (1) outside the kernel, as the
+    # reference's wrapper does
+    mass = rows.mean(dim=(1, 2)) if collect_mass else None
+    return out, mass
+
+
+def flash_attention(q, k, v, *, context_len: int = 0, q_offset: int = 0,
+                    causal: bool = True, window: Optional[int] = None,
+                    collect_mass: bool = False
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(B, S, H, D)-layout attention with KVComm prefix semantics.
+
+    q: (B, Sq, Hq, D); k/v: (B, Skv, Hkv, D). Returns (out in q's dtype,
+    mass (B,) float32 or None). ``flash_attention.launches`` counts kernel
+    launches."""
+    if q.device.type == "cpu":
+        return flash_attention_reference(
+            q, k, v, context_len=context_len, q_offset=q_offset,
+            causal=causal, window=window, collect_mass=collect_mass)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    return _launch(q, k, v, context_len, q_offset, causal, window,
+                   collect_mass)
+
+
+flash_attention.launches = 0

@@ -13,6 +13,8 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
+
 
 def _nest(flat: Mapping[str, Any]) -> Dict[str, Any]:
     """Flat 'a/b/c' keys -> nested dicts; the 'blocks' level becomes a list
@@ -35,10 +37,13 @@ def _tensor(a, device, dtype) -> torch.Tensor:
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
-def params_from_jax(tree: Mapping[str, Any], *, device="cpu",
+def params_from_jax(tree: Mapping[str, Any], *, device=None,
                     dtype: torch.dtype = None) -> Dict[str, Any]:
     """Reference parameters (nested numpy tree, or flat checkpoint keys) ->
-    the port's parameters on ``device`` (cast to ``dtype`` if given)."""
+    the port's parameters on ``device`` (cast to ``dtype`` if given). The
+    default device is the card: without one this raises unless the caller
+    passes ``device="cpu"``."""
+    device = resolve_device(device)
     if any("/" in k for k in tree):
         tree = _nest(tree)
     conv = lambda a: _tensor(a, device, dtype)                # noqa: E731

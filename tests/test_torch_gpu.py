@@ -118,3 +118,179 @@ def test_scheduler_on_card_matches_serial(cuda):
     assert ragged_decode.launches - before > 0
     for a, b in zip(ser, got):
         np.testing.assert_array_equal(a.tokens, b.tokens)
+
+
+# --- K2 flash_attention, K3 flash_decode, K4 wkv6 against their plain
+# versions (same tolerances as above; RWKV6 1e-4 as in the reference's
+# tests, for a recurrence over up to 100 steps)
+
+def _randn(dev, dtype, *shape, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(*shape, generator=g).to(dev, dtype)
+
+
+@pytest.mark.parametrize("B,Sq,Sc,Hq,Hkv,D,causal,window,mass", [
+    (1, 8, 0, 1, 1, 16, True, None, False),
+    (2, 24, 16, 4, 2, 32, True, None, True),
+    (1, 17, 5, 6, 3, 64, True, None, True),
+    (1, 12, 0, 2, 2, 16, False, None, False),   # non-causal, unaligned
+    (1, 9, 5, 2, 1, 16, False, None, True),     # non-causal with context
+    (1, 70, 0, 2, 2, 16, True, 9, False),       # sliding window
+    (2, 100, 30, 4, 2, 128, True, 40, True),
+    (1, 65, 0, 2, 1, 256, True, None, False),   # D 256: the 32-row tiles
+])
+def test_flash_attention_matches_plain_float32(cuda, B, Sq, Sc, Hq, Hkv, D,
+                                               causal, window, mass):
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_reference)
+    q = _randn(cuda, torch.float32, B, Sq, Hq, D, seed=1)
+    k = _randn(cuda, torch.float32, B, Sc + Sq, Hkv, D, seed=2)
+    v = _randn(cuda, torch.float32, B, Sc + Sq, Hkv, D, seed=3)
+    kw = dict(context_len=Sc, q_offset=Sc, causal=causal, window=window,
+              collect_mass=mass)
+    before = flash_attention.launches
+    out, m = flash_attention(q, k, v, **kw)
+    assert flash_attention.launches == before + 1
+    ref, rm = flash_attention_reference(q, k, v, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+    if mass:
+        torch.testing.assert_close(m, rm, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_attention_matches_plain_half(cuda, dtype):
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_reference)
+    q = _randn(cuda, dtype, 2, 96, 24, 128, seed=4)
+    k = _randn(cuda, dtype, 2, 96 + 200, 8, 128, seed=5)
+    v = _randn(cuda, dtype, 2, 96 + 200, 8, 128, seed=6)
+    kw = dict(context_len=200, q_offset=200, collect_mass=True)
+    out, m = flash_attention(q, k, v, **kw)
+    ref, rm = flash_attention_reference(q, k, v, **kw)
+    rel = (out.float() - ref.float()).abs().max() / ref.float().abs().max()
+    assert float(rel) <= 2e-2
+    torch.testing.assert_close(m, rm, atol=2e-3, rtol=2e-2)
+
+
+def test_flash_attention_reads_strided_inputs(cuda):
+    """Views of a stacked (3, B, S, H, D) tensor with their heads sliced are
+    read in place through strides."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_reference)
+    stack = torch.randn(3, 2, 40, 6, 32, device=cuda)
+    q, k, v = stack[0, :, :, :4], stack[1, :, :, :2], stack[2, :, :, 2:4]
+    assert not q.is_contiguous()
+    out, m = flash_attention(q, k, v, context_len=8, q_offset=8,
+                             collect_mass=True)
+    ref, rm = flash_attention_reference(
+        q.contiguous(), k.contiguous(), v.contiguous(), context_len=8,
+        q_offset=8, collect_mass=True)
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(m, rm, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,window", [
+    (3, 40, 4, 2, 16, None), (2, 300, 8, 2, 64, None),
+    (4, 1000, 24, 8, 128, None), (2, 700, 8, 4, 256, 100),
+    (3, 33, 6, 6, 32, 5), (2, 5000, 8, 1, 64, 1024)])
+def test_flash_decode_matches_plain_float32(cuda, B, S, Hq, Hkv, D, window):
+    """Normalised and partial outputs, dead rows (kv_len 0) included, over
+    lengths that split each row over several blocks."""
+    from repro_torch.kernels.flash_decode import (
+        decode_partial_reference, flash_decode, flash_decode_partials,
+        flash_decode_reference)
+    q = _randn(cuda, torch.float32, B, Hq, D, seed=7)
+    k = _randn(cuda, torch.float32, B, S, Hkv, D, seed=8)
+    v = _randn(cuda, torch.float32, B, S, Hkv, D, seed=9)
+    g = torch.Generator().manual_seed(10)
+    kv_len = torch.randint(1, S + 1, (B,), generator=g)
+    kv_len[0] = 0
+    kv_len = kv_len.to(cuda, torch.int32)
+    before = flash_decode.launches
+    out = flash_decode(q, k, v, kv_len, window=window)
+    o, m, l = flash_decode_partials(q, k, v, kv_len, window=window)
+    assert flash_decode.launches == before + 2
+    ref = flash_decode_reference(q, k, v, kv_len, window=window)
+    ro, rm, rl = decode_partial_reference(q, k, v, kv_len, window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+    assert torch.all(out[0] == 0) and torch.all(l[0] == 0)
+    for a, b in ((o, ro), (m, rm), (l, rl)):
+        torch.testing.assert_close(a, b, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_decode_matches_plain_half(cuda, dtype):
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_reference)
+    q = _randn(cuda, dtype, 4, 24, 128, seed=11)
+    k = _randn(cuda, dtype, 4, 3000, 8, 128, seed=12)
+    v = _randn(cuda, dtype, 4, 3000, 8, 128, seed=13)
+    kv_len = torch.tensor([3000, 17, 1500, 2999], dtype=torch.int32,
+                          device=cuda)
+    out = flash_decode(q, k, v, kv_len).float()
+    ref = flash_decode_reference(q, k, v, kv_len).float()
+    assert float((out - ref).abs().max() / ref.abs().max()) <= 2e-2
+
+
+def test_flash_decode_reads_strided_cache(cuda):
+    """A layer slice of a stacked cache is read in place; every launch adds
+    one to the counter."""
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_reference)
+    stack = torch.randn(3, 2, 300, 2, 64, device=cuda)
+    k, v = stack[1, :, :250], stack[2, :, :250]
+    q = torch.randn(2, 6, 64, device=cuda)
+    before = flash_decode.launches
+    out = flash_decode(q, k, v, 200, window=77)
+    assert flash_decode.launches == before + 1
+    ref = flash_decode_reference(q, k.contiguous(), v.contiguous(), 200,
+                                 window=77)
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("B,T,H,hd", [(1, 16, 1, 8), (2, 40, 3, 16),
+                                      (1, 64, 2, 32), (2, 100, 2, 64),
+                                      (1, 20, 1, 128)])
+def test_wkv6_matches_plain(cuda, B, T, H, hd):
+    from repro_torch.kernels.rwkv_scan import wkv6, wkv6_reference
+    r, k, v = (_randn(cuda, torch.float32, B, T, H, hd, seed=s)
+               for s in (14, 15, 16))
+    w = torch.sigmoid(_randn(cuda, torch.float32, B, T, H, hd, seed=17))
+    u = _randn(cuda, torch.float32, H, hd, seed=18)
+    s0 = _randn(cuda, torch.float32, B, H, hd, hd, seed=19)
+    before = wkv6.launches
+    y, s = wkv6(r, k, v, w, u, s0)
+    assert wkv6.launches == before + 1
+    ry, rs = wkv6_reference(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, ry, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(s, rs, atol=1e-4, rtol=1e-4)
+
+
+def test_wkv6_reads_strided_inputs(cuda):
+    """(B, H, T, hd) tensors transposed to (B, T, H, hd) are read in place."""
+    from repro_torch.kernels.rwkv_scan import wkv6, wkv6_reference
+    r, k, v, w = (torch.randn(2, 3, 50, 16, device=cuda).transpose(1, 2)
+                  for _ in range(4))
+    w = torch.sigmoid(w)
+    u = torch.randn(3, 16, device=cuda)
+    s0 = torch.zeros(2, 3, 16, 16, device=cuda)
+    y, s = wkv6(r, k, v, w, u, s0)
+    ry, rs = wkv6_reference(r, k, v, w, u, s0)
+    torch.testing.assert_close(y, ry, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(s, rs, atol=1e-4, rtol=1e-4)
+
+
+def test_distributed_decode_on_card(cuda):
+    """The sharded decode: one K3 launch per shard plus one for the
+    monolithic decode, and the combine agrees with it."""
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.launch import distributed_decode
+    before = flash_decode.launches
+    res = distributed_decode.run(4, 24, 8, 128, 4096, 8, "float32",
+                                 device="cuda", seed=1,
+                                 kv_len=np.array([4096, 3000, 17, 2049]))
+    assert flash_decode.launches == before + 9
+    assert res["max_abs_err"] < 1e-4

@@ -195,7 +195,7 @@ def test_params_bridge_accepts_flat_checkpoint_keys(tiny_params, pair):
     from repro.training.checkpoint import _flatten
     from repro_torch.weights import params_from_jax
     _, nested = pair
-    flat = params_from_jax(_flatten(tiny_params))
+    flat = params_from_jax(_flatten(tiny_params), device="cpu")
     assert flat.keys() == nested.keys()
     assert len(flat["layers"]) == len(nested["layers"]) == 4
     for a, b in zip(flat["layers"], nested["layers"]):
@@ -203,6 +203,19 @@ def test_params_bridge_accepts_flat_checkpoint_keys(tiny_params, pair):
             for k in a[grp]:
                 assert torch.equal(a[grp][k], b[grp][k])
     assert torch.equal(flat["lm_head"], nested["lm_head"])
+
+
+def test_params_bridge_defaults_to_the_card(tiny_params, monkeypatch):
+    """Like every other entry point, params_from_jax runs on the card
+    unless told otherwise: without a card and without device="cpu" it
+    raises instead of quietly building CPU tensors."""
+    from repro.training.checkpoint import _flatten
+    from repro_torch.weights import params_from_jax
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_jax(_flatten(tiny_params))
+    cpu = params_from_jax(_flatten(tiny_params), device="cpu")
+    assert cpu["embed"].device.type == "cpu"
 
 
 def test_init_distributions(pair):

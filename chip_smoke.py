@@ -39,7 +39,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
      8 shards (counter at 0 first): one K3 launch per shard plus the
      monolithic decode, the LSE combine checked against both; then its
      sharded_decode timed beside the monolithic decode.
-  7. the kernels line — one JSON object listing every kernel (K1-K4).
+  7. the kernels line — one JSON object listing every kernel (K1-K4),
+     with each one's device ms over SDPA's at its main case.
 
 The second-to-last line is nvidia-smi's name and power limit; the last line
 is {"ok": true, "device": {...}}.
@@ -753,6 +754,11 @@ def kernel_entry(results, name, source, replaces, launches, main_case):
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "main_case": main_case,
             "device_ms": main["device_ms"],
+            "library_device_ms": main["library_device_ms"],
+            # the kernel's device time over SDPA's for the same function
+            "device_ms_over_sdpa": (
+                main["device_ms"] / main["library_device_ms"]
+                if main["library_device_ms"] else None),
             "tol_ratio": max(r["tol_ratio"] for r in mine),
             "shape": {k: v for k, v in main.items() if k not in (
                 "case", "kernel", "max_abs_err", "rel_err", "tols",

@@ -46,4 +46,33 @@ __device__ __forceinline__ float group_max(float x) {
   return x;
 }
 
+// One log-sum-exp merge step of two softmax partials, each an unnormalised
+// sum o with its running max m and denominator l: folds (m2, l2) into
+// (m, l) and returns the factors the two sums take,
+//     o = o * f.x + o2 * f.y
+// (and the same for any other sum rescaled like o, such as a context
+// mass). A side with l == 0 attended nothing and adds nothing, so a merge
+// of empty partials stays at (m, 0) and normalises to exact zeros.
+__device__ __forceinline__ float2 lse_merge(float& m, float& l, float m2,
+                                            float l2) {
+  if (!(l2 > 0.f)) return make_float2(1.f, 0.f);
+  if (!(l > 0.f)) {
+    m = m2;
+    l = l2;
+    return make_float2(0.f, 1.f);
+  }
+  const float M = fmaxf(m, m2);
+  const float2 f = make_float2(expf(m - M), expf(m2 - M));
+  l = l * f.x + l2 * f.y;
+  m = M;
+  return f;
+}
+
+// The same step for a merge of many partials in two passes (first the
+// largest max M of the partials with l > 0, then the sums): the factor a
+// partial (m, l) takes, zero for one that attended nothing.
+__device__ __forceinline__ float lse_scale(float m, float l, float M) {
+  return l > 0.f ? expf(m - M) : 0.f;
+}
+
 }  // namespace kern

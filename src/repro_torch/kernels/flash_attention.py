@@ -16,9 +16,14 @@ block sizes and masks only with the padded lengths, so with
 softmax.) Rows that attend nothing give zeros.
 
 A long prefill is bound by operations, a short query over a long context
-by bytes; the CUDA kernel (``csrc/flash_attention.cu``) stages K/V tiles
-through shared memory with an online softmax and skips tiles outside the
-causal or window band. See the source for the design.
+by bytes. The CUDA source (``csrc/flash_attention.cu``) has two kernels,
+picked by dtype and counted as one launch: for bf16/fp16, tensor cores
+(``wgmma``) fed by TMA with the GQA rows of a KV head packed into one tile
+and, when the grid would be small, the KV range split over blocks and
+merged with the log-sum-exp rule (``flash_attention_split_reference`` is
+that decomposition in plain PyTorch, for the tests); for float32, the
+CUDA-core kernel. Both skip tiles outside the causal or window band. See
+the source for the design.
 
 ``flash_attention`` takes its plain PyTorch version only for tensors on the
 CPU; for CUDA tensors it launches the kernel or raises.
@@ -35,9 +40,31 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 12
              + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_int,
                                            ctypes.c_void_p])
+BLOCK_M = 64            # packed (query row, head) rows per block
+_SMS = {}
+
+
+def kv_tile(D: int) -> int:
+    """KV positions per tile of the bf16/fp16 kernel (64; 32 when the head
+    dim pads past 192, for the output accumulator's registers)."""
+    return 32 if -(-D // 64) * 64 > 192 else 64
+
+
+def split_plan(B: int, Sq: int, Skv: int, Hkv: int, G: int, D: int,
+               sms: int) -> Tuple[int, int]:
+    """(nsplit, KV tiles per split) of the bf16/fp16 kernel: a grid of
+    fewer blocks than SMs splits each query tile's KV tiles over about
+    2 * sms / blocks blocks, at least two tiles each."""
+    nkt = -(-Skv // kv_tile(D))
+    blocks = -(-Sq * G // BLOCK_M) * Hkv * B
+    nsplit = 1
+    if blocks < sms and nkt >= 4:
+        nsplit = min(-(-2 * sms // blocks), nkt // 2)
+    per = -(-nkt // nsplit)
+    return -(-nkt // per), per
 
 
 def attention_mask(Sq: int, Skv: int, *, context_len: int = 0,
@@ -86,6 +113,83 @@ def flash_attention_reference(q, k, v, *, context_len: int = 0,
     return out, mass
 
 
+def flash_attention_split_reference(q, k, v, *, context_len: int = 0,
+                                    q_offset: int = 0, causal: bool = True,
+                                    window: Optional[int] = None,
+                                    collect_mass: bool = False,
+                                    nsplit: int = 1, kt_per_split=None):
+    """The bf16/fp16 CUDA kernel's decomposition in plain PyTorch (float32),
+    for the tests: GQA rows packed per KV head (row r = query row r // G,
+    head r % G), the KV range cut into ``nsplit`` splits of
+    ``kt_per_split`` tiles (``kv_tile(D)`` positions each), a float32
+    partial (o, m, l, context mass) per split, merged with the log-sum-exp
+    rule. Returns (out in q's dtype, mass (B,) or None) like
+    ``flash_attention_reference``."""
+    from repro_torch.kernels.ragged_decode import lse_merge
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    nkt = max(1, -(-Skv // kv_tile(D)))
+    per = kt_per_split or -(-nkt // nsplit)
+    span = per * kv_tile(D)
+    allow = attention_mask(Sq, Skv, context_len=context_len,
+                           q_offset=q_offset, causal=causal, window=window,
+                           device=q.device)
+    # packed rows (B, Hkv, Sq * G, D): r = i * G + g
+    qp = q.float().reshape(B, Sq, Hkv, G, D).permute(0, 2, 1, 3, 4)
+    qp = qp.reshape(B, Hkv, Sq * G, D) / math.sqrt(D)
+    allow_p = allow.repeat_interleave(G, dim=0)              # (Sq * G, Skv)
+    ctx = torch.arange(Skv, device=q.device) < context_len
+    parts = []
+    for c0 in range(0, nsplit * span, span):
+        c1 = min(c0 + span, Skv)
+        if c0 >= c1:
+            continue
+        kk, vv = (x.float()[:, c0:c1].permute(0, 2, 1, 3) for x in (k, v))
+        s = torch.einsum("bhrd,bhcd->bhrc", qp, kk)
+        live = allow_p[:, c0:c1]
+        s = s.masked_fill(~live, NEG_INF)
+        m = s.amax(-1)
+        p = torch.exp(s - m[..., None]).masked_fill(~live, 0.0)
+        parts.append((torch.einsum("bhrc,bhcd->bhrd", p, vv), m,
+                      p.sum(-1), (p * ctx[c0:c1]).sum(-1)))
+    o, m, l, ms = (torch.stack(x, dim=2) for x in zip(*parts))
+    # the mass rides along with o as one more trailing column
+    om, _, l = lse_merge(torch.cat([o, ms[..., None]], -1), m, l, dim=2)
+    inv = torch.where(l > 0, 1.0 / l.clamp_min(1e-30), torch.zeros_like(l))
+    out = (om[..., :D] * inv[..., None]).reshape(B, Hkv, Sq, G, D)
+    out = out.permute(0, 2, 1, 3, 4).reshape(B, Sq, Hq, D).to(q.dtype)
+    mass = (om[..., D] * inv).mean(dim=(1, 2)) if collect_mass else None
+    return out, mass
+
+
+def _sm_count(device) -> int:
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def _check_tma(q, k, v):
+    """bf16/fp16 inputs are read by TMA (k, v) and 16-byte loads (q): every
+    base and stride must be a multiple of 16 bytes, D a multiple of 16."""
+    D = q.shape[-1]
+    if D % 16:
+        raise ValueError(f"flash_attention in {q.dtype} needs the head dim "
+                         f"a multiple of 16 for the tensor-core kernel, got "
+                         f"{D}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        es = x.element_size()
+        if x.data_ptr() % 16 or any((st * es) % 16 for st, n in
+                                    zip(x.stride()[:3], x.shape[:3])
+                                    if n > 1):
+            raise ValueError(
+                f"flash_attention in {q.dtype} reads {name} with TMA and "
+                f"16-byte loads: its base address and its strides "
+                f"{tuple(x.stride())} must be multiples of 16 bytes")
+
+
 def _launch(q, k, v, context_len, q_offset, causal, window, collect_mass):
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
@@ -105,20 +209,37 @@ def _launch(q, k, v, context_len, q_offset, causal, window, collect_mass):
         raise ValueError("all flash_attention inputs must share a device")
     if window is not None and window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
+    tc = q.dtype != torch.float32
+    if tc and B and Sq:
+        _check_tma(q, k, v)
     out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
     rows = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
             if collect_mass else None)
-    if B and Sq:
+    if tc and B and Sq and not Skv:      # nothing to attend: zeros, no launch
+        out.zero_()
+        if rows is not None:
+            rows.zero_()
+    elif B and Sq:
+        G = Hq // Hkv
+        nsplit, per = (split_plan(B, Sq, Skv, Hkv, G, D, _sm_count(q.device))
+                       if tc and Skv else (1, 0))
+        # split partials: o (B, Hkv, nsplit, Sq*G, DP), then m, l and mass
+        scratch = (torch.empty(B * Hkv * nsplit * Sq * G
+                               * (-(-D // 64) * 64 + 3),
+                               dtype=torch.float32, device=q.device)
+                   if nsplit > 1 else None)
         lib = _build.load("flash_attention")
         fn = lib.flash_attention_launch
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 None if rows is None else rows.data_ptr(), B, Sq, Skv, Hq,
-                 Hkv, D, int(context_len), int(q_offset), int(bool(causal)),
-                 -1 if window is None else int(window), *q.stride()[:3],
-                 *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-                 1.0 / math.sqrt(D), _DTYPE_CODE[q.dtype],
+                 None if rows is None else rows.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), B, Sq, Skv,
+                 Hq, Hkv, D, int(context_len), int(q_offset),
+                 int(bool(causal)), -1 if window is None else int(window),
+                 nsplit, per, *q.stride()[:3], *k.stride()[:3],
+                 *v.stride()[:3], *out.stride()[:3], 1.0 / math.sqrt(D),
+                 _DTYPE_CODE[q.dtype],
                  torch.cuda.current_stream(q.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"flash_attention kernel launch failed: CUDA "

@@ -11,10 +11,16 @@ and position j of row b is attended when
 the caller. Rows that attend nothing (dead slots) give exact zeros.
 
 On Hopper the step is bound by the bytes of K and V it reads (a few flops
-per byte), so the CUDA kernel (``csrc/ragged_decode.cu``) reads each
-attended K/V row once for all G query heads of its KV-head group, straight
-from the cache's own (B, Skv, Hkv, D) layout through strides, and skips
-masked positions before loading them. See the source for the design.
+per byte), so the CUDA kernel (``csrc/ragged_decode.cu``) visits only the
+attended positions of each row, splits them over blocks of ``chunk``
+positions (split-KV), stages each block's K/V rows through shared memory
+with ``cp.async`` straight from the cache's own (B, Skv, Hkv, D) layout,
+reads each row once for all G query heads of its KV-head group, and merges
+the float32 partials with the log-sum-exp rule in a second kernel of the
+same launch. The grid is sized from Skv alone, so a launch never reads the
+lengths back to the host. ``ragged_decode_split_reference`` is that
+decomposition in plain PyTorch, for the tests. See the source for the
+design.
 
 ``ragged_decode`` takes its plain PyTorch version only for tensors on the
 CPU; for CUDA tensors it launches the kernel or raises.
@@ -29,10 +35,12 @@ import torch
 
 from repro_torch.kernels import _build
 
+NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 10 + [ctypes.c_float, ctypes.c_int,
                                            ctypes.c_void_p])
+_CHUNKS = {}
 
 
 def per_row(x, B: int, device) -> torch.Tensor:
@@ -69,6 +77,75 @@ def ragged_decode_reference(q, k, v, kv_len, prefix_lens=None, *,
     return out.reshape(B, Hq, Dh)
 
 
+def attended_counts(kv_len, pfx, Skv: int, prefix_len: int):
+    """(B,) attended positions of each row and its real bucket entries:
+    ``n = min(pfx, prefix_len) + max(min(kv_len, Skv) - prefix_len, 0)``."""
+    pc = pfx.clamp(0, prefix_len)
+    return pc + (kv_len.clamp(max=Skv) - prefix_len).clamp_min(0), pc
+
+
+def lse_merge(o, m, l, dim: int):
+    """Merge float32 softmax partials along ``dim`` with the log-sum-exp
+    rule (o unnormalised, m the running max, l the denominator; o has one
+    more trailing axis than m and l). Partials with l == 0 add nothing;
+    returns the merged (o, m, l)."""
+    live = l > 0
+    M = torch.where(live, m, torch.full_like(m, NEG_INF)).amax(dim)
+    f = torch.where(live, torch.exp(m - M.unsqueeze(dim)),
+                    torch.zeros_like(m))
+    return ((o * f.unsqueeze(-1)).sum(dim), M, (l * f).sum(dim))
+
+
+def ragged_decode_split_reference(q, k, v, kv_len, prefix_lens=None, *,
+                                  prefix_len: int = 0, chunk: int = 128):
+    """The CUDA kernel's decomposition in plain PyTorch (float32), for the
+    tests: each row's attended positions are indexed ``t < n`` (the dead
+    bucket gap and the tail skipped), cut into splits of ``chunk``; each
+    split gives a partial (o, m, l) and the splits merge with the
+    log-sum-exp rule. Rows that attend nothing give exact zeros."""
+    B, S, Hkv, D = k.shape
+    Hq = q.shape[1]
+    G = Hq // Hkv
+    kv_len = per_row(kv_len, B, q.device)
+    pfx = per_row(prefix_len if prefix_lens is None else prefix_lens, B,
+                  q.device)
+    n, pc = attended_counts(kv_len, pfx, S, prefix_len)
+    nsplit = max(1, -(-S // chunk))
+    t = torch.arange(nsplit * chunk, device=q.device)
+    pos = torch.where(t[None] < pc[:, None], t[None],
+                      prefix_len + t[None] - pc[:, None])      # (B, T)
+    live = t[None] < n[:, None]
+    pos = torch.where(live, pos, torch.zeros_like(pos)).long()
+    rows = torch.arange(B, device=q.device)[:, None]
+    kt, vt = k.float()[rows, pos], v.float()[rows, pos]         # (B,T,Hkv,D)
+    qg = q.float().reshape(B, Hkv, G, D) / math.sqrt(D)
+    s = torch.einsum("bhgd,bthd->bhgt", qg, kt)
+    s = s.masked_fill(~live[:, None, None], NEG_INF)
+    s = s.reshape(B, Hkv, G, nsplit, chunk)
+    alive = live.reshape(B, 1, 1, nsplit, chunk)
+    m = s.amax(-1)
+    e = torch.where(alive, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    l = e.sum(-1)
+    o = torch.einsum("bhgsc,bschd->bhgsd", e,
+                     vt.reshape(B, nsplit, chunk, Hkv, D))
+    o, _, l = lse_merge(o, m, l, dim=3)
+    out = torch.where(l[..., None] > 0, o / l.clamp_min(1e-30)[..., None],
+                      torch.zeros_like(o))
+    return out.reshape(B, Hq, D)
+
+
+def chunk_positions(G: int, D: int, dtype) -> int:
+    """Attended positions one split block of the CUDA kernel covers (the
+    scratch is sized with it); asked of the library once per geometry."""
+    key = (G, D, dtype)
+    if key not in _CHUNKS:
+        fn = _build.load("ragged_decode").ragged_decode_chunk
+        fn.argtypes = [ctypes.c_int] * 3
+        fn.restype = ctypes.c_int
+        _CHUNKS[key] = fn(G, D, _DTYPE_CODE[dtype])
+    return _CHUNKS[key]
+
+
 def _launch(q, k, v, kv_len, pfx, prefix_len: int) -> torch.Tensor:
     B, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
@@ -93,14 +170,21 @@ def _launch(q, k, v, kv_len, pfx, prefix_len: int) -> torch.Tensor:
     out = torch.empty((B, Hq, D), dtype=q.dtype, device=q.device)
     if B == 0:
         return out
-    lib = _build.load("ragged_decode")
-    fn = lib.ragged_decode_launch
+    G = Hq // Hkv
+    nsplit = max(1, -(-Skv // chunk_positions(G, D, q.dtype)))
+    # float32 partials: o (B, Hkv, nsplit, G, D), then m and l
+    rows = B * Hkv * nsplit * G
+    scratch = torch.empty(rows * (D + 2), dtype=torch.float32,
+                          device=q.device)
+    fn = _build.load("ragged_decode").ragged_decode_launch
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
+    base = scratch.data_ptr()
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-             pfx.data_ptr(), out.data_ptr(), B, Hkv, Hq // Hkv, D, Skv,
-             prefix_len, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-             k.stride(2), v.stride(0), v.stride(1), v.stride(2),
+             pfx.data_ptr(), base, base + 4 * rows * D,
+             base + 4 * rows * (D + 1), out.data_ptr(), B, Hkv, G, D, Skv,
+             prefix_len, nsplit, q.stride(0), q.stride(1), k.stride(0),
+             k.stride(1), k.stride(2), v.stride(0), v.stride(1), v.stride(2),
              out.stride(0), out.stride(1), 1.0 / math.sqrt(D),
              _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device)
              .cuda_stream)

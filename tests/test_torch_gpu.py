@@ -83,6 +83,62 @@ def test_kernel_reads_through_strides_and_counts(cuda):
     torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
 
 
+def _close(out, want, dtype):
+    """float32: 2e-5 abs/rel; bf16/fp16: element by element within
+    1e-2 * rms(want) + 1e-2 * |want| (the output's last rounding), against a
+    plain version computed in float32."""
+    out, want = out.float(), want.float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, want, atol=2e-5, rtol=2e-5)
+        return
+    allow = 1e-2 * want.square().mean().sqrt() + 1e-2 * want.abs()
+    assert bool(((out - want).abs() <= allow).all()), float(
+        ((out - want).abs() / allow).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("G,D", [(1, 64), (3, 128), (8, 256), (3, 256),
+                                 (5, 64), (2, 128), (3, 20)])
+def test_split_kernel_many_splits_strided(cuda, dtype, G, D):
+    """The split-KV kernel over many splits of a strided cache (a layer
+    slice of a stacked (2, B, S, Hkv, D) buffer), gaps in the bucket and a
+    dead row, against the plain version on the same inputs in float32.
+    (D 20 in bf16/fp16 gives 40-byte rows, staged by plain loads.)"""
+    g = torch.Generator().manual_seed(G * 1000 + D)
+    B, S, P, Hkv = 4, 1500, 600, 2
+    stack = torch.randn(2, B, S + 7, Hkv, D, generator=g).to(cuda, dtype)
+    k, v = stack[0, :, :S], stack[1, :, :S]
+    q = torch.randn(B, G * Hkv, D, generator=g).to(cuda, dtype)
+    kv_len = torch.tensor([0, 1500, 900, 601], dtype=torch.int32,
+                          device=cuda)
+    pfx = torch.tensor([0, 600, 17, 0], dtype=torch.int32, device=cuda)
+    out = ragged_decode(q, k, v, kv_len, pfx, prefix_len=P)
+    want = ragged_decode_reference(q.float(), k.float(), v.float(), kv_len,
+                                   pfx, prefix_len=P)
+    torch.cuda.synchronize()
+    _close(out, want, dtype)
+    assert torch.all(out[0] == 0)
+
+
+def test_split_kernel_counts_once_and_zeroes_dead_rows(cuda):
+    """One call is one launch (the split and merge kernels of one entry
+    point); rows that attend nothing are exact zeros whatever the cache
+    holds there."""
+    B, S, P, Hq, Hkv, D = 4, 700, 256, 24, 8, 128
+    q, k, v, kv_len, pfx = _case(cuda, B, S, P, Hq, Hkv, D, torch.bfloat16,
+                                 seed=3)
+    kv_len[1:3] = torch.tensor([0, 100], dtype=torch.int32)
+    pfx[1:3] = 0                       # row 2: kv_len inside the bucket
+    k[1:3] = 1e4
+    before = ragged_decode.launches
+    out = ragged_decode(q, k, v, kv_len, pfx, prefix_len=P)
+    assert ragged_decode.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.all(out[1:3] == 0)
+    assert bool(torch.isfinite(out.float()).all())
+
+
 def test_scheduler_on_card_matches_serial(cuda):
     """The slice on the card at a small float32 size: the scheduler on the
     kernel backend is token-identical to serve_serial on the plain one."""
@@ -171,6 +227,58 @@ def test_flash_attention_matches_plain_half(cuda, dtype):
     rel = (out.float() - ref.float()).abs().max() / ref.float().abs().max()
     assert float(rel) <= 2e-2
     torch.testing.assert_close(m, rm, atol=2e-3, rtol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("B,Sq,Sc,Hq,Hkv,D,causal,window,mass", [
+    (1, 130, 0, 6, 2, 64, True, None, False),      # GQA packing, D 64
+    (2, 96, 200, 24, 8, 128, True, None, True),    # mass, D 128
+    (1, 200, 0, 8, 4, 256, True, None, False),     # D 256: 32-row KV tiles
+    (1, 300, 0, 8, 4, 256, True, 100, False),      # window at D 256
+    (1, 150, 50, 4, 1, 128, True, 70, True),       # window over the context
+    (2, 16, 2049, 24, 8, 128, True, None, True),   # the split path
+    (1, 1, 2049, 8, 1, 64, True, None, True),      # one row, split, G 8
+    (1, 45, 19, 3, 3, 32, False, None, True),      # non-causal, unaligned
+    (2, 70, 0, 2, 2, 192, True, None, False),      # D 192
+])
+def test_flash_attention_tensor_cores(cuda, dtype, B, Sq, Sc, Hq, Hkv, D,
+                                      causal, window, mass):
+    """The bf16/fp16 kernel (wgmma, TMA, GQA rows packed per KV head, the
+    split path where the grid is small) against the plain version computed
+    in float32 on the same inputs; the mass within 1e-4."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_reference)
+    q = _randn(cuda, dtype, B, Sq, Hq, D, seed=21)
+    k = _randn(cuda, dtype, B, Sc + Sq, Hkv, D, seed=22)
+    v = _randn(cuda, dtype, B, Sc + Sq, Hkv, D, seed=23)
+    kw = dict(context_len=Sc, q_offset=Sc, causal=causal, window=window,
+              collect_mass=mass)
+    before = flash_attention.launches
+    out, m = flash_attention(q, k, v, **kw)
+    assert flash_attention.launches == before + 1
+    ref, rm = flash_attention_reference(q.float(), k.float(), v.float(),
+                                        **kw)
+    torch.cuda.synchronize()
+    _close(out, ref, dtype)
+    if mass:
+        torch.testing.assert_close(m, rm, atol=1e-4, rtol=0)
+
+
+def test_flash_attention_rejects_what_tma_cannot_describe(cuda):
+    """bf16 K/V are read by TMA: a view whose base or strides are not
+    16-byte multiples, or a head dim that is not a multiple of 16, raises
+    instead of running."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    q = torch.randn(1, 8, 2, 64, device=cuda, dtype=torch.bfloat16)
+    buf = torch.randn(1, 8, 2, 72, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_attention(q, buf[..., 1:65], buf[..., 1:65])   # base + 2 B
+    odd = torch.randn(1, 8, 2, 67, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_attention(q, odd[..., :64], odd[..., :64])     # stride 134 B
+    q24 = torch.randn(1, 8, 2, 24, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        flash_attention(q24, q24, q24)
 
 
 def test_flash_attention_reads_strided_inputs(cuda):

@@ -32,9 +32,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
      published widths with the K2/K3/K4 counters at 0 (llama3.2-3b-pair
      prefills with and without the Eq. (1) mass, a gemma3-4b local
      window layer, a 32k decode cache, a windowed decode, the rwkv6-1.6b
-     scan), then every case, with tiny float32 ones (dead rows, a window,
-     non-causal unaligned lengths), held against its plain version and
-     timed as in phase 2.
+     scan), then every case, with tiny ones (dead rows, a window,
+     non-causal unaligned lengths, K3 rows no tensor map describes), held
+     against its plain version and timed as in phase 2; each K3 case
+     names its route (TMA ring or staged rows) and chunk.
   6. sharded decode — launch.distributed_decode.run over the 32k cache in
      8 shards (counter at 0 first): one K3 launch per shard plus the
      monolithic decode, the LSE combine checked against both; then its
@@ -500,8 +501,9 @@ def fd_case(dev, name, dtype, B, S, Hq, Hkv, D, kv_len, *, window=None,
     """A K3 case (normalised decode) in the same form as ``fa_case``."""
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_decode import (decode_mask, flash_decode,
-                                                  flash_decode_reference)
+    from repro_torch.kernels.flash_decode import (
+        chunk_positions, decode_mask, flash_decode, flash_decode_reference,
+        uses_tma)
     g = torch.Generator().manual_seed(seed)
     q = torch.randn(B, Hq, D, generator=g).to(dev, dtype)
     k = torch.randn(B, S, Hkv, D, generator=g).to(dev, dtype)
@@ -521,7 +523,11 @@ def fd_case(dev, name, dtype, B, S, Hq, Hkv, D, kv_len, *, window=None,
             "nbytes": 2 * n_att * Hkv * D * isz + 2 * q.numel() * isz + 4 * B,
             "flops": 4 * n_att * Hq * D, "plain_iters": 10,
             "shape": {"B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "D": D,
-                      "window": window, "attended": n_att}}
+                      "window": window, "attended": n_att,
+                      # how the kernel reads K/V: a TMA ring, or rows staged
+                      # by plain loads where a tensor map cannot describe them
+                      "route": "tma" if uses_tma(k, v) else "staged",
+                      "chunk": chunk_positions(D, dtype)}}
 
 
 def wkv_case(dev, name, B, T, H, hd, *, seed, plain_iters=2):
@@ -551,9 +557,9 @@ def wkv_case(dev, name, B, T, H, hd, *, seed, plain_iters=2):
 
 
 def entry_point_cases(dev):
-    """Tiny float32 cases (dead rows, a window, non-causal unaligned
-    lengths) and cases at the published widths of llama3.2-3b, gemma3-4b
-    and rwkv6-1.6b."""
+    """Tiny cases (float32 dead rows, a window, non-causal unaligned
+    lengths; bf16 K3 rows staged in the kernel) and cases at the published
+    widths of llama3.2-3b, gemma3-4b and rwkv6-1.6b."""
     import numpy as np
     import torch
     f32, bf16 = torch.float32, torch.bfloat16
@@ -569,6 +575,9 @@ def entry_point_cases(dev):
                 seed=4),
         fd_case(dev, "fd_tiny_window", f32, 2, 300, 8, 2, 64, [300, 123],
                 window=50, seed=5),
+        # 24-byte rows: no tensor map describes them, staged in the kernel
+        fd_case(dev, "fd_tiny_staged_rows", bf16, 3, 700, 6, 2, 12,
+                [700, 0, 333], window=500, seed=13),
         wkv_case(dev, "wkv_tiny", 2, 40, 3, 16, seed=6,
                  plain_iters=5),
     ]
@@ -642,6 +651,9 @@ def compare_case(case, flush):
             **case["shape"], "max_abs_err": err, "rel_err": rel,
             "tols": case["tols"][:len(got)], "tol_ratio": ratio, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
+            # the host's share of "ms": enqueueing the launch (tensor maps,
+            # scratch, ctypes) beside the kernels' device time
+            "enqueue_ms": ms - dev_ms["run"],
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "device_ms": dev_ms["run"], "plain_device_ms": dev_ms["plain"],
@@ -754,6 +766,7 @@ def kernel_entry(results, name, source, replaces, launches, main_case):
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "main_case": main_case,
             "device_ms": main["device_ms"],
+            "enqueue_ms": main["enqueue_ms"],
             "library_device_ms": main["library_device_ms"],
             # the kernel's device time over SDPA's for the same function
             "device_ms_over_sdpa": (
@@ -764,7 +777,7 @@ def kernel_entry(results, name, source, replaces, launches, main_case):
                 "case", "kernel", "max_abs_err", "rel_err", "tols",
                 "tol_ratio", "ms", "plain_ms", "library_ms", "bound_ms",
                 "bound_by", "device_ms", "plain_device_ms",
-                "library_device_ms")}}
+                "library_device_ms", "enqueue_ms")}}
 
 
 def main() -> int:

@@ -1,6 +1,9 @@
 // Helpers shared by the port's attention and scan kernels (sm_90a):
-// conversions between the storage types and float32, and warp reductions.
+// conversions between the storage types and float32, 16-byte cp.async
+// copies, and warp reductions.
 #pragma once
+
+#include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -27,6 +30,86 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
 template <>
 __device__ __forceinline__ __half from_f<__half>(float x) {
   return __float2half(x);
+}
+
+// 16-byte copies from device to shared memory (cp.async, cached in L2
+// only), committed in groups and waited on per thread.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The 16 / sizeof(T) values of one 16-byte vector, as float32.
+template <typename T>
+__device__ __forceinline__ void unpack(const uint4& u, float* f);
+template <>
+__device__ __forceinline__ void unpack<float>(const uint4& u, float* f) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+template <>
+__device__ __forceinline__ void unpack<__nv_bfloat16>(const uint4& u,
+                                                      float* f) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(h[i]);
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
+  }
+}
+template <>
+__device__ __forceinline__ void unpack<__half>(const uint4& u, float* f) {
+  const __half2* h = reinterpret_cast<const __half2*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __half22float2(h[i]);
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
+  }
+}
+
+// The four values of a float4.
+__device__ __forceinline__ void split4(const float4& v, float* f) {
+  f[0] = v.x;
+  f[1] = v.y;
+  f[2] = v.z;
+  f[3] = v.w;
+}
+
+// Two float32 values rounded into one 32-bit pair of bf16 or fp16, and back.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float x, float y);
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float x, float y) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float x, float y) {
+  const __half2 h = __floats2half2_rn(x, y);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+template <typename T>
+__device__ __forceinline__ float2 unpack2(uint32_t u);
+template <>
+__device__ __forceinline__ float2 unpack2<__nv_bfloat16>(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+template <>
+__device__ __forceinline__ float2 unpack2<__half>(uint32_t u) {
+  return __half22float2(*reinterpret_cast<const __half2*>(&u));
 }
 
 // Sum / max over the `width` lanes of an aligned lane group (width a power

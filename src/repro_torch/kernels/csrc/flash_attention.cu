@@ -27,8 +27,9 @@
 //  * Loads K/V tiles of BN = 64 positions (32 above D 192) by TMA (4-D
 //    tensor maps over (D, Hkv, S, B), boxes of 64 head values, 128-byte
 //    swizzle, zero fill past D and S) into a 2-stage ring signalled on
-//    mbarriers: one producer warp issues the loads, one consumer warpgroup
-//    computes. The Q tile is loaded once with 16-byte loads into the same
+//    mbarriers (the map and barrier helpers in tma.cuh, which K3 shares):
+//    one producer warp issues the loads, one consumer warpgroup computes.
+//    The Q tile is loaded once with 16-byte loads into the same
 //    swizzled layout.
 //  * Runs S = Q K^T as wgmma m64nBNk16 with Q and K in shared memory, the
 //    online softmax (base 2, float32) on the accumulator's registers, and
@@ -69,16 +70,24 @@
 #include <climits>
 #include <cstdint>
 
-#include <cuda.h>  // CUtensorMap and its enums (no driver library linked)
-
 #include "common.cuh"
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 namespace {
 
 using kern::from_f;
 using kern::kNegInf;
+using kern::make_map;
+using kern::mbar_arrive;
+using kern::mbar_expect_tx;
+using kern::mbar_init;
+using kern::mbar_wait;
+using kern::pack2;
+using kern::smem_u32;
+using kern::tma_load;
 using kern::to_f;
+using kern::unpack2;
 
 constexpr int kBQ = 64;        // query rows per block
 constexpr int kThreads = 256;  // a 16 x 16 thread grid
@@ -341,10 +350,6 @@ struct TcArgs {
 inline int tc_dp(int D) { return (D + 63) / 64 * 64; }
 inline int tc_bn(int D) { return tc_dp(D) > 192 ? 32 : 64; }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // Shared-memory matrix descriptor with the 128-byte swizzle: start
 // address, leading and stride byte offsets (16-byte units).
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
@@ -355,69 +360,6 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
          (1ull << 62);
 }
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One box of a 4-D tensor map (D, Hkv, S, B) into shared memory, completion
-// counted on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int c0, int c1, int c2, int c3,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3), "r"(bar)
-      : "memory");
-}
-
-template <typename T>
-__device__ __forceinline__ uint32_t pack2(float x, float y);
-template <>
-__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float x, float y) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-template <>
-__device__ __forceinline__ uint32_t pack2<__half>(float x, float y) {
-  const __half2 h = __floats2half2_rn(x, y);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-template <typename T>
-__device__ __forceinline__ float2 unpack2(uint32_t u);
-template <>
-__device__ __forceinline__ float2 unpack2<__nv_bfloat16>(uint32_t u) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
-}
-template <>
-__device__ __forceinline__ float2 unpack2<__half>(uint32_t u) {
-  return __half22float2(*reinterpret_cast<const __half2*>(&u));
-}
 
 // Whether every (row, col) of the packed rows [r0, r0 + kTcRows) and KV
 // rows [c0, c0 + BN) is attended, so the tile needs no mask.
@@ -497,7 +439,7 @@ __global__ void __launch_bounds__(kTcThreads, DP > 128 ? 1 : 2)
       mbar_init(full(st), 1);
       mbar_init(empty(st), 128);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    kern::mbar_init_fence();
   }
   __syncthreads();
 
@@ -769,57 +711,6 @@ __global__ void flash_attention_merge_kernel(const TcArgs a) {
     a.mass[(static_cast<long long>(b) * a.Hq + head) * a.Sq + i] = MS * inv;
 }
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime already loaded.
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// A (D, Hkv, S, B) map of a (B, S, Hkv, D) tensor whose boxes are 64 head
-// values x `rows` positions, 128-byte swizzled; values past D or S read as
-// zeros. A dim of size 1 gets the stride its neighbour implies.
-bool make_map(CUtensorMap* map, const void* ptr, int dtype, int B, int S,
-              int H, int D, long long sb, long long ss, long long sh,
-              int rows) {
-  EncodeTiledFn enc = encode_tiled();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(B)};
-  cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
-                           static_cast<cuuint64_t>(ss) * 2,
-                           static_cast<cuuint64_t>(sb) * 2};
-  if (H == 1) strides[0] = static_cast<cuuint64_t>(D) * 2;
-  if (S == 1) strides[1] = strides[0] * H;
-  if (B == 1) strides[2] = strides[1] * S;
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  return enc(map,
-             dtype == 1 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                        : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
-             4, const_cast<void*>(ptr), dims, strides, box, estr,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <typename T, int DP, int BN>
 cudaError_t launch_tc_k(const TcArgs& a, const CUtensorMap& tmk,
                         const CUtensorMap& tmv, cudaStream_t s) {
@@ -893,8 +784,11 @@ extern "C" int flash_attention_launch(
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tmk;
   CUtensorMap tmv;
-  if (!make_map(&tmk, k, dtype, B, Skv, Hkv, D, k_sb, k_ss, k_sh, bn) ||
-      !make_map(&tmv, v, dtype, B, Skv, Hkv, D, v_sb, v_ss, v_sh, bn))
+  // boxes of 64 head values x bn positions in the 128-byte swizzle
+  if (!make_map(&tmk, k, dtype, B, Skv, Hkv, D, k_sb, k_ss, k_sh, 64, bn,
+                true) ||
+      !make_map(&tmv, v, dtype, B, Skv, Hkv, D, v_sb, v_ss, v_sh, 64, bn,
+                true))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long rows = static_cast<long long>(B) * Hkv * nsplit * Sq * G;
   float* po = nsplit > 1 ? scratch : nullptr;

@@ -6,36 +6,95 @@
 // sequence-sharded decode merges across shards with the log-sum-exp rule
 // (flash_decode_partials). Row b attends position j when
 //     j < min(kv_len[b], Skv)   and, with a window,   (kv_len[b]-1) - j < window
-// so the attended positions of a row are one contiguous range [lo, hi).
+// so the attended positions of a row are one contiguous range [lo, hi),
+// hi = min(kv_len, Skv), lo = window ? max(0, kv_len - window) : 0.
 //
 // Bound: a decode reads every attended K and V row once and does 4*G*D
-// flops per attended position and KV head, far below the card's flop/byte
-// balance, so the kernel is bound by the bytes of K and V.
-// Design: split-KV. The grid is (Hkv, B, nsplit); a block covers all G query
-// heads of one KV head, so each K/V row is read from device memory once for
-// the whole group, straight from the cache's own (B, Skv, Hkv, D) layout
-// through strides, and only inside [lo, hi): masked positions are never
-// loaded. Block `sp` takes the sp-th of nsplit equal slices of [lo, hi), so
-// a windowed or short row spreads over as many blocks as a long one and the
-// 132 SMs fill at small B*Hkv. The block's warps take U positions at a time
-// (U loads in flight per lane before the first use) with a float32 online
-// softmax each, merge with the log-sum-exp rule in shared memory and write
-// a float32 partial (o, m, l) per (row, KV head, slice, query head) to
-// scratch. A second kernel merges the nsplit partials the same way and
-// writes either the normalised output (exact zeros where nothing was
-// attended) or the merged partials. Tensor-core products and TMA staging
-// are left for a later change.
+// flops per attended position and KV head (G <= 8), far below the card's
+// flop/byte balance, so the kernel is bound by the bytes of K and V: at 32k
+// positions, B 4, 8 KV heads of 128 in bf16, 421 MB, 126 us at 3.35 TB/s.
+// Reaching that takes ~2 MB in flight across the card, blocks of equal
+// work, and consumers that keep up with the stream.
+// Design:
+//  * Fixed chunks, grid from Skv. A block takes CHUNK positions of a row's
+//    attended range, [lo + sp*CHUNK, lo + (sp+1)*CHUNK) within [lo, hi);
+//    the grid is (Hkv, B, ceil(S_eff / CHUNK)), S_eff = min(Skv, window),
+//    sized on the host from shapes alone (the lengths stay on the device:
+//    no host sync). A block of a short row does the same work as a block
+//    of a long row, and a block past its row's end exits after one length
+//    read. CHUNK at bf16 / fp16 is 1,024 positions up to D 128 (about 750
+//    live blocks at the 32k cache) and 256 above (64 blocks at a window of
+//    1,024 with 4 KV heads of 256 and B 4); at float32 8 tiles.
+//  * K/V by TMA into a ring. 4-D tensor maps over the cache's own (B, Skv,
+//    Hkv, D) strides (tma.cuh; built on the host per call) load boxes of one
+//    KV head x a tile of positions into a ring of 2-4 stages in dynamic
+//    shared memory (3 stages of 32 KB at bf16 D 128, two blocks an SM);
+//    one producer warp issues the loads and four consumer warps compute,
+//    with full and empty mbarriers per stage, so up to ~190 KB per SM are
+//    in flight while the consumers work. The sharded decode's
+//    sequence slices are plain strided views and take the same maps. Rows a
+//    map cannot describe (a base, stride or row that is not a multiple of 16
+//    bytes) are staged by the producer warp with plain loads into the same
+//    ring: the same kernel, never refused. Per-lane cp.async, K1's route,
+//    was not taken: K1 reads at 0.30 of the HBM rate with it at its long
+//    cache (PERF.md), and TMA keeps a whole tile in flight per
+//    instruction.
+//  * bf16 / fp16 on the tensor cores (decode_mma_kernel). A first version
+//    computed on the CUDA cores as the float32 path does; its consumers
+//    alone (no loads) took longer than the stream alone (no compute) at the
+//    32k cache, so both products moved to mma.sync m16n8k16: the G <= 8
+//    heads of q sit in rows 0-7 of A (rows 8-15 zero), a tile is 64
+//    positions of K and V as 64-value column blocks in the 128-byte
+//    swizzle (K2's layout), each consumer warp takes 16 positions, S = Q
+//    K^T reads K by ldmatrix, a quad of lanes holds a head's 16 scores for
+//    a base-2 online softmax, and O += P V takes P from those registers (a
+//    16-bit high part plus the rounding of its residual, P to ~2^-17 as in
+//    K2) and V by transposed ldmatrix. V rows past the chunk's end are
+//    zeroed before the product (0 * NaN would reach O).
+//  * float32 on the CUDA cores (decode_split_kernel; mma.sync takes no
+//    float32 operands and TF32 would not hold float32 parity): TPP lanes
+//    share a position, each holding one 16-byte vector of q (pre-scaled)
+//    per head and reading 16-byte vectors of K and V rows from shared
+//    memory; the TPP lanes sum their partial dot products with log2(TPP)
+//    shuffles, two positions at once, and one online-softmax step covers
+//    both.
+//  * The position groups (or lanes) of a warp and then the warps merge
+//    through shared memory (common.cuh: lse_merge) into one float32
+//    partial (o, m, l) per (row, KV head, chunk, q head) in scratch. A
+//    second kernel of the same C call, the merge K1 launches too
+//    (decode_merge.cuh), merges a row's live chunks, ceil((hi - lo) /
+//    CHUNK), one block per (row, q head), and writes the normalised output
+//    (exact zeros where hi <= lo) or the merged partials (m = -1e30, l = 0
+//    for an empty row).
+// Both kernels take G <= 8 and D <= 256; both write through the same merge.
+#include <cstdint>
+
 #include "common.cuh"
+#include "decode_merge.cuh"
+#include "tma.cuh"
 
 namespace {
 
 using kern::from_f;
+using kern::kMergeThreads;
 using kern::kNegInf;
+using kern::lse_merge;
+using kern::mbar_arrive;
+using kern::mbar_expect_tx;
+using kern::mbar_init;
+using kern::mbar_wait;
+using kern::pack2;
+using kern::smem_u32;
 using kern::to_f;
+using kern::unpack;
 
-constexpr int kWarps = 4;
+constexpr int kConsumers = 128;  // four consumer warps
+constexpr int kWarps = kConsumers / 32;
+constexpr int kThreads = kConsumers + 32;  // and one producer warp
+constexpr int kTilesPerChunk = 8;
+constexpr int kMaxD = 256;
 
-struct SplitArgs {
+struct Args {
   const void* q;
   const void* k;
   const void* v;
@@ -43,135 +102,95 @@ struct SplitArgs {
   float* po;  // (B, Hkv, nsplit, G, D)
   float* pm;  // (B, Hkv, nsplit, G)
   float* pl;  // (B, Hkv, nsplit, G)
-  int B, Hkv, G, D, Skv, window, nsplit;
-  long long q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
+  void* out;     // normalised: (B, Hq, D) in the input dtype
+  float* o_out;  // or the merged partials: (B, Hq, D), (B, Hq), (B, Hq)
+  float* m_out;
+  float* l_out;
+  int B, Hkv, G, D, Skv, window, nsplit, chunk, tile, tpp, aligned;
+  long long q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_sh;
   float scale;
 };
 
-// EPL: head-dim elements per lane (D <= 32 * EPL); MAXG: query heads per KV
-// head the registers are sized for (G <= MAXG); U: positions per warp step.
-template <typename T, int EPL, int MAXG, int U>
-__global__ void __launch_bounds__(kWarps * 32)
-    decode_split_kernel(SplitArgs a) {
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int sp = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+// Geometry shared by the host and the kernel: 16-byte vectors per row
+// (vpr), vectors per lane (one, two above 512-byte rows), lanes per
+// position (a power of two), positions per tile (4 per lane group, at
+// most 256, the largest TMA box) and ring stages.
+__host__ __device__ inline int vectors_per_row(int D, int es) {
+  return (D * es + 15) / 16;
+}
+__host__ __device__ inline int vectors_per_lane(int D, int es) {
+  return vectors_per_row(D, es) > 32 ? 2 : 1;
+}
+__host__ __device__ inline int lanes_per_position(int D, int es) {
+  const int need = (vectors_per_row(D, es) + vectors_per_lane(D, es) - 1) /
+                   vectors_per_lane(D, es);
+  int t = 1;
+  while (t < need) t <<= 1;
+  return t;
+}
+__host__ __device__ inline int tile_positions(int D, int es) {
+  const int p = kConsumers / lanes_per_position(D, es);
+  return 4 * p < 256 ? 4 * p : 256;
+}
+__host__ __device__ constexpr int ring_stages(int vpt) {
+  return vpt == 1 ? 4 : 2;
+}
+
+// Attended range [lo, hi) of row b.
+__device__ __forceinline__ void row_range(const int* kv_len, int b, int Skv,
+                                          int window, int* lo, int* hi) {
+  const int n = kv_len[b];
+  *hi = min(n, Skv);
+  *lo = window >= 0 ? max(0, n - window) : 0;
+}
+
+// Stage one tile of K or V rows [pos0, pos0 + tile) by plain loads into
+// 16-byte vectors (zeros past D and for positions at or past `end`): the
+// route for rows a tensor map cannot describe. The 32 lanes of the
+// producer warp share it.
+template <typename T>
+__device__ __forceinline__ void stage_tile(unsigned char* dst, const T* rows,
+                                           long long ss, int pos0, int end,
+                                           int tile, int vpr, int D,
+                                           int lane) {
+  constexpr int VE = 16 / sizeof(T);
+  for (int idx = lane; idx < tile * vpr; idx += 32) {
+    const int r = idx / vpr;
+    const int vi = idx % vpr;
+    const int pos = pos0 + r;
+    __align__(16) T tmp[VE];
+#pragma unroll
+    for (int e = 0; e < VE; ++e) {
+      const int d = vi * VE + e;
+      tmp[e] = (pos < end && d < D) ? rows[pos * ss + d] : from_f<T>(0.f);
+    }
+    *reinterpret_cast<uint4*>(dst + idx * 16) =
+        *reinterpret_cast<const uint4*>(tmp);
+  }
+}
+
+// The consumer warps' partials, staged in shared memory (red [kWarps][MAXG]
+// [D], the maxima and denominators in sm_m / sm_l), merged with the
+// log-sum-exp step into the block's float32 partial (o, m, l) per q head.
+template <int MAXG>
+__device__ __forceinline__ void store_partial(const Args& a, const float* red,
+                                              const float (*sm_m)[MAXG],
+                                              const float (*sm_l)[MAXG],
+                                              int b, int h, int sp) {
   const int G = a.G;
   const int D = a.D;
-  const int d0 = lane * EPL;
-
-  const int kv_len = a.kv_len[b];
-  const int hi = min(kv_len, a.Skv);
-  const int lo = a.window >= 0 ? max(0, kv_len - a.window) : 0;
-  const int n = max(0, hi - lo);
-  const int chunk = (n + a.nsplit - 1) / a.nsplit;
-  const int start = lo + sp * chunk;
-  const int end = min(hi, start + chunk);
-
-  const T* q = static_cast<const T*>(a.q) + b * a.q_sb;
-  const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
-
-  float qr[MAXG][EPL];
-  float acc[MAXG][EPL];
-  float m[MAXG];
-  float l[MAXG];
-#pragma unroll
-  for (int g = 0; g < MAXG; ++g) {
-    m[g] = kNegInf;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) {
-      const int d = d0 + e;
-      qr[g][e] = (g < G && d < D) ? to_f(q[(h * G + g) * a.q_sh + d]) : 0.f;
-      acc[g][e] = 0.f;
-    }
-  }
-
-  for (int base = start + warp * U; base < end; base += kWarps * U) {
-    float kr[U][EPL];
-    float vr[U][EPL];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int j = base + u;
-      const bool ok = j < end;
-      const T* kj = kb + j * a.k_ss;
-      const T* vj = vb + j * a.v_ss;
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) {
-        const int d = d0 + e;
-        kr[u][e] = (ok && d < D) ? to_f(kj[d]) : 0.f;
-        vr[u][e] = (ok && d < D) ? to_f(vj[d]) : 0.f;
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < MAXG; ++g) {
-      if (g >= G) break;
-      float s[U];
-      float smax = kNegInf;
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        float x = 0.f;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) x += qr[g][e] * kr[u][e];
-        x = kern::group_sum(x) * a.scale;
-        s[u] = (base + u < end) ? x : kNegInf;
-        smax = fmaxf(smax, s[u]);
-      }
-      // base < end, so smax is a real score and alpha is finite
-      const float m_new = fmaxf(m[g], smax);
-      const float alpha = expf(m[g] - m_new);
-      l[g] *= alpha;
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) acc[g][e] *= alpha;
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        if (base + u < end) {
-          const float p = expf(s[u] - m_new);
-          l[g] += p;
-#pragma unroll
-          for (int e = 0; e < EPL; ++e) acc[g][e] += p * vr[u][e];
-        }
-      }
-      m[g] = m_new;
-    }
-  }
-
-  __shared__ float sm_m[kWarps][MAXG];
-  __shared__ float sm_l[kWarps][MAXG];
-  __shared__ float sm_acc[kWarps][MAXG][EPL * 32];
-#pragma unroll
-  for (int g = 0; g < MAXG; ++g) {
-    if (lane == 0) {
-      sm_m[warp][g] = m[g];
-      sm_l[warp][g] = l[g];
-    }
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) sm_acc[warp][g][d0 + e] = acc[g][e];
-  }
-  __syncthreads();
-
-  // index of (b, h, sp, g = 0) in the (B, Hkv, nsplit, G) scratch
   const long long row0 =
       (static_cast<long long>(b * a.Hkv + h) * a.nsplit + sp) * G;
-  for (int idx = threadIdx.x; idx < G * D; idx += blockDim.x) {
+  for (int idx = threadIdx.x; idx < G * D; idx += kConsumers) {
     const int g = idx / D;
     const int d = idx % D;
     float M = kNegInf;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w)
-      if (sm_l[w][g] > 0.f) M = fmaxf(M, sm_m[w][g]);
     float L = 0.f;
     float o = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      if (sm_l[w][g] > 0.f) {  // warps that attended nothing add nothing
-        const float c = expf(sm_m[w][g] - M);
-        L += sm_l[w][g] * c;
-        o += sm_acc[w][g][d] * c;
-      }
+      const float2 f = lse_merge(M, L, sm_m[w][g], sm_l[w][g]);
+      o = o * f.x + red[(w * MAXG + g) * D + d] * f.y;
     }
     a.po[(row0 + g) * D + d] = o;
     if (d == 0) {
@@ -181,105 +200,704 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-struct CombineArgs {
-  const float* po;
-  const float* pm;
-  const float* pl;
-  void* out;     // normalised: (B, Hq, D) contiguous, in the input dtype
-  float* o_out;  // partials: (B, Hq, D), (B, Hq), (B, Hq) float32
-  float* m_out;
-  float* l_out;
-  int B, Hkv, G, D, nsplit, normalize;
-};
+// Grid (Hkv, B, nsplit), kThreads threads: warps 0-3 compute, warp 4
+// loads. Dynamic shared memory: the ring (stages x (K tile, V tile), each
+// tile rows of vpr 16-byte vectors), reused after the loop for the warps'
+// partials, then the full and empty barriers.
+template <typename T, int MAXG, int VPT>
+__global__ void __launch_bounds__(kThreads)
+    decode_split_kernel(const Args a, const __grid_constant__ CUtensorMap tmk,
+                        const __grid_constant__ CUtensorMap tmv) {
+  constexpr int VE = 16 / sizeof(T);
+  constexpr int kStages = ring_stages(VPT);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
+  const int G = a.G;
+  const int D = a.D;
+  const int vpr = (D + VE - 1) / VE;
+  const int TILE = a.tile;
+  const int tile_bytes = TILE * vpr * 16;
+  const int ring_bytes = kStages * 2 * tile_bytes;
+  const int red_bytes = kWarps * MAXG * D * 4;
+  const uint32_t bars =
+      smem_u32(smem) + (ring_bytes > red_bytes ? ring_bytes : red_bytes);
+  auto full = [&](int st) { return bars + 8 * st; };
+  auto empty = [&](int st) { return bars + 8 * (kStages + st); };
 
-// One thread per output element (b, q head, d): merges the nsplit slice
-// partials with the log-sum-exp rule.
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int sp = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  int lo, hi;
+  row_range(a.kv_len, b, a.Skv, a.window, &lo, &hi);
+  const int t0 = lo + sp * a.chunk;
+  if (t0 >= hi) return;  // uniform over the block; the merge skips it
+  const int end = min(hi, t0 + a.chunk);
+  const int ntile = (end - t0 + TILE - 1) / TILE;
+  const bool aligned = a.aligned != 0;
+
+  if (tid == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full(st), aligned ? 1 : 32);
+      mbar_init(empty(st), kConsumers);
+    }
+    kern::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == kWarps) {  // producer: keeps the ring full
+    const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
+    const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
+    for (int it = 0; it < ntile; ++it) {
+      const int st = it % kStages;
+      const int pos0 = t0 + it * TILE;
+      if (aligned) {
+        if (lane == 0) {
+          if (it >= kStages)
+            mbar_wait(empty(st), ((it / kStages) & 1) ^ 1);
+          mbar_expect_tx(full(st), 2 * tile_bytes);
+          const uint32_t dst = smem_u32(smem) + st * 2 * tile_bytes;
+          kern::tma_load(dst, &tmk, 0, h, pos0, b, full(st));
+          kern::tma_load(dst + tile_bytes, &tmv, 0, h, pos0, b, full(st));
+        }
+      } else {
+        if (it >= kStages) mbar_wait(empty(st), ((it / kStages) & 1) ^ 1);
+        unsigned char* dst = smem + st * 2 * tile_bytes;
+        stage_tile<T>(dst, kb, a.k_ss, pos0, end, TILE, vpr, D, lane);
+        stage_tile<T>(dst + tile_bytes, vb, a.v_ss, pos0, end, TILE, vpr, D,
+                      lane);
+        mbar_arrive(full(st));
+      }
+    }
+    return;
+  }
+
+  // --- consumers: lane group p (TPP lanes, c = lane in the group) takes
+  // rows p, p + P, ... of each tile, two at a time
+  const int TPP = a.tpp;
+  const int P = kConsumers / TPP;
+  const int p = tid / TPP;
+  const int c = tid % TPP;
+  const int npair = TILE / (2 * P);
+  const T* q = static_cast<const T*>(a.q) + b * a.q_sb;
+
+  float qr[MAXG][VPT][VE];
+  float acc[MAXG][VPT][VE];
+  float m[MAXG];
+  float l[MAXG];
+#pragma unroll
+  for (int g = 0; g < MAXG; ++g) {
+    m[g] = kNegInf;
+    l[g] = 0.f;
+#pragma unroll
+    for (int j = 0; j < VPT; ++j)
+#pragma unroll
+      for (int e = 0; e < VE; ++e) {
+        const int d = (c + j * TPP) * VE + e;
+        qr[g][j][e] = (g < G && d < D)
+                          ? to_f(q[(h * G + g) * a.q_sh + d]) * a.scale
+                          : 0.f;
+        acc[g][j][e] = 0.f;
+      }
+  }
+
+  for (int it = 0; it < ntile; ++it) {
+    const int st = it % kStages;
+    mbar_wait(full(st), (it / kStages) & 1);
+    const uint4* kt =
+        reinterpret_cast<const uint4*>(smem + st * 2 * tile_bytes);
+    const uint4* vt = kt + tile_bytes / 16;
+    const int base = t0 + it * TILE;
+    for (int ps = 0; ps < npair; ++ps) {
+      int row[2];
+      bool live[2];  // uniform over a position's lanes
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        row[u] = (2 * ps + u) * P + p;
+        live[u] = base + row[u] < end;
+      }
+      // scores of the two positions for every head, summed over the TPP
+      // lanes of each position (aligned lane groups)
+      float sc[2][MAXG];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        float kf[VPT][VE];
+#pragma unroll
+        for (int j = 0; j < VPT; ++j) {
+          const int vi = c + j * TPP;
+          if (vi < vpr) {
+            unpack<T>(kt[row[u] * vpr + vi], kf[j]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < VE; ++e) kf[j][e] = 0.f;
+          }
+        }
+#pragma unroll
+        for (int g = 0; g < MAXG; ++g) {
+          float x = 0.f;
+          if (g < G) {  // uniform: heads past G cost nothing
+#pragma unroll
+            for (int j = 0; j < VPT; ++j)
+#pragma unroll
+              for (int e = 0; e < VE; ++e) x += qr[g][j][e] * kf[j][e];
+          }
+          sc[u][g] = x;
+        }
+      }
+      for (int o = TPP / 2; o > 0; o >>= 1)
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int g = 0; g < MAXG; ++g)
+            if (g < G) sc[u][g] += __shfl_xor_sync(0xffffffffu, sc[u][g], o);
+      if (!live[0]) continue;  // rows fill in order: u = 1 is dead too
+      float vf[2][VPT][VE];
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int j = 0; j < VPT; ++j) {
+          const int vi = c + j * TPP;
+          if (live[u] && vi < vpr) {
+            unpack<T>(vt[row[u] * vpr + vi], vf[u][j]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < VE; ++e) vf[u][j][e] = 0.f;
+          }
+        }
+      // one online-softmax step over the group's live positions
+#pragma unroll
+      for (int g = 0; g < MAXG; ++g) {
+        if (g >= G) break;
+        float m_new = fmaxf(m[g], sc[0][g]);
+        if (live[1]) m_new = fmaxf(m_new, sc[1][g]);
+        const float alpha = expf(m[g] - m_new);
+        const float p0 = expf(sc[0][g] - m_new);
+        const float p1 = live[1] ? expf(sc[1][g] - m_new) : 0.f;
+        l[g] = l[g] * alpha + p0 + p1;
+#pragma unroll
+        for (int j = 0; j < VPT; ++j)
+#pragma unroll
+          for (int e = 0; e < VE; ++e)
+            acc[g][j][e] =
+                acc[g][j][e] * alpha + p0 * vf[0][j][e] + p1 * vf[1][j][e];
+        m[g] = m_new;
+      }
+    }
+    mbar_arrive(empty(st));  // this thread is done with the stage
+  }
+
+  // merge the position groups of the warp (lanes TPP apart) ...
+  for (int o = TPP; o < 32; o <<= 1) {
+#pragma unroll
+    for (int g = 0; g < MAXG; ++g) {
+      if (g >= G) break;
+      const float m2 = __shfl_xor_sync(0xffffffffu, m[g], o);
+      const float l2 = __shfl_xor_sync(0xffffffffu, l[g], o);
+      const float2 f = lse_merge(m[g], l[g], m2, l2);
+#pragma unroll
+      for (int j = 0; j < VPT; ++j)
+#pragma unroll
+        for (int e = 0; e < VE; ++e) {
+          const float a2 = __shfl_xor_sync(0xffffffffu, acc[g][j][e], o);
+          acc[g][j][e] = acc[g][j][e] * f.x + a2 * f.y;
+        }
+    }
+  }
+  // ... then the warps, through shared memory: the ring is done with once
+  // every consumer has passed its last tile (the producer has exited)
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+  float* red = reinterpret_cast<float*>(smem);  // [kWarps][MAXG][D]
+  __shared__ float sm_m[kWarps][MAXG];
+  __shared__ float sm_l[kWarps][MAXG];
+  if (lane < TPP) {
+#pragma unroll
+    for (int g = 0; g < MAXG; ++g) {
+      if (lane == 0) {
+        sm_m[warp][g] = m[g];
+        sm_l[warp][g] = l[g];
+      }
+#pragma unroll
+      for (int j = 0; j < VPT; ++j)
+#pragma unroll
+        for (int e = 0; e < VE; ++e) {
+          const int d = (c + j * TPP) * VE + e;
+          if (d < D) red[(warp * MAXG + g) * D + d] = acc[g][j][e];
+        }
+    }
+  }
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+  store_partial<MAXG>(a, red, sm_m, sm_l, b, h, sp);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 / fp16: both products on the tensor cores (mma.sync m16n8k16)
+// ---------------------------------------------------------------------------
+constexpr int kTcTile = 64;  // positions per tile: 16 per consumer warp
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Head dim padded to whole 64-value column blocks (one TMA box each), ring
+// stages and tiles per chunk: 512 KB of K and V up to D 128 (1,024
+// positions: a block's ramp is then a small part of its life), 256 KB
+// above (256 positions, so that a window of 1,024 still fills 64 blocks
+// at B*Hkv = 16).
+__host__ __device__ constexpr int tc_dp(int D) { return (D + 63) / 64 * 64; }
+__host__ __device__ constexpr int tc_stages(int DP) {
+  return DP <= 128 ? 3 : 2;
+}
+__host__ __device__ constexpr int tc_tiles_per_chunk(int DP) {
+  return DP <= 64 ? 32 : DP <= 128 ? 16 : 4;
+}
+
+// Byte offset of 16-byte chunk c (of DP / 8) of row r in a tile laid out as
+// DP / 64 column blocks of [kTcTile rows][128 bytes] in the 128-byte
+// swizzle (the layout a TMA box of 64 values writes).
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return (c >> 3) * (kTcTile * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0,
+                                        uint32_t& r1, uint32_t& r2,
+                                        uint32_t& r3) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t& r0,
+                                              uint32_t& r1, uint32_t& r2,
+                                              uint32_t& r3) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(addr));
+}
+
+// D += A B for a 16x16 A whose rows 8-15 are zero (the G <= 8 heads sit in
+// rows 0-7): a0 / a2 hold A's row lane/4 at columns 2*(lane%4) + {0, 1}
+// and + 8; d0, d1 are D's row lane/4 at columns 2*(lane%4) + {0, 1}.
 template <typename T>
-__global__ void decode_combine_kernel(CombineArgs a) {
+__device__ __forceinline__ void mma_rows8(float& d0, float& d1, uint32_t a0,
+                                          uint32_t a2, uint32_t b0,
+                                          uint32_t b1);
+template <>
+__device__ __forceinline__ void mma_rows8<__nv_bfloat16>(
+    float& d0, float& d1, uint32_t a0, uint32_t a2, uint32_t b0,
+    uint32_t b1) {
+  float d2 = 0.f, d3 = 0.f;
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d0), "+f"(d1), "+f"(d2), "+f"(d3)
+      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
+}
+template <>
+__device__ __forceinline__ void mma_rows8<__half>(float& d0, float& d1,
+                                                  uint32_t a0, uint32_t a2,
+                                                  uint32_t b0, uint32_t b1) {
+  float d2 = 0.f, d3 = 0.f;
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d0), "+f"(d1), "+f"(d2), "+f"(d3)
+      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
+}
+
+// Stage one tile of K or V rows [pos0, pos0 + kTcTile) by plain loads into
+// the swizzled layout (zeros past D and for positions at or past `end`).
+template <typename T, int DP>
+__device__ __forceinline__ void stage_tile_swz(unsigned char* dst,
+                                               const T* rows, long long ss,
+                                               int pos0, int end, int D,
+                                               int lane) {
+  constexpr int NC = DP / 8;  // 16-byte chunks per row
+  for (int idx = lane; idx < kTcTile * NC; idx += 32) {
+    const int r = idx / NC;
+    const int c = idx % NC;
+    const int pos = pos0 + r;
+    __align__(16) T tmp[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int d = c * 8 + e;
+      tmp[e] = (pos < end && d < D) ? rows[pos * ss + d] : from_f<T>(0.f);
+    }
+    *reinterpret_cast<uint4*>(dst + swz(r, c)) =
+        *reinterpret_cast<const uint4*>(tmp);
+  }
+}
+
+// Grid (Hkv, B, nsplit), kThreads threads: warps 0-3 compute, warp 4
+// loads. A tile is kTcTile positions of K and of V, each DP / 64 TMA boxes
+// of 64 values; consumer warp w takes rows 16w..16w+15 of every tile:
+// S = Q K^T as mma.sync with the G heads of q in rows 0-7 of A (ldmatrix
+// reads K), a base-2 online softmax per head on the accumulator's
+// registers (a quad of lanes holds a head's 16 scores), then O += P V with
+// P as the A operand straight from those registers, as a 16-bit high part
+// plus the 16-bit rounding of its residual (P to ~2^-17, as K2 does), and
+// V read transposed by ldmatrix.
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads)
+    decode_mma_kernel(const Args a, const __grid_constant__ CUtensorMap tmk,
+                      const __grid_constant__ CUtensorMap tmv) {
+  constexpr int NCB = DP / 64;
+  constexpr int kStages = tc_stages(DP);
+  constexpr int kTileBytes = kTcTile * DP * 2;  // K or V of one tile
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sbase = (raw + 1023) & ~1023u;  // swizzle atoms: 1024 B
+  unsigned char* smem = smem_raw + (sbase - raw);
+  const int red_bytes = kWarps * 8 * a.D * 4;
+  const uint32_t bars =
+      sbase + (kStages * 2 * kTileBytes > red_bytes ? kStages * 2 * kTileBytes
+                                                    : red_bytes);
+  auto full = [&](int st) { return bars + 8 * st; };
+  auto empty = [&](int st) { return bars + 8 * (kStages + st); };
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int sp = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int G = a.G;
+  const int D = a.D;
+  int lo, hi;
+  row_range(a.kv_len, b, a.Skv, a.window, &lo, &hi);
+  const int t0 = lo + sp * a.chunk;
+  if (t0 >= hi) return;  // uniform over the block; the merge skips it
+  const int end = min(hi, t0 + a.chunk);
+  const int ntile = (end - t0 + kTcTile - 1) / kTcTile;
+  const bool aligned = a.aligned != 0;
+
+  if (tid == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full(st), aligned ? 1 : 32);
+      mbar_init(empty(st), kConsumers);
+    }
+    kern::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == kWarps) {  // producer: keeps the ring full
+    const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
+    const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
+    for (int it = 0; it < ntile; ++it) {
+      const int st = it % kStages;
+      const int pos0 = t0 + it * kTcTile;
+      if (aligned) {
+        if (lane == 0) {
+          if (it >= kStages)
+            mbar_wait(empty(st), ((it / kStages) & 1) ^ 1);
+          mbar_expect_tx(full(st), 2 * kTileBytes);
+          const uint32_t dk = sbase + st * 2 * kTileBytes;
+#pragma unroll
+          for (int cb = 0; cb < NCB; ++cb) {
+            kern::tma_load(dk + cb * kTcTile * 128, &tmk, cb * 64, h, pos0, b,
+                           full(st));
+            kern::tma_load(dk + kTileBytes + cb * kTcTile * 128, &tmv,
+                           cb * 64, h, pos0, b, full(st));
+          }
+        }
+      } else {
+        if (it >= kStages) mbar_wait(empty(st), ((it / kStages) & 1) ^ 1);
+        unsigned char* dst = smem + st * 2 * kTileBytes;
+        stage_tile_swz<T, DP>(dst, kb, a.k_ss, pos0, end, D, lane);
+        stage_tile_swz<T, DP>(dst + kTileBytes, vb, a.v_ss, pos0, end, D,
+                              lane);
+        mbar_arrive(full(st));
+      }
+    }
+    return;
+  }
+
+  // --- consumers. Fragment rows: head gq = lane / 4; t4 = lane % 4.
+  const int gq = lane >> 2;
+  const int t4 = lane & 3;
+  const int r0 = warp * 16;  // the warp's rows of each tile
+  // q's head gq as A fragments (16 values per k-step; zero past G and D)
+  uint32_t qa[DP / 16][2];
+  {
+    const uint16_t* q = reinterpret_cast<const uint16_t*>(a.q) +
+                        b * a.q_sb + (h * G + gq) * a.q_sh;
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int d = kk * 16 + half * 8 + 2 * t4;
+        const uint32_t x0 = (gq < G && d < D) ? q[d] : 0u;
+        const uint32_t x1 = (gq < G && d + 1 < D) ? q[d + 1] : 0u;
+        qa[kk][half] = x0 | (x1 << 16);
+      }
+  }
+  const float sl2 = a.scale * kLog2e;  // scores in base 2
+  float o[DP / 8][2];
+#pragma unroll
+  for (int nd = 0; nd < DP / 8; ++nd) o[nd][0] = o[nd][1] = 0.f;
+  float m = kNegInf;  // base 2
+  float l = 0.f;      // this lane's share (its quad sums it at the end)
+
+  for (int it = 0; it < ntile; ++it) {
+    const int st = it % kStages;
+    mbar_wait(full(st), (it / kStages) & 1);
+    const uint32_t sK = sbase + st * 2 * kTileBytes;
+    const uint32_t sV = sK + kTileBytes;
+    const int base = t0 + it * kTcTile + r0;  // position of the warp's row 0
+    const int live = end - base;              // live rows of the warp
+    if (live > 0) {
+      if (live < 16 && aligned) {
+        // the TMA loaded whatever the cache holds past `end`: zero those V
+        // rows, whose products would otherwise reach O (0 * NaN)
+        unsigned char* vt = smem + st * 2 * kTileBytes + kTileBytes;
+        for (int idx = lane; idx < (16 - live) * NCB * 8; idx += 32) {
+          const int r = r0 + live + idx / (NCB * 8);
+          const int c = idx % (NCB * 8);
+          *reinterpret_cast<uint4*>(vt + (c >> 3) * (kTcTile * 128) +
+                                    r * 128 + (c & 7) * 16) =
+              make_uint4(0u, 0u, 0u, 0u);
+        }
+        __syncwarp();
+      }
+      // S: the warp's 16 rows as two blocks of 8 positions
+      float s[2][2];
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb) {
+        float c0 = 0.f, c1 = 0.f;
+#pragma unroll
+        for (int k2 = 0; k2 < DP / 32; ++k2) {
+          uint32_t b0, b1, b2, b3;
+          ldsm_x4(sK + swz(r0 + nb * 8 + (lane & 7), k2 * 4 + (lane >> 3)),
+                  b0, b1, b2, b3);
+          mma_rows8<T>(c0, c1, qa[2 * k2][0], qa[2 * k2][1], b0, b1);
+          mma_rows8<T>(c0, c1, qa[2 * k2 + 1][0], qa[2 * k2 + 1][1], b2, b3);
+        }
+        s[nb][0] = c0;
+        s[nb][1] = c1;
+      }
+      // online softmax of head gq over its 16 scores (4 per lane of a quad)
+      bool ok[2][2];
+      float mx = kNegInf;
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          ok[nb][e] = nb * 8 + 2 * t4 + e < live;
+          s[nb][e] = ok[nb][e] ? s[nb][e] * sl2 : kNegInf;
+          mx = fmaxf(mx, s[nb][e]);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m, mx);  // a real score: row 0 is live
+      const float alpha = exp2f(m - m_new);
+      m = m_new;
+      float ps = 0.f;
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          s[nb][e] = ok[nb][e] ? exp2f(s[nb][e] - m_new) : 0.f;
+          ps += s[nb][e];
+        }
+      l = l * alpha + ps;
+#pragma unroll
+      for (int nd = 0; nd < DP / 8; ++nd) {
+        o[nd][0] *= alpha;
+        o[nd][1] *= alpha;
+      }
+      // P as A fragments: positions 2*t4 + {0, 1} (block 0) and + 8
+      // (block 1), high part and the rounding of the residual
+      const uint32_t ph0 = pack2<T>(s[0][0], s[0][1]);
+      const uint32_t ph2 = pack2<T>(s[1][0], s[1][1]);
+      const float2 h0 = kern::unpack2<T>(ph0);
+      const float2 h2 = kern::unpack2<T>(ph2);
+      const uint32_t pl0 = pack2<T>(s[0][0] - h0.x, s[0][1] - h0.y);
+      const uint32_t pl2 = pack2<T>(s[1][0] - h2.x, s[1][1] - h2.y);
+      // O += P V: V^T fragments of 16 head values per transposed load
+#pragma unroll
+      for (int n2 = 0; n2 < DP / 16; ++n2) {
+        uint32_t v0, v1, v2, v3;
+        ldsm_x4_trans(sV + swz(r0 + ((lane >> 3) & 1) * 8 + (lane & 7),
+                               n2 * 2 + (lane >> 4)),
+                      v0, v1, v2, v3);
+        mma_rows8<T>(o[2 * n2][0], o[2 * n2][1], ph0, ph2, v0, v1);
+        mma_rows8<T>(o[2 * n2][0], o[2 * n2][1], pl0, pl2, v0, v1);
+        mma_rows8<T>(o[2 * n2 + 1][0], o[2 * n2 + 1][1], ph0, ph2, v2, v3);
+        mma_rows8<T>(o[2 * n2 + 1][0], o[2 * n2 + 1][1], pl0, pl2, v2, v3);
+      }
+      if (live < 16 && aligned)  // generic writes before the next TMA fill
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    }
+    mbar_arrive(empty(st));  // this thread is done with the stage
+  }
+  l += __shfl_xor_sync(0xffffffffu, l, 1);
+  l += __shfl_xor_sync(0xffffffffu, l, 2);
+
+  // the warps' partials through shared memory (the ring is done with once
+  // every consumer has passed its last tile; the producer has exited)
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+  float* red = reinterpret_cast<float*>(smem);  // [kWarps][8][D]
+  __shared__ float sm_m[kWarps][8];
+  __shared__ float sm_l[kWarps][8];
+  if (gq < G) {
+    if (t4 == 0) {
+      sm_m[warp][gq] = m * kLn2;  // natural log, as the partials keep it
+      sm_l[warp][gq] = l;
+    }
+#pragma unroll
+    for (int nd = 0; nd < DP / 8; ++nd)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = nd * 8 + 2 * t4 + e;
+        if (d < D) red[(warp * 8 + gq) * D + d] = o[nd][e];
+      }
+  }
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+  store_partial<8>(a, red, sm_m, sm_l, b, h, sp);
+}
+
+// One block per (b, q head): merges the row's live chunks.
+template <typename T, bool kPartials>
+__global__ void __launch_bounds__(kMergeThreads)
+    decode_merge_kernel(const Args a) {
   const int Hq = a.Hkv * a.G;
-  const long long total = static_cast<long long>(a.B) * Hq * a.D;
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x +
-                        threadIdx.x;
-  if (idx >= total) return;
-  const int d = static_cast<int>(idx % a.D);
-  const long long bq = idx / a.D;  // b * Hq + q head
-  const int hq = static_cast<int>(bq % Hq);
-  const int b = static_cast<int>(bq / Hq);
-  const int h = hq / a.G;
-  const int g = hq % a.G;
-  const long long row0 =
-      static_cast<long long>(b * a.Hkv + h) * a.nsplit * a.G + g;
-  float M = kNegInf;
-  for (int s = 0; s < a.nsplit; ++s) {
-    const long long r = row0 + static_cast<long long>(s) * a.G;
-    if (a.pl[r] > 0.f) M = fmaxf(M, a.pm[r]);
-  }
-  float L = 0.f;
-  float o = 0.f;
-  for (int s = 0; s < a.nsplit; ++s) {
-    const long long r = row0 + static_cast<long long>(s) * a.G;
-    if (a.pl[r] > 0.f) {
-      const float c = expf(a.pm[r] - M);
-      L += a.pl[r] * c;
-      o += a.po[r * a.D + d] * c;
-    }
-  }
-  if (a.normalize) {
-    static_cast<T*>(a.out)[idx] = from_f<T>(L > 0.f ? o / L : 0.f);
-  } else {
-    a.o_out[idx] = o;
-    if (d == 0) {
-      a.m_out[bq] = M;
-      a.l_out[bq] = L;
-    }
-  }
+  const int hq = blockIdx.x % Hq;
+  const int b = blockIdx.x / Hq;
+  int lo, hi;
+  row_range(a.kv_len, b, a.Skv, a.window, &lo, &hi);
+  kern::merge_splits<T, kPartials>(a, b, hq,
+                                   (max(0, hi - lo) + a.chunk - 1) / a.chunk);
 }
 
-template <typename T, int EPL, int MAXG>
-void launch_split(const SplitArgs& a, cudaStream_t s) {
-  const dim3 grid(a.Hkv, a.B, a.nsplit);
-  const dim3 block(kWarps * 32);
-  constexpr int U = EPL >= 8 ? 2 : 4;
-  decode_split_kernel<T, EPL, MAXG, U><<<grid, block, 0, s>>>(a);
-}
+int max_g(int G) { return G <= 1 ? 1 : G <= 2 ? 2 : G <= 4 ? 4 : 8; }
 
-template <typename T, int EPL>
-void launch_g(const SplitArgs& a, cudaStream_t s) {
-  if (a.G <= 1)
-    launch_split<T, EPL, 1>(a, s);
-  else if (a.G <= 2)
-    launch_split<T, EPL, 2>(a, s);
-  else if (a.G <= 4)
-    launch_split<T, EPL, 4>(a, s);
-  else
-    launch_split<T, EPL, 8>(a, s);
-}
-
-template <typename T>
-cudaError_t launch(const SplitArgs& a, const CombineArgs& c, cudaStream_t s) {
-  if (a.D <= 32)
-    launch_g<T, 1>(a, s);
-  else if (a.D <= 64)
-    launch_g<T, 2>(a, s);
-  else if (a.D <= 128)
-    launch_g<T, 4>(a, s);
-  else
-    launch_g<T, 8>(a, s);
-  cudaError_t err = cudaGetLastError();
+template <typename T, int MAXG, int VPT>
+cudaError_t launch_split(const Args& a, const CUtensorMap& tmk,
+                         const CUtensorMap& tmv, cudaStream_t s) {
+  const int vpr = vectors_per_row(a.D, sizeof(T));
+  const int ring = ring_stages(VPT) * 2 * a.tile * vpr * 16;
+  const int red = kWarps * MAXG * a.D * 4;
+  const int smem = (ring > red ? ring : red) + 2 * ring_stages(VPT) * 8 + 128;
+  cudaError_t err = cudaFuncSetAttribute(
+      decode_split_kernel<T, MAXG, VPT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const long long total = static_cast<long long>(c.B) * c.Hkv * c.G * c.D;
-  const int threads = 256;
-  const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
-  decode_combine_kernel<T><<<blocks, threads, 0, s>>>(c);
+  decode_split_kernel<T, MAXG, VPT>
+      <<<dim3(a.Hkv, a.B, a.nsplit), kThreads, smem, s>>>(a, tmk, tmv);
   return cudaGetLastError();
+}
+
+template <typename T, int MAXG>
+cudaError_t launch_g(const Args& a, const CUtensorMap& tmk,
+                     const CUtensorMap& tmv, cudaStream_t s) {
+  return vectors_per_lane(a.D, sizeof(T)) == 2
+             ? launch_split<T, MAXG, 2>(a, tmk, tmv, s)
+             : launch_split<T, MAXG, 1>(a, tmk, tmv, s);
+}
+
+template <typename T, int DP>
+cudaError_t launch_mma(const Args& a, const CUtensorMap& tmk,
+                       const CUtensorMap& tmv, cudaStream_t s) {
+  const int ring = tc_stages(DP) * 2 * kTcTile * DP * 2;
+  const int red = kWarps * 8 * a.D * 4;
+  const int smem = (ring > red ? ring : red) + 2 * tc_stages(DP) * 8 + 1024;
+  cudaError_t err = cudaFuncSetAttribute(
+      decode_mma_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  decode_mma_kernel<T, DP>
+      <<<dim3(a.Hkv, a.B, a.nsplit), kThreads, smem, s>>>(a, tmk, tmv);
+  return cudaGetLastError();
+}
+
+// float32 on the CUDA cores (mma.sync takes no float32 operands and TF32
+// would not hold float32 parity), bf16 / fp16 on the tensor cores; then
+// the merge.
+template <typename T>
+cudaError_t launch(const Args& a, const CUtensorMap& tmk,
+                   const CUtensorMap& tmv, cudaStream_t s) {
+  cudaError_t err;
+  if constexpr (sizeof(T) == 4) {
+    switch (max_g(a.G)) {
+      case 1: err = launch_g<T, 1>(a, tmk, tmv, s); break;
+      case 2: err = launch_g<T, 2>(a, tmk, tmv, s); break;
+      case 4: err = launch_g<T, 4>(a, tmk, tmv, s); break;
+      default: err = launch_g<T, 8>(a, tmk, tmv, s); break;
+    }
+  } else {
+    switch (tc_dp(a.D)) {
+      case 64: err = launch_mma<T, 64>(a, tmk, tmv, s); break;
+      case 128: err = launch_mma<T, 128>(a, tmk, tmv, s); break;
+      case 192: err = launch_mma<T, 192>(a, tmk, tmv, s); break;
+      default: err = launch_mma<T, 256>(a, tmk, tmv, s); break;
+    }
+  }
+  if (err != cudaSuccess) return err;
+  const int blocks = a.B * a.Hkv * a.G;
+  if (a.out != nullptr)
+    decode_merge_kernel<T, false><<<blocks, kMergeThreads, 0, s>>>(a);
+  else
+    decode_merge_kernel<T, true><<<blocks, kMergeThreads, 0, s>>>(a);
+  return cudaGetLastError();
+}
+
+int esize_of(int dtype) { return dtype == 0 ? 4 : 2; }
+
+// Positions of one tile: float32 rows of up to 512 bytes in 4-position
+// lane-group tiles; bf16 / fp16 kTcTile.
+int tile_of(int D, int dtype) {
+  return dtype == 0 ? tile_positions(D, 4) : kTcTile;
+}
+
+// Tensor maps of K and V whose boxes are one tile: whole rows for float32,
+// 64-value column blocks in the 128-byte swizzle for bf16 / fp16; false
+// where either view cannot be described (its rows are then staged).
+bool make_maps(CUtensorMap* tmk, CUtensorMap* tmv, const void* k,
+               const void* v, int B, int Hkv, int D, int Skv, long long k_sb,
+               long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+               long long v_sh, int dtype) {
+  const int tile = tile_of(D, dtype);
+  const int box = dtype == 0 ? D : 64;
+  const bool sw = dtype != 0;
+  return Skv > 0 &&
+         kern::make_map(tmk, k, dtype, B, Skv, Hkv, D, k_sb, k_ss, k_sh, box,
+                        tile, sw) &&
+         kern::make_map(tmv, v, dtype, B, Skv, Hkv, D, v_sb, v_ss, v_sh, box,
+                        tile, sw);
 }
 
 }  // namespace
 
+// Positions one split block covers (the wrapper sizes the grid and the
+// scratch with it). dtype: 0 float32, 1 bfloat16, 2 float16.
+extern "C" int flash_decode_chunk(int D, int dtype) {
+  return dtype == 0 ? kTilesPerChunk * tile_positions(D, 4)
+                    : tc_tiles_per_chunk(tc_dp(D)) * kTcTile;
+}
+
+// Whether the fast route serves these K and V views: both describable by a
+// tensor map (bases, strides and rows multiples of 16 bytes). The other
+// route stages rows by plain loads in the same kernel.
+extern "C" int flash_decode_tma_route(const void* k, const void* v, int B,
+                                      int Hkv, int D, int Skv,
+                                      long long k_sb, long long k_ss,
+                                      long long k_sh, long long v_sb,
+                                      long long v_ss, long long v_sh,
+                                      int dtype) {
+  CUtensorMap tmk;
+  CUtensorMap tmv;
+  return make_maps(&tmk, &tmv, k, v, B, Hkv, D, Skv, k_sb, k_ss, k_sh, v_sb,
+                   v_ss, v_sh, dtype);
+}
+
 // dtype: 0 float32, 1 bfloat16, 2 float16. window < 0 means none. Strides
-// are in elements; the head dim of q, k and v must be contiguous. The
-// scratch po/pm/pl holds (B, Hkv, nsplit, G[, D]) float32. normalize=1
-// writes `out` (B, Hq, D) in the input dtype; normalize=0 writes the merged
+// are in elements; the head dim of q, k and v must be contiguous. nsplit
+// must be max(1, ceil(S_eff / chunk)), S_eff = min(Skv, window) with a
+// window, else Skv, and chunk = flash_decode_chunk(D, dtype). The scratch
+// po/pm/pl holds (B, Hkv, nsplit, G[, D]) float32. normalize=1 writes `out`
+// (B, Hq, D) contiguous in the input dtype; normalize=0 writes the merged
 // partials o_out (B, Hq, D), m_out and l_out (B, Hq) in float32. Returns
 // the launches' cudaGetLastError() (0 on success).
 extern "C" int flash_decode_launch(
@@ -289,21 +907,32 @@ extern "C" int flash_decode_launch(
     long long q_sb, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     float scale, int dtype, int normalize, void* stream) {
-  if (G < 1 || G > 8 || D < 1 || D > 256 || B < 1 || Hkv < 1 || Skv < 0 ||
-      nsplit < 1 || nsplit > 65535)
+  if (G < 1 || G > 8 || D < 1 || D > kMaxD || B < 1 || B > 65535 ||
+      Hkv < 1 || Skv < 0 || dtype < 0 || dtype > 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  SplitArgs a{q,    k,    v,    kv_len, po,   pm,   pl,   B,    Hkv,
-              G,    D,    Skv,  window, nsplit, q_sb, q_sh, k_sb, k_ss,
-              k_sh, v_sb, v_ss, v_sh, scale};
-  CombineArgs c{po, pm, pl, out, o_out, m_out, l_out, B, Hkv, G, D, nsplit,
-                normalize};
+  const int es = esize_of(dtype);
+  const int chunk = flash_decode_chunk(D, dtype);
+  const int s_eff = window >= 0 ? (window < Skv ? window : Skv) : Skv;
+  // an empty range still takes one split block, which exits at once
+  if (nsplit != max(1, (s_eff + chunk - 1) / chunk) || nsplit > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tmk{};
+  CUtensorMap tmv{};
+  const int aligned = make_maps(&tmk, &tmv, k, v, B, Hkv, D, Skv, k_sb, k_ss,
+                                k_sh, v_sb, v_ss, v_sh, dtype);
+  const long long Hq = static_cast<long long>(Hkv) * G;
+  // normalize = 1: the merge writes out; 0: the merged partials
+  Args a{q,      k,      v,     kv_len, po,     pm,
+         pl,     normalize ? out : nullptr, normalize ? nullptr : o_out,
+         m_out,  l_out,  B,     Hkv,    G,      D,
+         Skv,    window, nsplit, chunk, tile_of(D, dtype),
+         lanes_per_position(D, es), aligned, q_sb, q_sh, k_sb, k_ss,
+         k_sh,   v_sb,   v_ss,  v_sh,   Hq * D, D,
+         scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
   switch (dtype) {
-    case 0: err = launch<float>(a, c, s); break;
-    case 1: err = launch<__nv_bfloat16>(a, c, s); break;
-    case 2: err = launch<__half>(a, c, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 0: return static_cast<int>(launch<float>(a, tmk, tmv, s));
+    case 1: return static_cast<int>(launch<__nv_bfloat16>(a, tmk, tmv, s));
+    default: return static_cast<int>(launch<__half>(a, tmk, tmv, s));
   }
-  return static_cast<int>(err);
 }

@@ -51,28 +51,34 @@
 //    (lse_merge), into a float32 partial (o, m, l) per (row, KV head,
 //    split, q head) in scratch the wrapper allocates. A second kernel,
 //    launched from the same entry point, merges a row's live splits
-//    (ceil(n_b / chunk) of them) in two passes (common.cuh: lse_scale, the
-//    step K2's split path shares), one block per (row, q head) with the
-//    splits spread over its threads, into the output; a row that attends
-//    nothing (n_b == 0) gives exact zeros.
+//    (ceil(n_b / chunk) of them) in two passes (decode_merge.cuh, the
+//    merge K3 shares; common.cuh: lse_scale, the step K2's split path
+//    shares), one block per (row, q head) with the splits spread over its
+//    threads, into the output; a row that attends nothing (n_b == 0) gives
+//    exact zeros.
 // One template serves float32, bf16 and fp16 (G <= 8, D <= 256).
 #include <cstdint>
 
 #include "common.cuh"
+#include "decode_merge.cuh"
 
 namespace {
 
+using kern::cp_async16;
+using kern::cp_async_commit;
+using kern::cp_async_wait;
 using kern::from_f;
 using kern::kNegInf;
 using kern::lse_merge;
 using kern::to_f;
+using kern::unpack;
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kStages = 3;  // cp.async ring depth (sub-tiles)
 constexpr int kSub = 4;     // sub-tiles per block: chunk = kSub * PPT * P
 constexpr int kMaxD = 256;
-constexpr int kMergeThreads = 128;
+using kern::kMergeThreads;
 
 struct Args {
   const void* q;
@@ -121,52 +127,6 @@ __device__ __forceinline__ int attended(const int* kv_len, const int* pfx,
                                         int* pc) {
   *pc = min(max(pfx[b], 0), prefix_len);
   return *pc + max(min(kv_len[b], Skv) - prefix_len, 0);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// The VE = 16 / sizeof(T) values of one 16-byte vector, as float32.
-template <typename T>
-__device__ __forceinline__ void unpack(const uint4& u, float* f);
-template <>
-__device__ __forceinline__ void unpack<float>(const uint4& u, float* f) {
-  f[0] = __uint_as_float(u.x);
-  f[1] = __uint_as_float(u.y);
-  f[2] = __uint_as_float(u.z);
-  f[3] = __uint_as_float(u.w);
-}
-template <>
-__device__ __forceinline__ void unpack<__nv_bfloat16>(const uint4& u,
-                                                      float* f) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 x = __bfloat1622float2(h[i]);
-    f[2 * i] = x.x;
-    f[2 * i + 1] = x.y;
-  }
-}
-template <>
-__device__ __forceinline__ void unpack<__half>(const uint4& u, float* f) {
-  const __half2* h = reinterpret_cast<const __half2*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 x = __half22float2(h[i]);
-    f[2 * i] = x.x;
-    f[2 * i + 1] = x.y;
-  }
 }
 
 // Copy vector vi of a K or V row into a 16-byte slot: cp.async when the
@@ -416,78 +376,17 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// One block per (b, q head), a thread per head-dim element (two above
-// D 128): merges the row's live splits (splits with l == 0 add nothing)
-// and normalises; zeros where the row attended nothing. The splits' maxima
-// and factors are spread over the block and staged in shared memory, so
-// each thread's loads of its elements of the partials are independent of
-// one another (a row of 4,096 positions has 64 splits).
+// One block per (b, q head): merges the row's live splits (ceil(n_b /
+// chunk) of them) with the decode merge K3 shares (decode_merge.cuh).
 template <typename T>
 __global__ void __launch_bounds__(kMergeThreads)
     ragged_merge_kernel(Args a) {
-  __shared__ float sf[kMergeThreads];
-  __shared__ float red[kMergeThreads / 32];
   const int Hq = a.Hkv * a.G;
   const int hq = blockIdx.x % Hq;
   const int b = blockIdx.x / Hq;
-  const int h = hq / a.G;
-  const int g = hq % a.G;
-  const int tid = threadIdx.x;
   int pc;
   const int n = attended(a.kv_len, a.pfx, b, a.Skv, a.prefix_len, &pc);
-  const int live = (n + a.chunk - 1) / a.chunk;
-  const long long row0 =
-      static_cast<long long>(b * a.Hkv + h) * a.nsplit * a.G + g;
-  // a block-wide reduction through red[] (op: max or sum)
-  auto block_reduce = [&](float x, bool is_max) {
-    x = is_max ? kern::group_max<32>(x) : kern::group_sum<32>(x);
-    __syncthreads();  // red[] is free
-    if (tid % 32 == 0) red[tid / 32] = x;
-    __syncthreads();
-    x = red[0];
-#pragma unroll
-    for (int w = 1; w < kMergeThreads / 32; ++w)
-      x = is_max ? fmaxf(x, red[w]) : x + red[w];
-    return x;
-  };
-  float M = kNegInf;
-  for (int s = tid; s < live; s += kMergeThreads) {
-    const long long r = row0 + static_cast<long long>(s) * a.G;
-    M = fmaxf(M, a.pl[r] > 0.f ? a.pm[r] : kNegInf);
-  }
-  M = block_reduce(M, true);
-  float L = 0.f;
-  float o[kMaxD / kMergeThreads] = {};
-  for (int s0 = 0; s0 < live; s0 += kMergeThreads) {
-    float f = 0.f;
-    if (s0 + tid < live) {
-      const long long r = row0 + static_cast<long long>(s0 + tid) * a.G;
-      f = kern::lse_scale(a.pm[r], a.pl[r], M);
-      L += a.pl[r] * f;
-    }
-    __syncthreads();  // the previous tile's factors are read
-    sf[tid] = f;
-    __syncthreads();
-    const int cnt = min(kMergeThreads, live - s0);
-    const float* po = a.po + (row0 + static_cast<long long>(s0) * a.G) * a.D;
-#pragma unroll 8
-    for (int j = 0; j < cnt; ++j) {
-      const float fj = sf[j];
-      const float* pj = po + static_cast<long long>(j) * a.G * a.D;
-#pragma unroll
-      for (int i = 0; i < kMaxD / kMergeThreads; ++i) {
-        const int d = tid + i * kMergeThreads;
-        if (d < a.D) o[i] += pj[d] * fj;
-      }
-    }
-  }
-  L = block_reduce(L, false);
-  T* out = static_cast<T*>(a.out) + b * a.o_sb + hq * a.o_sh;
-#pragma unroll
-  for (int i = 0; i < kMaxD / kMergeThreads; ++i) {
-    const int d = tid + i * kMergeThreads;
-    if (d < a.D) out[d] = from_f<T>(L > 0.f ? o[i] / L : 0.f);
-  }
+  kern::merge_splits<T, false>(a, b, hq, (n + a.chunk - 1) / a.chunk);
 }
 
 template <typename T, int MAXG>

@@ -13,8 +13,12 @@ sequence-sharded cache is never gathered.
 A decode is bound by the bytes of K and V it reads, so the CUDA kernel
 (``csrc/flash_decode.cu``) reads each attended K/V row once for all G query
 heads of its KV-head group, straight from the cache's (B, S, Hkv, D)
-layout, and splits each row's attended range over several blocks whose
-float32 partials a second kernel merges. See the source for the design.
+layout through a TMA-fed ring, and cuts each row's attended range into
+fixed chunks of ``chunk_positions(D, dtype)`` positions, one block each,
+whose float32 partials a second kernel merges with the log-sum-exp rule.
+The grid is sized from S alone, so a launch never reads the lengths back
+to the host. ``decode_split_reference`` is that decomposition in plain
+PyTorch, for the tests. See the source for the design.
 
 Both wrappers take their plain PyTorch version only for tensors on the CPU;
 for CUDA tensors they launch the kernel or raise. ``flash_decode.launches``
@@ -23,20 +27,20 @@ counts the kernel's launches from either wrapper.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ragged_decode import per_row
+from repro_torch.kernels.ragged_decode import lse_merge, per_row
 
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 8 + [ctypes.c_float, ctypes.c_int,
                                           ctypes.c_int, ctypes.c_void_p])
+_CHUNKS = {}
 
 
 def decode_mask(S: int, kv_len: torch.Tensor, window: Optional[int] = None
@@ -90,18 +94,82 @@ def combine_decode_partials(os, ms, ls):
     return o / l.clamp_min(1e-30)[..., None]
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def attended_range(kv_len, S: int, window: Optional[int] = None):
+    """(B,) bounds [lo, hi) of each row's attended positions:
+    ``hi = min(kv_len, S)``, ``lo = max(0, kv_len - window)`` with a
+    window, else 0 (empty where hi <= lo)."""
+    hi = kv_len.clamp(max=S)
+    lo = (kv_len - window).clamp_min(0) if window is not None \
+        else torch.zeros_like(kv_len)
+    return lo, hi
 
 
-def _num_splits(B: int, Hkv: int, S: int, window: Optional[int],
-               sms: int) -> int:
-    """Slices of each row's attended range: enough blocks for about four
-    per SM, but no slice under 64 positions."""
+def num_splits(S: int, window: Optional[int], chunk: int) -> int:
+    """Split blocks per (row, KV head): ceil(S_eff / chunk), S_eff the most
+    positions a row can attend (S, or min(S, window)); at least one."""
     longest = S if window is None else max(0, min(S, window))
-    return max(1, min(-(-4 * sms // max(1, B * Hkv)), -(-longest // 64),
-                      65535))
+    return max(1, -(-longest // chunk))
+
+
+def decode_split_reference(q, k, v, kv_len, *, window=None, chunk: int = 256,
+                           partials: bool = False):
+    """The CUDA kernel's decomposition in plain PyTorch (float32), for the
+    tests: each row's attended range [lo, hi) is cut into ``num_splits``
+    chunks of ``chunk`` positions starting at lo; each chunk gives a partial
+    (o, m, l) and the chunks merge with the log-sum-exp rule. Returns the
+    normalised output (exact zeros for an empty row) or, with ``partials``,
+    the merged float32 (o, m, l) (m = -1e30, l = 0 for an empty row)."""
+    B, S, Hkv, D = k.shape
+    Hq = q.shape[1]
+    G = Hq // Hkv
+    lo, hi = attended_range(per_row(kv_len, B, q.device).long(), S, window)
+    nsplit = num_splits(S, window, chunk)
+    pos = lo[:, None] + torch.arange(nsplit * chunk, device=q.device)[None]
+    live = pos < hi[:, None]                                    # (B, T)
+    pos = torch.where(live, pos, torch.zeros_like(pos))
+    rows = torch.arange(B, device=q.device)[:, None]
+    kt, vt = k.float()[rows, pos], v.float()[rows, pos]         # (B,T,Hkv,D)
+    qg = q.float().reshape(B, Hkv, G, D) / math.sqrt(D)
+    s = torch.einsum("bhgd,bthd->bhgt", qg, kt)
+    s = s.masked_fill(~live[:, None, None], NEG_INF)
+    s = s.reshape(B, Hkv, G, nsplit, chunk)
+    alive = live.reshape(B, 1, 1, nsplit, chunk)
+    m = s.amax(-1)
+    e = torch.where(alive, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    o = torch.einsum("bhgsc,bschd->bhgsd", e,
+                     vt.reshape(B, nsplit, chunk, Hkv, D))
+    o, m, l = lse_merge(o, m, e.sum(-1), dim=3)
+    if partials:
+        return o.reshape(B, Hq, D), m.reshape(B, Hq), l.reshape(B, Hq)
+    out = torch.where(l[..., None] > 0, o / l.clamp_min(1e-30)[..., None],
+                      torch.zeros_like(o))
+    return out.reshape(B, Hq, D)
+
+
+def chunk_positions(D: int, dtype) -> int:
+    """Positions one split block of the CUDA kernel covers (the grid and
+    the scratch are sized with it); asked of the library once per
+    geometry."""
+    key = (D, dtype)
+    if key not in _CHUNKS:
+        fn = _build.load("flash_decode").flash_decode_chunk
+        fn.argtypes = [ctypes.c_int] * 2
+        fn.restype = ctypes.c_int
+        _CHUNKS[key] = fn(D, _DTYPE_CODE[dtype])
+    return _CHUNKS[key]
+
+
+def uses_tma(k, v) -> bool:
+    """Whether the kernel reads these CUDA K and V views by TMA (bases,
+    strides and rows multiples of 16 bytes); other views are staged by
+    plain loads in the same kernel."""
+    fn = _build.load("flash_decode").flash_decode_tma_route
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong] * 6 + [ctypes.c_int])
+    fn.restype = ctypes.c_int
+    B, S, Hkv, D = k.shape
+    return bool(fn(k.data_ptr(), v.data_ptr(), B, Hkv, D, S,
+                   *k.stride()[:3], *v.stride()[:3], _DTYPE_CODE[k.dtype]))
 
 
 def _launch(q, k, v, kv_len, window, normalize: bool):
@@ -133,7 +201,7 @@ def _launch(q, k, v, kv_len, window, normalize: bool):
     if B == 0:
         return res[0] if normalize else res
     G = Hq // Hkv
-    nsplit = _num_splits(B, Hkv, S, window, _sm_count(q.device.index or 0))
+    nsplit = num_splits(S, window, chunk_positions(D, q.dtype))
     po = torch.empty((B, Hkv, nsplit, G, D), **f32)
     pm = torch.empty((B, Hkv, nsplit, G), **f32)
     pl = torch.empty((B, Hkv, nsplit, G), **f32)

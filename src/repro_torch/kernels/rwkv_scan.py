@@ -11,10 +11,13 @@ Layout (B, T, H, hd) for r, k, v, w (float32), u (H, hd), state
 version's time chunk (``blk_t``) is a TPU tiling and has no counterpart
 here.
 
-The CUDA kernel (``csrc/rwkv_scan.cu``) keeps the state in registers, one
-block per (head, batch row), and stages the time axis through shared
-memory, so device memory sees one read of r, k, v, w and one write of y
-per token. See the source for the design.
+The CUDA kernel (``csrc/rwkv_scan.cu``) splits each (batch row, head)
+over blocks of value columns (column j of S and y depends only on v's
+column j), keeps each block's columns of the state in registers, and
+stages the time axis through double-buffered shared memory, so device
+memory sees about one read of r, k, v, w and one write of y per token.
+``wkv6_split_reference`` is that decomposition in plain PyTorch, for the
+tests. See the source for the design.
 
 ``wkv6`` takes its plain PyTorch version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.
@@ -47,6 +50,33 @@ def wkv6_reference(r, k, v, w, u, state) -> Tuple[torch.Tensor,
     y = (torch.stack(ys, dim=1) if ys
          else torch.zeros(r.shape, dtype=torch.float32, device=r.device))
     return y, s
+
+
+def wkv6_split_reference(r, k, v, w, u, state, *, jb: int = 32,
+                         chunk: int = 32) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """The CUDA kernel's decomposition in plain PyTorch (float32), for the
+    tests: the value columns in blocks of ``jb``, each block's columns of
+    the state carried across time chunks of ``chunk`` steps, and
+    ``y_j = sum_i r_i S_ij + v_j sum_i r_i u_i k_i`` (the reference's
+    function with the u term summed once per key)."""
+    B, T, H, hd = r.shape
+    r, k, v, w = (x.float() for x in (r, k, v, w))
+    ruk = (r * u.float()[None, None] * k).sum(-1)               # (B, T, H)
+    y = torch.zeros((B, T, H, hd), dtype=torch.float32, device=r.device)
+    sfin = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    for j0 in range(0, hd, jb):
+        cols = slice(j0, min(hd, j0 + jb))
+        s = state.float()[..., cols]
+        for t0 in range(0, T, chunk):
+            for t in range(t0, min(T, t0 + chunk)):
+                vt = v[:, t, :, cols]
+                y[:, t, :, cols] = (torch.einsum("bhk,bhkv->bhv", r[:, t], s)
+                                    + vt * ruk[:, t, :, None])
+                s = w[:, t, :, :, None] * s + k[:, t, :, :, None] * vt[
+                    :, :, None, :]
+        sfin[..., cols] = s
+    return y, sfin
 
 
 def _launch(r, k, v, w, u, state):

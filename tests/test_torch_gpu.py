@@ -358,6 +358,127 @@ def test_flash_decode_reads_strided_cache(cuda):
     torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
 
 
+# --- K3 (fixed chunks, TMA ring, shared merge): every dtype, D 64-256, G
+# 1-8, many chunks, windows, sharded slices and staged rows
+
+def _decode_inputs(dev, dtype, B, S, Hq, Hkv, D, seed):
+    return (_randn(dev, dtype, B, Hq, D, seed=seed),
+            _randn(dev, dtype, B, S, Hkv, D, seed=seed + 1),
+            _randn(dev, dtype, B, S, Hkv, D, seed=seed + 2))
+
+
+def _check_decode(q, k, v, kv_len, window=None):
+    """Normalised output and partials against the plain versions on the
+    same inputs in float32 (m and l at 2e-5, o as stated below); one launch
+    each; dead rows exact zeros."""
+    from repro_torch.kernels.flash_decode import (
+        decode_partial_reference, flash_decode, flash_decode_partials,
+        flash_decode_reference)
+    before = flash_decode.launches
+    out = flash_decode(q, k, v, kv_len, window=window)
+    o, m, l = flash_decode_partials(q, k, v, kv_len, window=window)
+    assert flash_decode.launches == before + 2
+    qf, kf, vf = q.float(), k.float(), v.float()
+    want = flash_decode_reference(qf, kf, vf, kv_len, window=window)
+    ro, rm, rl = decode_partial_reference(qf, kf, vf, kv_len, window=window)
+    torch.cuda.synchronize()
+    _close(out, want, q.dtype)
+    # bf16/fp16 run P V on the tensor cores with P as a 16-bit high part
+    # plus the rounding of its residual (~2^-17 relative), so the
+    # unnormalised o, a sum with cancellation, is held at 2e-5 of its rms
+    o_atol = 2e-5 * (1.0 if q.dtype == torch.float32
+                     else float(ro.square().mean().sqrt()))
+    torch.testing.assert_close(o, ro, atol=o_atol, rtol=2e-5)
+    for a, b in ((m, rm), (l, rl)):
+        torch.testing.assert_close(a, b, atol=2e-5, rtol=2e-5)
+    dead = (rl == 0).all(-1)
+    assert torch.all(out[dead] == 0) and torch.all(l[dead] == 0)
+    assert torch.all(m[dead] == -1e30)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("G,D", [(1, 64), (3, 128), (8, 256), (5, 64),
+                                 (2, 256), (4, 128)])
+def test_flash_decode_fixed_chunks(cuda, dtype, G, D):
+    """Five chunks and a part per row, rows of every length class: dead,
+    one position, on and off a chunk boundary, the whole cache, kv_len
+    past S; read by TMA."""
+    from repro_torch.kernels.flash_decode import chunk_positions, uses_tma
+    c = chunk_positions(D, dtype)
+    B, S, Hkv = 6, 5 * c + 37, 2
+    q, k, v = _decode_inputs(cuda, dtype, B, S, G * Hkv, Hkv, D,
+                             seed=G + D)
+    kv_len = torch.tensor([0, 1, 2 * c, 2 * c + 5, S, S + 400],
+                          dtype=torch.int32, device=cuda)
+    assert uses_tma(k, v)
+    _check_decode(q, k, v, kv_len)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [1, 37, 100, 1024])
+def test_flash_decode_windows(cuda, dtype, window):
+    """Windows shorter and longer than a chunk, with rows shorter than the
+    window, rows whose window starts mid-chunk and kv_len past S."""
+    B, S, Hq, Hkv, D = 5, 2500, 8, 4, 128
+    q, k, v = _decode_inputs(cuda, dtype, B, S, Hq, Hkv, D, seed=window)
+    kv_len = torch.tensor([0, 50, 1777, 2500, 2600], dtype=torch.int32,
+                          device=cuda)
+    _check_decode(q, k, v, kv_len, window=window)
+
+
+def test_flash_decode_sharded_slices_by_tma(cuda):
+    """The sharded decode's sequence slices k[:, i*per:(i+1)*per] are
+    strided views that the tensor maps take as they are."""
+    from repro_torch.kernels.flash_decode import uses_tma
+    B, S, Hq, Hkv, D, n = 3, 4096, 24, 8, 128, 4
+    q, k, v = _decode_inputs(cuda, torch.bfloat16, B, S, Hq, Hkv, D, seed=3)
+    lens = torch.tensor([4096, 2049, 17], dtype=torch.int32, device=cuda)
+    per = S // n
+    for i in range(n):
+        ks, vs = k[:, i * per:(i + 1) * per], v[:, i * per:(i + 1) * per]
+        assert not ks.is_contiguous() and uses_tma(ks, vs)
+        _check_decode(q, ks, vs, (lens - i * per).clamp(0, per))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_flash_decode_stages_what_tma_cannot_describe(cuda, dtype):
+    """Rows a tensor map cannot describe are staged in the same kernel, not
+    refused: 24-byte rows (D 12 in bf16/fp16, D 6 in float32) and a cache
+    whose base sits 8 bytes past a 16-byte boundary."""
+    from repro_torch.kernels.flash_decode import uses_tma
+    D = 12 if dtype != torch.float32 else 6
+    q, k, v = _decode_inputs(cuda, dtype, 3, 700, 6, 2, D, seed=5)
+    lens = torch.tensor([700, 0, 333], dtype=torch.int32, device=cuda)
+    assert not uses_tma(k, v)
+    _check_decode(q, k, v, lens, window=500)
+    off = 8 // q.element_size()
+    buf = _randn(cuda, dtype, 2, 3, 900, 2, 64 + off, seed=6)
+    k, v = buf[0, ..., off:], buf[1, ..., off:]
+    q = _randn(cuda, dtype, 3, 8, 64, seed=7)
+    assert not uses_tma(k, v)
+    _check_decode(q, k, v, torch.tensor([900, 1, 513], dtype=torch.int32,
+                                        device=cuda))
+
+
+def test_flash_decode_dead_rows_zero_and_counts_once(cuda):
+    """One call is one launch (split and merge kernels of one entry point);
+    rows that attend nothing are exact zeros whatever the cache holds."""
+    from repro_torch.kernels.flash_decode import flash_decode
+    q, k, v = _decode_inputs(cuda, torch.bfloat16, 4, 2000, 24, 8, 128,
+                             seed=9)
+    k[1:3] = 1e4
+    v[1:3] = float("nan")
+    lens = torch.tensor([2000, 0, 0, 999], dtype=torch.int32, device=cuda)
+    before = flash_decode.launches
+    out = flash_decode(q, k, v, lens)
+    assert flash_decode.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.all(out[1:3] == 0)
+    assert bool(torch.isfinite(out.float()).all())
+
+
 @pytest.mark.parametrize("B,T,H,hd", [(1, 16, 1, 8), (2, 40, 3, 16),
                                       (1, 64, 2, 32), (2, 100, 2, 64),
                                       (1, 20, 1, 128)])
@@ -373,6 +494,40 @@ def test_wkv6_matches_plain(cuda, B, T, H, hd):
     assert wkv6.launches == before + 1
     ry, rs = wkv6_reference(r, k, v, w, u, s0)
     torch.cuda.synchronize()
+    torch.testing.assert_close(y, ry, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(s, rs, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("B,T,H,hd", [(4, 100, 32, 64), (2, 77, 8, 128),
+                                      (1, 33, 40, 32), (3, 65, 5, 16),
+                                      (2, 31, 7, 8)])
+def test_wkv6_column_blocks_many_heads(cuda, B, T, H, hd):
+    """B*H small and large, T off the 32-step chunk, every head dim's
+    column split."""
+    from repro_torch.kernels.rwkv_scan import wkv6, wkv6_reference
+    r, k, v = (_randn(cuda, torch.float32, B, T, H, hd, seed=s)
+               for s in (24, 25, 26))
+    w = torch.sigmoid(_randn(cuda, torch.float32, B, T, H, hd, seed=27))
+    u = _randn(cuda, torch.float32, H, hd, seed=28)
+    s0 = _randn(cuda, torch.float32, B, H, hd, hd, seed=29)
+    y, s = wkv6(r, k, v, w, u, s0)
+    ry, rs = wkv6_reference(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, ry, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(s, rs, atol=1e-4, rtol=1e-4)
+
+
+def test_wkv6_stages_unaligned_inputs(cuda):
+    """Inputs whose base is not 16-byte aligned are staged by plain loads
+    through the same buffers."""
+    from repro_torch.kernels.rwkv_scan import wkv6, wkv6_reference
+    buf = torch.randn(4, 2, 45, 3, 33, device=cuda)
+    r, k, v, w = (buf[i, ..., 1:] for i in range(4))
+    w = torch.sigmoid(w)
+    u = torch.randn(3, 32, device=cuda)
+    s0 = torch.randn(2, 3, 32, 32, device=cuda)
+    y, s = wkv6(r, k, v, w, u, s0)
+    ry, rs = wkv6_reference(r, k, v, w, u, s0)
     torch.testing.assert_close(y, ry, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(s, rs, atol=1e-4, rtol=1e-4)
 

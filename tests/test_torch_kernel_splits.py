@@ -1,12 +1,16 @@
 """The CUDA kernels' decompositions on the CPU, in plain PyTorch: K1's
-split over attended positions (``ragged_decode_split_reference``) and K2's
+split over attended positions (``ragged_decode_split_reference``), K2's
 GQA row packing with a split KV range (``flash_attention_split_reference``),
-each merged with the log-sum-exp rule. Both are held to the plain versions
-the wrappers run for CPU tensors and to the JAX oracles
-(``ref.ragged_decode_reference``, ``ref.mha_reference``) on the same numpy
-inputs from a seed, in float32 at 2e-5 abs/rel (the same arithmetic summed
-in another order). The kernels themselves are held to the plain versions on
-the card (tests/test_torch_gpu.py, chip_smoke.py)."""
+K3's fixed chunks of the attended range (``decode_split_reference``), each
+merged with the log-sum-exp rule, and K4's column-blocked, time-chunked
+scan (``wkv6_split_reference``). Each is held to the plain version the
+wrapper runs for CPU tensors and to the JAX oracles
+(``ref.ragged_decode_reference``, ``ref.mha_reference``,
+``ref.decode_partial_reference`` with ``ref.combine_decode_partials``,
+``ref.wkv6_reference``) on the same numpy inputs from a seed, in float32 at
+2e-5 abs/rel (the same arithmetic summed in another order; the RWKV6 scan
+1e-4, as the reference's tests hold it). The kernels themselves are held to
+the plain versions on the card (tests/test_torch_gpu.py, chip_smoke.py)."""
 import jax
 import numpy as np
 import pytest
@@ -14,11 +18,15 @@ import torch
 
 from _torch_bridge import t
 from repro.kernels import ref
+from repro_torch.kernels.flash_decode import (
+    attended_range, decode_partial_reference, decode_split_reference,
+    flash_decode_reference, num_splits)
 from repro_torch.kernels.flash_attention import (
     flash_attention_reference, flash_attention_split_reference, kv_tile,
     split_plan)
 from repro_torch.kernels.ragged_decode import (
     attended_counts, ragged_decode_reference, ragged_decode_split_reference)
+from repro_torch.kernels.rwkv_scan import wkv6_reference, wkv6_split_reference
 
 F32 = dict(atol=2e-5, rtol=2e-5)
 
@@ -26,6 +34,19 @@ ragged_oracle = jax.jit(ref.ragged_decode_reference,
                         static_argnames=("prefix_len",))
 mha_oracle = jax.jit(ref.mha_reference, static_argnames=(
     "context_len", "q_offset", "causal", "window", "collect_mass"))
+partial_oracle = jax.jit(ref.decode_partial_reference,
+                         static_argnames=("window",))
+combine_oracle = jax.jit(ref.combine_decode_partials)
+wkv_oracle = jax.jit(ref.wkv6_reference)
+
+
+@pytest.fixture(autouse=True)
+def few_threads():
+    """Small products: a few CPU threads, restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 4))
+    yield
+    torch.set_num_threads(n)
 
 
 def _randn(rng, *shape):
@@ -129,3 +150,75 @@ def test_split_plan_fills_the_card():
     assert split_plan(1, 2049, 2049, 8, 3, 128, 132) == (1, 33)
     assert split_plan(1, 4096, 4096, 4, 2, 256, 132) == (1, 128)
     assert kv_tile(256) == 32 and kv_tile(192) == 64 and kv_tile(16) == 64
+
+
+# K3: (S, window, kv_len, chunk) per row set; rows cover dead rows, kv_len
+# past S, counts on and off a chunk boundary, a window shorter than a chunk
+# and one over several chunks, and a chunk larger than every count
+@pytest.mark.parametrize("S,window,kv_len,chunk", [
+    (50, None, [0, 50, 77, 13], 8),       # dead, full, kv_len > S, odd
+    (48, None, [16, 48, 8, 9, 0], 8),     # on boundaries, one past, dead
+    (48, 7, [48, 30, 0, 5], 8),           # window shorter than a chunk
+    (48, 20, [48, 60, 70, 3], 8),         # window over chunks; kv_len > S,
+                                          # one past S + window: empty
+    (50, None, [50, 33, 1, 0], 128),      # chunk > every count
+])
+def test_decode_split_matches_plain_and_oracle(S, window, kv_len, chunk):
+    B, Hq, Hkv, D = len(kv_len), 6, 2, 16
+    rng = np.random.default_rng(S + chunk + (window or 0))
+    q, k, v = (_randn(rng, B, Hq, D), _randn(rng, B, S, Hkv, D),
+               _randn(rng, B, S, Hkv, D))
+    kl = np.array(kv_len, np.int32)
+    args = (t(q), t(k), t(v), t(kl))
+    out = decode_split_reference(*args, window=window, chunk=chunk)
+    o, m, l = decode_split_reference(*args, window=window, chunk=chunk,
+                                     partials=True)
+    np.testing.assert_allclose(
+        out.numpy(), flash_decode_reference(*args, window=window).numpy(),
+        **F32)
+    for a, b in zip((o, m, l), decode_partial_reference(*args,
+                                                        window=window)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **F32)
+    jo, jm, jl = partial_oracle(q, k, v, kv_len=kl, window=window)
+    for a, b in zip((o, m, l), (jo, jm, jl)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **F32)
+    joined = combine_oracle(jo[None], jm[None], jl[None])
+    np.testing.assert_allclose(out.numpy(), np.asarray(joined), **F32)
+    # an empty row: exact zeros, m = -1e30, l = 0
+    lo, hi = attended_range(t(kl), S, window)
+    dead = (hi <= lo).numpy()
+    assert dead.any()
+    np.testing.assert_array_equal(out.numpy()[dead], 0.0)
+    np.testing.assert_array_equal(l.numpy()[dead], 0.0)
+    np.testing.assert_array_equal(m.numpy()[dead], np.float32(-1e30))
+
+
+def test_decode_split_counts():
+    """The grid's split count comes from S (and the window) alone; the
+    attended range is [max(0, kv_len - window), min(kv_len, S))."""
+    assert num_splits(32768, None, 256) == 128
+    assert num_splits(8192, 1024, 128) == 8
+    assert num_splits(100, 0, 64) == 1 and num_splits(0, None, 64) == 1
+    lo, hi = attended_range(torch.tensor([0, 5, 30, 99]), 40, 10)
+    assert lo.tolist() == [0, 0, 20, 89] and hi.tolist() == [0, 5, 30, 40]
+
+
+# K4: (B, T, H, hd, jb, chunk): T off the chunk, hd 8 and 64, JB < hd
+@pytest.mark.parametrize("B,T,H,hd,jb,chunk", [
+    (2, 40, 3, 8, 8, 32),        # hd 8, one column block, T off the chunk
+    (1, 37, 2, 64, 32, 16),      # two column blocks, T off the chunk
+    (2, 20, 1, 64, 16, 32),      # four column blocks, one short chunk
+])
+def test_wkv6_split_matches_plain_and_oracle(B, T, H, hd, jb, chunk):
+    rng = np.random.default_rng(T * hd + jb)
+    r, k, v = (_randn(rng, B, T, H, hd) for _ in range(3))
+    w = 1.0 / (1.0 + np.exp(-_randn(rng, B, T, H, hd)))
+    u = _randn(rng, H, hd)
+    s0 = _randn(rng, B, H, hd, hd)
+    xs = (r, k, v, w.astype(np.float32), u, s0)
+    y, s = wkv6_split_reference(*(t(x) for x in xs), jb=jb, chunk=chunk)
+    py, ps = wkv6_reference(*(t(x) for x in xs))
+    jy, js = wkv_oracle(*xs)
+    for a, b in ((y, py), (s, ps), (y, jy), (s, js)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4,
+                                   rtol=1e-4)

@@ -1,5 +1,6 @@
-"""The port stands alone: nothing under src/repro_torch/ or chip_smoke.py
-imports jax or the reference package, at run time or in the source."""
+"""The port stands alone: nothing under src/repro_torch/, chip_smoke.py or
+the port's tools/ imports jax or the reference package, at run time or in
+the source."""
 import ast
 import os
 import subprocess
@@ -10,7 +11,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 
 
 def _imports(path: Path):

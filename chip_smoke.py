@@ -28,6 +28,27 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
      at capacity 4 through InMemoryTransport and SerializedTransport(int8);
      every ragged step must launch the kernel once per layer; one step's
      logits are compared between the kernel and the plain backend.
+  4a. wire_codec — on one request's bf16 sender KV at full width, the
+     int8 and int4 arrays the codec makes on the card are byte-identical
+     to the CPU codec's; the session's WirePlan counts the analytic bytes
+     plus its scales.
+  4b. paged_serving — 12 requests over 3 contexts (2,049, 9 and 17
+     positions with BOS), 4 queries each, 8 tokens at
+     capacity 4 on K1, through InMemoryTransport and
+     SerializedTransport(int8), each with a PageStore(page_len=16) and
+     without: tokens identical, pages sent equal to the distinct page IDs,
+     a hit rate of exactly 0.75, bytes equal to the analytic paged count
+     plus the scales; then cold and warm ingests and the bucketed gather
+     of the 2,049-position context timed alone.
+  4c. wire_tiers — the 10 requests of phase 4 through
+     SerializedTransport(int4) and the session's WirePlan: bytes equal to
+     the analytic count; at one prefill of the long request, the received
+     K/V within the reference's ERR_BOUND per slot (int8 slots widened for
+     the bf16 payload's roundings), and the logits' max
+     error (relative to the in-memory logits') within INT4_OVER_INT8
+     times the int8 wire's.
+     Phases 4, 4b and 4c are K1's main paths: each sets the counter to 0,
+     and must launch the kernel once per layer per ragged step.
   5. the kernel entry point — repro_torch.kernels.ops driven at full
      published widths with the K2/K3/K4 counters at 0 (llama3.2-3b-pair
      prefills with and without the Eq. (1) mass, a gemma3-4b local
@@ -115,6 +136,21 @@ def time_ms(fn, iters=20, flush=None, warmup=3, queue_ahead=False):
         b.synchronize()
         total += a.elapsed_time(b)
     return total / iters
+
+
+def wall_ms(fn, n=3):
+    """Median host wall clock of fn() over n calls after a warm-up call,
+    each ending in a synchronize."""
+    import numpy as np
+    import torch
+    ts = []
+    for _ in range(n + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ts[1:]))
 
 
 # ---------------------------------------------------------------------------
@@ -303,71 +339,98 @@ def serving_requests(tok):
     return reqs
 
 
-def phase_full_width(dev, smi):
-    import numpy as np
+def full_width_pair(dev):
+    """llama3.2-3b-pair at full width, random weights from seed 0 (one
+    parameter set serves sender and receiver), and the serving settings
+    every full-width phase shares."""
     import torch
-    from repro_torch.comm import (Agent, CommSession, InMemoryTransport,
-                                  SerializedTransport)
-    from repro_torch.core import protocol
     from repro_torch.core.types import KVCommConfig
     from repro_torch.data.synthetic import SyntheticTask, TaskConfig
-    from repro_torch.kernels.ragged_decode import ragged_decode
     from repro_torch.launch import pairs
-    from repro_torch.models import transformer as tfm
-    from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
     cfg, tok = pairs.full_width_config(), pairs.pair_tokenizer()
     t0 = time.perf_counter()
     sender, receiver = pairs.random_pair(cfg, 0, device=dev)
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_params = sum(t.numel() for t in leaves(sender))
-    kvcfg = KVCommConfig(ratio=0.5, alpha=0.7)
-    calib = SyntheticTask(tok, TaskConfig("retrieval", num_facts=6,
-                                          seed=42)).batch(1)
-    sconf = SchedulerConfig(capacity=4, decode_backend="kernel")
+    return {"cfg": cfg, "tok": tok, "sender": sender, "receiver": receiver,
+            "init_s": time.perf_counter() - t0,
+            "kvcfg": KVCommConfig(ratio=0.5, alpha=0.7),
+            "calib": SyntheticTask(tok, TaskConfig(
+                "retrieval", num_facts=6, seed=42)).batch(1)}
+
+
+def fw_session(fw, tr):
+    """A session over transport ``tr``, calibrated on the one retrieval
+    sample (ratio 0.5, alpha 0.7: 14 of 28 layers)."""
+    from repro_torch.comm import Agent, CommSession
+    s = CommSession(Agent("sender", fw["cfg"], fw["sender"], fw["tok"]),
+                    Agent("receiver", fw["cfg"], fw["receiver"], fw["tok"]),
+                    tr)
+    s.calibrate(fw["calib"]["context"], fw["calib"]["query"],
+                key="retrieval")
+    return s
+
+
+def serve_stream(fw, dev, tr, reqs, name):
+    """One served stream at capacity 4 on K1; checks that every ragged step
+    launched the kernel once per layer and every request completed.
+    Returns (session, scheduler, completions, stats)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.ragged_decode import ragged_decode
+    from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
+    cfg = fw["cfg"]
+    sess = fw_session(fw, tr)
+    sched = Scheduler(sess, fw["kvcfg"], calib_key="retrieval",
+                      config=SchedulerConfig(capacity=4,
+                                             decode_backend="kernel"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    l0 = ragged_decode.launches
+    t0 = time.perf_counter()
+    comps, stats = sched.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ragged_decode.launches - l0
+    check(launches == cfg.num_layers * stats["steps"] > 0,
+          f"{name}: {launches} kernel launches for {stats['steps']} "
+          f"steps of {cfg.num_layers} layers")
+    check(len(comps) == len(reqs)
+          and all(len(c.tokens) == r.max_new for c, r in zip(comps, reqs)),
+          f"{name}: incomplete completions")
+    return sess, sched, comps, {
+        "transport": name, "requests": len(comps),
+        "tokens": stats["tokens"], "steps": stats["steps"],
+        "kernel_launches": launches, "wall_s": wall,
+        "tokens_per_s": stats["tokens"] / wall,
+        "ttft_p50_ms": float(np.median([c.ttft_s for c in comps])) * 1e3,
+        "bytes_moved": sess.transport.total_bytes,
+        "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+        "occupancy": stats["occupancy"],
+        "selected_layers": list(sched.layers)}
+
+
+def phase_full_width(dev, smi, fw):
+    import numpy as np
+    import torch
+    from repro_torch.comm import Agent, InMemoryTransport, SerializedTransport
+    from repro_torch.core import protocol
+    from repro_torch.kernels.ragged_decode import ragged_decode
+    from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
+    cfg, tok, receiver = fw["cfg"], fw["tok"], fw["receiver"]
+    n_params = sum(t.numel() for t in leaves(fw["sender"]))
+    kvcfg = fw["kvcfg"]
     reqs = serving_requests(tok)
 
-    def session(tr):
-        s = CommSession(Agent("sender", cfg, sender, tok),
-                        Agent("receiver", cfg, receiver, tok), tr)
-        s.calibrate(calib["context"], calib["query"], key="retrieval")
-        return s
-
     # warm-up (cuBLAS handles, allocator): two short requests, not counted
-    Scheduler(session(InMemoryTransport()), kvcfg, calib_key="retrieval",
-              config=sconf).run(reqs[:2])
+    serve_stream(fw, dev, InMemoryTransport(), reqs[:2], "warm-up")
     torch.cuda.synchronize()
 
     runs = {}
     ragged_decode.launches = 0          # the main path starts here
     for name, tr in (("inmemory", InMemoryTransport()),
                      ("serialized_int8", SerializedTransport("int8"))):
-        sess = session(tr)
-        sched = Scheduler(sess, kvcfg, calib_key="retrieval", config=sconf)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        l0 = ragged_decode.launches
-        t0 = time.perf_counter()
-        comps, stats = sched.run(reqs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = ragged_decode.launches - l0
-        check(launches == cfg.num_layers * stats["steps"] > 0,
-              f"{name}: {launches} kernel launches for {stats['steps']} "
-              f"steps of {cfg.num_layers} layers")
-        check(len(comps) == len(reqs)
-              and all(len(c.tokens) == 8 for c in comps),
-              f"{name}: incomplete completions")
-        runs[name] = {"sched": sched, "stats": {
-            "transport": name, "requests": len(comps),
-            "tokens": stats["tokens"], "steps": stats["steps"],
-            "kernel_launches": launches, "wall_s": wall,
-            "tokens_per_s": stats["tokens"] / wall,
-            "ttft_p50_ms": float(np.median([c.ttft_s for c in comps])) * 1e3,
-            "bytes_moved": sess.transport.total_bytes,
-            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
-            "occupancy": stats["occupancy"],
-            "selected_layers": list(sched.layers), "card": smi}}
+        _, sched, _, stats = serve_stream(fw, dev, tr, reqs, name)
+        runs[name] = {"sched": sched, "stats": {**stats, "card": smi}}
         emit({"phase": "full_width_serving", **runs[name]["stats"]})
     main_launches = ragged_decode.launches
 
@@ -393,21 +456,11 @@ def phase_full_width(dev, smi):
     check(rel <= 5e-2, f"kernel vs reference step logits: rel {rel} > 5e-2")
     emit({"phase": "full_width_step_logits", "rel_err": rel,
           "bound": 5e-2, "token_agreement": agree,
-          "params": n_params, "init_s": init_s})
+          "params": n_params, "init_s": fw["init_s"]})
 
     # where the time goes: each stage alone (host wall clock around work
     # that ends in a synchronize, median of 3), then a device profile of
     # one more served stream
-    def wall_ms(fn):
-        ts = []
-        for _ in range(4):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            ts.append((time.perf_counter() - t0) * 1e3)
-        return float(np.median(ts[1:]))
-
     agent = Agent("receiver", cfg, receiver, tok)
     short, long_ = reqs[0], reqs[-1]
     kv_long, _ = agent.export_kv(long_.context[None])
@@ -429,8 +482,9 @@ def phase_full_width(dev, smi):
                 st["prefix_lens"], active, backend=backend))
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    prof_sched = Scheduler(session(InMemoryTransport()), kvcfg,
-                           calib_key="retrieval", config=sconf)
+    prof_sched = Scheduler(fw_session(fw, InMemoryTransport()), kvcfg,
+                           calib_key="retrieval", config=SchedulerConfig(
+                               capacity=4, decode_backend="kernel"))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -455,6 +509,284 @@ def phase_full_width(dev, smi):
                              for k, ms, n in by_kernel[:10]],
           "card": smi})
     return runs, main_launches
+
+
+# ---------------------------------------------------------------------------
+# the wire tiers and the paged store at full width
+# ---------------------------------------------------------------------------
+# The round-trip bounds of the reference's codec tests
+# (tests/test_wire_codec.py:25, ERR_BOUND): a received K/V element lies
+# within this fraction of its layer's absmax of the sent one (half a
+# quantization step, ~2x headroom: int4 absmax / 14, int8 absmax / 254).
+ERR_BOUND = {"float32": 0.0, "float16": 1e-3, "bfloat16": 8e-3,
+             "int8": 8e-3, "int4": 0.15}
+# Those bounds are for float32 payloads. A bf16 payload adds two roundings:
+# x / scale is rounded to bf16 before round-half-even (bf16's spacing is
+# 0.5 on [64, 128), so an int8 code may be off by 0.75 of a step) and the
+# decoded value is rounded to bf16 (2^-8 of the absmax). An int8 slot of
+# the full-width (bf16) payload is held to 0.75 / 127 + 2^-8 ~= 0.0098;
+# int4 (worst 0.516 / 7 + 2^-8 ~= 0.078) and float16 (an exact cast) keep
+# theirs.
+BF16_PAYLOAD_BOUND = {**ERR_BOUND, "int8": 0.75 / 127 + 2 ** -8}
+# To first order the receiver's logits move in proportion to the K/V
+# error, so a tier whose coarsest slots are int4 may move them at most
+# ERR_BOUND["int4"] / ERR_BOUND["int8"] = 18.75 times as far (relative to
+# the in-memory logits' largest magnitude) as the int8 wire does on the
+# same request.
+INT4_OVER_INT8 = ERR_BOUND["int4"] / ERR_BOUND["int8"]
+
+
+def long_context_kv(fw, sess, reqs):
+    """The sender's bf16 KV of the last request of ``reqs`` (the 2,049-
+    position one where the phases call it) and its selected payload (14
+    layers)."""
+    from repro_torch.core.protocol import gather_selected
+    select = sess.selection(fw["kvcfg"], key="retrieval")
+    kv, _ = sess.sender.export_kv(reqs[-1].context[None])
+    return kv, select, gather_selected(kv, select)
+
+
+def phase_wire_codec(dev, smi, fw):
+    """The codec on the card holds the CPU codec's bytes (int8 and int4, k
+    and v of one request's bf16 sender KV at full width), and the
+    session's WirePlan counts the analytic bytes plus its scales."""
+    import torch
+    from repro_torch.comm import InMemoryTransport, SerializedTransport
+    from repro_torch.comm.transport import encode_wire
+    from repro_torch.core.channel import kv_wire_bytes
+    cfg = fw["cfg"]
+    sess = fw_session(fw, InMemoryTransport())
+    reqs = serving_requests(fw["tok"])
+    kv, select, payload = long_context_kv(fw, sess, reqs)
+    check(payload["k"].dtype == torch.bfloat16,
+          "wire_codec: the sender KV is not bf16")
+    out = {"phase": "wire_codec", "payload_shape": list(payload["k"].shape)}
+    raw = lambda a: a.contiguous().view(torch.uint8)    # noqa: E731
+    for wire in ("int8", "int4"):
+        ms = wall_ms(lambda: encode_wire(payload["k"], wire))
+        for part in ("k", "v"):
+            got, n = encode_wire(payload[part], wire)
+            want, n_cpu = encode_wire(payload[part].cpu(), wire)
+            same = n == n_cpu and all(torch.equal(raw(a), raw(b))
+                                      for a, b in zip(got, want))
+            check(same, f"wire_codec: {wire} {part} from the card differs "
+                  "from the CPU codec")
+        out[f"{wire}_bytes_per_part"] = n
+        out[f"{wire}_card_encode_ms"] = ms
+    plan = sess.wire_plan(fw["kvcfg"], key="retrieval")
+    tr = SerializedTransport(plan)
+    tr.send(cfg, fw["kvcfg"], kv, select)
+    Sc, M = int(kv["k"].shape[2]), len(plan)
+    analytic = kv_wire_bytes(cfg, 1, Sc, M, plan=plan) \
+        + 2 * 4 * plan.n_scaled()
+    check(tr.last.n_bytes == analytic,
+          f"wire_codec: plan bytes {tr.last.n_bytes} != {analytic}")
+    emit({**out, "byte_identical": True, "plan": plan.spec,
+          "plan_bytes": tr.last.n_bytes, "plan_bytes_analytic": analytic,
+          "int8_bytes_analytic": kv_wire_bytes(cfg, 1, Sc, M, 1)
+          + 2 * 4 * M, "card": smi})
+    return plan
+
+
+def paged_requests(tok):
+    """12 requests over 3 contexts (2,048 random tokens, and retrieval
+    contexts of 8 and 16 tokens), each asked 4 queries, 8 tokens each. No two contexts share their first 15 tokens, so with BOS no
+    page-aligned 16-position span is shared: the analytic hit rate is
+    exactly 3/4."""
+    import numpy as np
+    from repro_torch.launch.serve import build_requests
+    from repro_torch.serving.scheduler import Request
+    short = build_requests(tok, "retrieval", 8, 8)
+    ctxs = [np.random.default_rng(1).integers(
+        tok.entity_base, tok.vocab_size, 2048).astype(np.int32),
+        short[0].context, short[-1].context]
+    for i in range(3):
+        for j in range(i):
+            check(not np.array_equal(ctxs[i][:15], ctxs[j][:15]),
+                  "paged_serving: two contexts share a leading page")
+    return [Request(rid=3 * q + c, context=ctxs[c],
+                    query=short[(q + 2 * c) % len(short)].query, max_new=8)
+            for q in range(4) for c in range(3)]
+
+
+def phase_paged_serving(dev, smi, fw):
+    """The 12-request stream through InMemoryTransport and
+    SerializedTransport("int8"), each with a PageStore(page_len=16) and
+    without: tokens identical, pages_sent equal to the distinct page IDs,
+    a hit rate of exactly 0.75, bytes equal to the analytic paged count
+    plus the scales. Then ingests and the gather at the 2,049-token
+    context timed alone. Returns the K1 launches of the paged streams."""
+    import dataclasses
+    import torch
+    from repro_torch.comm import InMemoryTransport, SerializedTransport
+    from repro_torch.comm.transport import encode_payload
+    from repro_torch.core.channel import kv_wire_bytes_paged
+    from repro_torch.core.protocol import selected_layer_ids
+    from repro_torch.kernels.ragged_decode import ragged_decode
+    from repro_torch.store import PageStore
+    cfg = fw["cfg"]
+    reqs = paged_requests(fw["tok"])
+    wires = {"inmemory": (lambda st: InMemoryTransport(store=st), 2, 0),
+             "serialized_int8": (lambda st: SerializedTransport(
+                 "int8", store=st), 1, 1)}
+    results, steps = {}, 0
+    ragged_decode.launches = 0                 # this path starts here
+    for name, (make, isz, scaled) in wires.items():
+        _, _, plain, plain_stats = serve_stream(fw, dev, make(None), reqs,
+                                                name)
+        store = PageStore(page_len=16)
+        sess, sched, comps, stats = serve_stream(fw, dev, make(store), reqs,
+                                                 name + "_paged")
+        steps += plain_stats["steps"] + stats["steps"]
+        same = all(list(a.tokens) == list(b.tokens)
+                   for a, b in zip(plain, comps))
+        check(same, f"paged_serving[{name}]: tokens differ from unpaged")
+        summary = sess.dedup_summary()
+        M = len(sched.layers)
+        distinct = len(set(store.resident_ids()))
+        expect_pages = M * sum(-(-(len(c) + 1) // 16) for c in
+                               {r.context.tobytes(): r.context
+                                for r in reqs}.values())
+        pstats = dataclasses.asdict(store.stats())
+        check(pstats["evictions"] == 0 and distinct == expect_pages
+              == summary["pages_sent"],
+              f"paged_serving[{name}]: {summary['pages_sent']} pages sent, "
+              f"{distinct} distinct IDs, {expect_pages} expected")
+        check(summary["hit_rate"] == 0.75,
+              f"paged_serving[{name}]: hit rate {summary['hit_rate']}")
+        analytic = kv_wire_bytes_paged(
+            cfg, 1, 2049, M, page_len=16, pages_sent=summary["pages_sent"],
+            itemsize=isz) + len(reqs) * 2 * 4 * M * scaled
+        check(summary["bytes"] == analytic,
+              f"paged_serving[{name}]: {summary['bytes']} B != {analytic}")
+        results[name] = {"unpaged": plain_stats, "paged": stats,
+                         "dedup": summary, "pool": pstats,
+                         "analytic_bytes": analytic}
+        emit({"phase": "paged_serving", "transport": name,
+              "token_identical": same, **summary,
+              "analytic_bytes": analytic,
+              "unpaged_bytes": plain_stats["bytes_moved"],
+              "tokens_per_s": {"paged": stats["tokens_per_s"],
+                               "unpaged": plain_stats["tokens_per_s"]},
+              "ttft_p50_ms": {"paged": stats["ttft_p50_ms"],
+                              "unpaged": plain_stats["ttft_p50_ms"]},
+              "peak_mem_gb": {"paged": stats["peak_mem_gb"],
+                              "unpaged": plain_stats["peak_mem_gb"]},
+              "kernel_launches": {"paged": stats["kernel_launches"],
+                                  "unpaged": plain_stats["kernel_launches"]},
+              "pool": pstats, "card": smi})
+    launches = ragged_decode.launches
+    check(launches == cfg.num_layers * steps, "paged_serving: K1 launches")
+
+    # host cost of the store at the 2,049-token context, alone
+    sess = fw_session(fw, InMemoryTransport())
+    kv, select, payload = long_context_kv(fw, sess, [reqs[0]])
+    check(payload["k"].shape[2] == 2049, "paged_serving: not the long one")
+    layers = selected_layer_ids(select)
+    for wd in ("bfloat16", "int8"):
+        store = PageStore(page_len=16)
+        kw = dict(layers=layers, select=select, wire_dtype=wd)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        table, novel, nbytes = store.ingest(payload, **kw)
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        warm = []
+
+        def warm_ingest():
+            t, n, _ = store.ingest(payload, **kw)
+            check(not n, "paged_serving: a warm ingest inserted pages")
+            warm.append(t)
+        warm_ms = wall_ms(warm_ingest)
+        encode_ms = wall_ms(lambda: encode_payload(payload, wd).wait())
+        gather_ms = wall_ms(lambda: store.gather_prefix(table, 2064,
+                                                        device=dev))
+        for t in [table] + warm:
+            store.release(t)
+        emit({"phase": "paged_store_host_cost", "wire_dtype": wd,
+              "pages": table.num_pages, "novel_pages": len(novel),
+              "novel_bytes": nbytes, "cold_ingest_ms": cold_ms,
+              "warm_ingest_ms": warm_ms,
+              "encode_and_copy_ms": encode_ms,
+              "gather_prefix_2064_ms": gather_ms,
+              "pool": dataclasses.asdict(store.stats()), "card": smi})
+    return launches, steps
+
+
+def phase_wire_tiers(dev, smi, fw, plan):
+    """The 10 requests of full_width_serving through
+    SerializedTransport("int4") and through the session's WirePlan: bytes
+    equal to the analytic count plus the scales; then at one full-width
+    prefill of the 2,049-token request, the received K/V held to
+    BF16_PAYLOAD_BOUND and the logits to INT4_OVER_INT8 times the int8 wire's error. Returns
+    the K1 launches and steps of the streams."""
+    import torch
+    from repro_torch.comm import (InMemoryTransport, SerializedTransport,
+                                  WirePlan)
+    from repro_torch.core.channel import kv_wire_bytes
+    from repro_torch.kernels.ragged_decode import ragged_decode
+    cfg, kvcfg = fw["cfg"], fw["kvcfg"]
+    reqs = serving_requests(fw["tok"])
+    M = len(plan)
+    tiers = {"int4": WirePlan(("int4",) * M), "plan": plan}
+    ragged_decode.launches = 0                 # this path starts here
+    steps, out = 0, {}
+    for name, wplan in tiers.items():
+        wire = "int4" if name == "int4" else plan
+        sess, _, _, stats = serve_stream(fw, dev, SerializedTransport(wire),
+                                         reqs, name)
+        steps += stats["steps"]
+        analytic = sum(kv_wire_bytes(cfg, 1, len(r.context) + 1, M,
+                                     plan=wplan) + 2 * 4 * wplan.n_scaled()
+                       for r in reqs)
+        check(stats["bytes_moved"] == analytic,
+              f"wire_tiers[{name}]: {stats['bytes_moved']} B != {analytic}")
+        out[name] = {**stats, "analytic_bytes": analytic}
+    launches = ragged_decode.launches
+    check(launches == cfg.num_layers * steps, "wire_tiers: K1 launches")
+    # one prefill at the long request: each tier's received K/V within
+    # BF16_PAYLOAD_BOUND of the sent K/V per slot, and its logits within
+    # INT4_OVER_INT8 times the int8 wire's distance from the in-memory ones
+    sess = fw_session(fw, InMemoryTransport())
+    kv, select, sent = long_context_kv(fw, sess, reqs)
+    qry = reqs[-1].query[None]
+    logits, kv_ratio = {}, {}
+    for name, wire in (("inmemory", None), ("int8", "int8"),
+                       ("int4", "int4"), ("plan", plan)):
+        tr = InMemoryTransport() if wire is None \
+            else SerializedTransport(wire)
+        shared = tr.send(cfg, kvcfg, kv, select)
+        logits[name] = sess.receiver.prefill(
+            qry, shared, max_new=1).logits[0, -1].float()
+        if name in tiers:
+            slot_dt = plan.dtypes if name == "plan" else (wire,) * len(plan)
+            bound = torch.tensor([BF16_PAYLOAD_BOUND[d] for d in slot_dt],
+                                 device=dev)
+            for p in ("k", "v"):
+                ref_p = sent[p].float()
+                err = (shared.packed_kv[p].float() - ref_p).abs() \
+                    .amax(dim=(1, 2, 3, 4))
+                allow = bound * ref_p.abs().amax(dim=(1, 2, 3, 4))
+                ratio = float((err / allow).max())
+                kv_ratio[name] = max(kv_ratio.get(name, 0.0), ratio)
+                check(ratio <= 1.0, f"wire_tiers[{name}]: received {p} "
+                      f"reaches {ratio:.3g}x its round-trip bound")
+        del shared
+    ref = logits["inmemory"]
+    rel = {name: float((lg - ref).abs().max() / ref.abs().max())
+           for name, lg in logits.items() if name != "inmemory"}
+    for name in tiers:
+        bound = INT4_OVER_INT8 * rel["int8"]
+        check(rel[name] <= bound, f"wire_tiers[{name}]: logits rel err "
+              f"{rel[name]} > {INT4_OVER_INT8} x int8's {rel['int8']}")
+        emit({"phase": "wire_tiers", "wire": out[name]["transport"]
+              if name == "int4" else plan.spec,
+              **{k: v for k, v in out[name].items() if k != "transport"},
+              "kv_err_over_bound": kv_ratio[name],
+              "logits_rel_err": rel[name], "int8_logits_rel_err":
+              rel["int8"], "logits_bound": bound, "card": smi})
+    del logits, kv
+    torch.cuda.empty_cache()
+    return launches, steps
 
 
 # ---------------------------------------------------------------------------
@@ -804,7 +1136,8 @@ def main() -> int:
     flush = lambda: scratch.zero_()          # noqa: E731  (> the 50 MB L2)
     cases = phase_kernel_vs_plain(dev, flush)
     phase_fp32_parity(dev)
-    runs, launches = phase_full_width(dev, smi)
+    fw = full_width_pair(dev)
+    runs, launches = phase_full_width(dev, smi, fw)
 
     # the kernel at the main path's own shape: a selected layer of the
     # served table, with that table's per-row lengths
@@ -819,6 +1152,16 @@ def main() -> int:
     steps = sum(r["stats"]["steps"] for r in runs.values())
     del runs, st, layer, q
     torch.cuda.empty_cache()
+    plan = phase_wire_codec(dev, smi, fw)
+    paged_launches, paged_steps = phase_paged_serving(dev, smi, fw)
+    tier_launches, tier_steps = phase_wire_tiers(dev, smi, fw, plan)
+    k1_paths = {"full_width_serving": launches,
+                "paged_serving": paged_launches,
+                "wire_tiers": tier_launches}
+    launches = sum(k1_paths.values())
+    steps += paged_steps + tier_steps
+    del fw
+    torch.cuda.empty_cache()
     ep_launches, ep_results = phase_entry_point(dev, flush, smi)
     sharded = phase_sharded_decode(dev, smi, flush)
     results = cases + [main] + ep_results
@@ -827,7 +1170,8 @@ def main() -> int:
                         "src/repro_torch/kernels/csrc/ragged_decode.cu",
                         "src/repro/kernels/ragged_decode.py:46", launches,
                         "main_path_selected_layer"),
-         "launches_per_step": launches // max(steps, 1)},
+         "launches_per_step": launches // max(steps, 1),
+         "launches_by_path": k1_paths},
         kernel_entry(results, "flash_attention",
                      "src/repro_torch/kernels/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:31",

@@ -1,7 +1,8 @@
 from repro_torch.comm.agent import Agent
 from repro_torch.comm.session import CommSession
 from repro_torch.comm.transport import (InMemoryTransport,
-                                        SerializedTransport, Transport)
+                                        SerializedTransport, Transport,
+                                        WirePlan)
 
 __all__ = ["Agent", "CommSession", "InMemoryTransport",
-           "SerializedTransport", "Transport"]
+           "SerializedTransport", "Transport", "WirePlan"]

@@ -2,8 +2,10 @@
 
 It owns the calibration state (Eq. (1) scores and frozen layer selections,
 cached per task key and ``KVCommConfig``), the transport, and batched and
-streaming generation on the receiver. Multi-sender mailboxes, the
-resilience ladder and heterogeneous pairs are not ported yet.
+streaming generation on the receiver, the per-layer ``WirePlan`` of a
+frozen selection, and the paged-store dedup summary. Multi-sender
+mailboxes, the resilience ladder and heterogeneous pairs are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -13,8 +15,10 @@ import numpy as np
 import torch
 
 from repro_torch.comm.agent import Agent
-from repro_torch.comm.transport import InMemoryTransport, Transport
+from repro_torch.comm.transport import (InMemoryTransport, Transport,
+                                        WirePlan)
 from repro_torch.core import protocol
+from repro_torch.core.selection import gaussian_prior, selection_scores
 from repro_torch.core.types import KVCommConfig, SharedKV
 
 
@@ -64,6 +68,26 @@ class CommSession:
             self._sel_cache[cache_key] = select
         return select
 
+    def wire_plan(self, kvcfg: KVCommConfig,
+                  scores: Optional[torch.Tensor] = None,
+                  key: Optional[str] = None, top_frac: float = 0.25,
+                  low_frac: float = 0.5) -> WirePlan:
+        """The per-layer wire precision for (task key, kvcfg): the frozen
+        selection's layers ranked by the scores (+ depth prior) that chose
+        them, float16 for the top ``top_frac``, int4 for the bottom
+        ``low_frac``, int8 between. With no scores (none passed, none cached
+        under ``key``) the Gaussian depth prior alone ranks them. Pass it
+        anywhere a ``wire_dtype`` goes."""
+        select = self.selection(kvcfg, scores=scores, key=key)
+        if scores is None and key is not None:
+            scores = self._score_cache.get(key)
+        n = int(select.shape[0])
+        combined = (gaussian_prior(n, kvcfg.mu, kvcfg.sigma)
+                    if scores is None else selection_scores(scores, kvcfg))
+        return WirePlan.from_scores(combined.numpy(),
+                                    select=select.cpu().numpy(),
+                                    top_frac=top_frac, low_frac=low_frac)
+
     # ---- one communication round -----------------------------------------
     def share(self, context: np.ndarray, kvcfg: KVCommConfig,
               scores: Optional[torch.Tensor] = None,
@@ -77,6 +101,23 @@ class CommSession:
         kv, _ = self.sender.export_kv(context)
         shared = self.transport.send(self.cfg, kvcfg, kv, select, sync=sync)
         return shared, select
+
+    # ---- paged-store accounting -------------------------------------------
+    def dedup_summary(self) -> Dict[str, float]:
+        """The transport log's paged dedup accounting: pages the transfers
+        referenced, pages that crossed, the pool-hit rate and the bytes.
+        Zeroes when no ``PageStore`` is attached."""
+        recs = [r for r in self.transport.log if r.pages_total]
+        total = sum(r.pages_total for r in recs)
+        hit = sum(r.pages_hit for r in recs)
+        return {
+            "transfers": len(recs),
+            "pages_total": total,
+            "pages_sent": sum(r.pages_sent for r in recs),
+            "pages_hit": hit,
+            "hit_rate": (hit / total) if total else 0.0,
+            "bytes": sum(r.n_bytes for r in recs),
+        }
 
     # ---- generation -------------------------------------------------------
     def generate(self, query: np.ndarray, shared: Optional[SharedKV] = None,

@@ -21,7 +21,7 @@ not ported yet and raise.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, NamedTuple, Optional
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -147,6 +147,41 @@ def cache_insert_row(table: Dict[str, Any], row: Dict[str, Any], slot: int,
                 self_len = n - src_prefix
                 t[slot, :src_prefix] = r[0, :src_prefix]
                 t[slot, dst_prefix:dst_prefix + self_len] = r[0, src_prefix:]
+    return table
+
+
+def cache_insert_row_paged(cfg: ModelConfig, table: Dict[str, Any],
+                           row: Dict[str, Any], slot: int, prefix, *,
+                           layers: Tuple[int, ...], src_prefix: int,
+                           dst_prefix: int,
+                           row_max_len: int) -> Dict[str, Any]:
+    """``cache_insert_row`` that takes the prefix of each selected layer
+    from a page-table gather: ``prefix`` is ``PageStore.gather_prefix``'s
+    packed {"k","v"}: (M, 1, src_prefix, Hkv, Dh) stack, in ``layers``
+    order, instead of the row's own prefix. The self region comes from
+    ``row`` as in ``cache_insert_row``; ``len`` stays the caller's. Needs
+    the packed cache, whose prefix-carrying layers are exactly ``layers``.
+    Equal to ``cache_insert_row`` because the gather at the prefix bucket
+    is the padded prefix the row was prefilled with. In place."""
+    carrying = tuple(l for l, e in enumerate(table["layers"]) if e["prefix"])
+    if carrying != tuple(layers) or len(table["layers"]) != \
+            cfg.attn_layer_count:
+        raise ValueError("cache_insert_row_paged requires the packed cache "
+                         f"of the selection {tuple(layers)}; the table "
+                         f"carries a prefix on {carrying}")
+    slot_of = {l: m for m, l in enumerate(layers)}
+    for l, (t_e, r_e) in enumerate(zip(table["layers"], row["layers"])):
+        for part in ("k", "v"):
+            t, r = t_e[part], r_e[part]
+            n = r.shape[1]
+            if l in slot_of:
+                self_len = n - src_prefix
+                t[slot, :src_prefix] = prefix[part][slot_of[l], 0]
+                t[slot, dst_prefix:dst_prefix + self_len] = r[0, src_prefix:]
+            elif t.shape[1] == n:
+                t[slot] = r[0]
+            else:
+                t[slot, :n] = r[0]
     return table
 
 

@@ -13,9 +13,16 @@
     non-blocking copy to pinned memory and an event, so it never waits
     for the step in flight.
 
+  * Paged admission — when the transport has a ``PageStore`` and a
+    ``last_table``, a row's prefix is rebuilt from the store's pages
+    (``gather_prefix``: one upload, dequantized on the card) and written by
+    ``cache_insert_row_paged``; otherwise it comes from the row as
+    prefilled. Both give the same bytes.
+
 ``serve_serial`` is the blocking reference loop (per request: share,
 prefill, per-token stream) that the scheduler matches token for token.
-Paged admission, sender quarantine and resilience are not ported yet.
+Not ported yet: the resilience ladder and sender quarantine, so also the
+reference's degraded and text-only (``force_baseline``) admissions.
 """
 from __future__ import annotations
 
@@ -157,10 +164,19 @@ class Scheduler:
                                    device=self.device))
         tok1 = torch.argmax(out.logits[:, sq_real - 1, :], dim=-1)   # (1,)
         if req.max_new > 1:
-            tfm.cache_insert_row(state["table"], out.cache, slot,
-                                 src_prefix=scb,
-                                 dst_prefix=state["dst_prefix"],
-                                 row_max_len=sqb + state["budget"])
+            geom = dict(src_prefix=scb, dst_prefix=state["dst_prefix"],
+                        row_max_len=sqb + state["budget"])
+            store = sess.transport.store
+            # reading last_table settles this request's deferred ingest;
+            # the gather must come before the next share() swaps the table
+            btab = sess.transport.last_table if store is not None else None
+            if self.packed and btab is not None:
+                prefix = store.gather_prefix(btab, scb, device=self.device)
+                tfm.cache_insert_row_paged(sess.cfg, state["table"],
+                                           out.cache, slot, prefix,
+                                           layers=self.layers, **geom)
+            else:
+                tfm.cache_insert_row(state["table"], out.cache, slot, **geom)
             state["table"]["len"][slot].fill_(state["dst_prefix"] + sq_real)
             state["prefix_lens"][slot].fill_(sc_real)
             state["cur_tok"][slot, 0].copy_(tok1[0])

@@ -557,3 +557,118 @@ def test_distributed_decode_on_card(cuda):
                                  kv_len=np.array([4096, 3000, 17, 2049]))
     assert flash_decode.launches == before + 9
     assert res["max_abs_err"] < 1e-4
+
+
+# --- the wire codec and the paged store on the card: the CUDA codec gives
+# the CPU codec's bytes, so pages hashed on the card carry the IDs a CPU
+# (or reference) store gives the same payload
+
+WIRE_TIERS = ["int8", "int4", "plan:float16,int4,int8", "bfloat16"]
+
+
+def _wire_bytes(a):
+    return a.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+
+
+def _bf16_payload(dev, seed=0, Sc=37):
+    g = torch.Generator().manual_seed(seed)
+    x = {p: (3 * torch.randn(3, 2, Sc, 2, 16, generator=g))
+         for p in ("k", "v")}
+    x["k"][1] = 0.0                                  # a floored scale
+    x["k"][2, 0, 0, 0, :4] = torch.tensor([0.5, -0.5, 1.5, 2.5])
+    return ({p: a.to(torch.bfloat16) for p, a in x.items()},
+            {p: a.to(dev, torch.bfloat16) for p, a in x.items()})
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("wire", WIRE_TIERS)
+def test_codec_on_card_is_byte_identical_to_cpu(cuda, wire, dtype):
+    from repro_torch.comm.transport import (decode_wire,
+                                            device_wire_roundtrip,
+                                            encode_wire)
+    host, dev = _bf16_payload(cuda)
+    x_cpu, x_dev = host["k"].to(dtype), dev["k"].to(dtype)
+    got, n = encode_wire(x_dev, wire)
+    want, n_cpu = encode_wire(x_cpu, wire)
+    assert n == n_cpu and len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.device.type == "cpu" and _wire_bytes(a) == _wire_bytes(b)
+    back = decode_wire(got, wire, dtype, cuda)
+    assert back.device.type == "cuda"
+    assert torch.equal(back.cpu(), decode_wire(want, wire, dtype, "cpu"))
+    assert torch.equal(device_wire_roundtrip(x_dev, wire, dtype), back)
+
+
+@pytest.mark.parametrize("wire", WIRE_TIERS)
+def test_paging_and_gather_on_card(cuda, wire):
+    """Page IDs from a card payload (encoded on the card, copied through
+    pinned memory behind an event) equal a CPU payload's; gather_prefix on
+    the card equals pad_prefix(materialize) and the CPU gather."""
+    from repro_torch.comm.transport import encode_payload
+    from repro_torch.core.protocol import pad_prefix
+    from repro_torch.store import PageStore, split_payload
+    host, dev = _bf16_payload(cuda, seed=1)
+    kw = dict(layers=(0, 2, 3), select=(True, False, True, True),
+              page_len=8, wire_dtype=wire)
+    wire_dev = encode_payload(dev, wire)
+    assert wire_dev.event is not None
+    t_dev, p_dev = split_payload(wire_dev, **kw)
+    t_cpu, p_cpu = split_payload(host, **kw)
+    assert [p.page_id for p in p_dev] == [p.page_id for p in p_cpu]
+    assert t_dev.meta() == t_cpu.meta()
+    store = PageStore(page_len=8)
+    table, _, _ = store.ingest(dev, **{k: v for k, v in kw.items()
+                                        if k != "page_len"})
+    shared = store.materialize(table, device=cuda)
+    gathered = store.gather_prefix(table, 48, device=cuda)
+    cpu_gather = store.gather_prefix(table, 48, device="cpu")
+    padded = pad_prefix(shared, 48)
+    for p in ("k", "v"):
+        assert gathered[p].device.type == "cuda"
+        assert torch.equal(gathered[p], padded.packed_kv[p])
+        assert torch.equal(gathered[p].cpu(), cpu_gather[p])
+
+
+def test_paged_scheduler_on_card_matches_unpaged(cuda):
+    """The float32 tiny slice on the card: the scheduler over a
+    store-attached transport (deferred ingests, paged admission) is
+    token-identical to the unpaged one, and every repeated context hits."""
+    import dataclasses
+    from repro_torch.comm import Agent, CommSession, SerializedTransport
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.types import KVCommConfig
+    from repro_torch.data.synthetic import SyntheticTask, TaskConfig
+    from repro_torch.data.tokenizer import SymbolTokenizer
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.scheduler import (Request, Scheduler,
+                                               SchedulerConfig,
+                                               make_requests)
+    from repro_torch.store import PageStore
+    tok = SymbolTokenizer(16, 8)
+    cfg = dataclasses.replace(
+        get_config("llama3.2-3b-pair"), num_layers=4, d_model=64, d_ff=128,
+        num_heads=4, num_kv_heads=2, head_dim=16, vocab_size=tok.vocab_size,
+        dtype="float32", tie_embeddings=False)
+    params = tfm.init_params(cfg, 0, device=cuda)
+    base = make_requests([SyntheticTask(tok, TaskConfig(
+        "retrieval", num_facts=nf, seed=11 + nf)).batch(2)
+        for nf in (4, 8)], pad=tok.PAD)
+    reqs = [Request(rid=i, context=base[i // 2].context,
+                    query=base[(3 * i) % 4].query, max_new=(4, 3)[i % 2])
+            for i in range(8)]
+    kvcfg = KVCommConfig(ratio=0.5, selector="prior_only")
+    runs = []
+    for wire in ("float32", "int8"):
+        for store in (None, PageStore(page_len=4)):
+            sess = CommSession(Agent("s", cfg, params, tok),
+                               Agent("r", cfg, params, tok),
+                               SerializedTransport(wire, store=store))
+            got, _ = Scheduler(sess, kvcfg, config=SchedulerConfig(
+                capacity=3, prefix_bucket=8, query_bucket=4,
+                decode_backend="kernel")).run(reqs)
+            runs.append(got)
+        assert sess.dedup_summary()["hit_rate"] == 0.5
+    for unpaged, paged in (runs[:2], runs[2:]):
+        for a, b in zip(unpaged, paged):
+            np.testing.assert_array_equal(a.tokens, b.tokens)

@@ -49,6 +49,16 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
      times the int8 wire's.
      Phases 4, 4b and 4c are K1's main paths: each sets the counter to 0,
      and must launch the kernel once per layer per ragged step.
+  4d. comm_methods — every registered comparison method but hetero_kvcomm
+     through CommSession.run: first float32 tiny_cfg on the card against
+     the CPU (predictions, bytes and FLOPs identical; CIPHER's soft
+     embeddings and AC's hiddens within 2e-5), then llama3.2-3b-pair at
+     full width on 4 retrieval samples, one line per method (latency,
+     bytes, FLOPs, M, peak memory) with each method's bytes at its
+     analytic count, random's selection the threefry draw, a two-sender
+     mailbox equal to the dense combine_senders view (K/V bit for bit,
+     logits within the bf16 rule) and full_kv within 5e-2 of skyline.
+     The methods launch none of K1-K4.
   5. the kernel entry point — repro_torch.kernels.ops driven at full
      published widths with the K2/K3/K4 counters at 0 (llama3.2-3b-pair
      prefills with and without the Eq. (1) mass, a gemma3-4b local
@@ -790,6 +800,170 @@ def phase_wire_tiers(dev, smi, fw, plan):
 
 
 # ---------------------------------------------------------------------------
+# the paper's comparison methods (repro_torch.comm.methods)
+# ---------------------------------------------------------------------------
+def to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def kernel_launches():
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.ragged_decode import ragged_decode
+    from repro_torch.kernels.rwkv_scan import wkv6
+    return [f.launches for f in (ragged_decode, flash_attention,
+                                 flash_decode, wkv6)]
+
+
+def phase_comm_methods(dev, smi, fw):
+    """Every registered method but hetero_kvcomm through CommSession.run.
+    (a) float32 tiny_cfg, one CPU-seeded parameter set on the card and on
+    the CPU: predictions, wire bytes and FLOPs identical; CIPHER's soft
+    embeddings and AC's hiddens within float32 2e-5 (tol_ratio). (b)
+    llama3.2-3b-pair at full width on a batch of 4 retrieval samples
+    (nld_tokens 16, ratio 0.5, alpha 0.7, the one-sample calibration's
+    scores): latency (median of 3 after a warm-up), bytes, FLOPs, M and
+    peak memory per method, each method's bytes against its analytic count,
+    random's selection against the threefry draw, a two-sender mailbox
+    against the dense combine_senders view, and full_kv against skyline.
+    The methods launch none of K1-K4 (as the reference's reach no Pallas
+    kernel): the counters must not move."""
+    import numpy as np
+    import torch
+    from repro_torch.comm import (METHODS, Agent, CommSession,
+                                  InMemoryTransport)
+    from repro_torch.core.channel import combine_senders, kv_wire_bytes
+    from repro_torch.core.selection import random_scores, topk_mask
+    from repro_torch.core.types import KVCommConfig, SharedKV
+    from repro_torch.data.synthetic import SyntheticTask, TaskConfig
+    names = sorted(m for m in METHODS if m != "hetero_kvcomm")
+    launches0 = kernel_launches()
+    t0 = time.perf_counter()
+
+    # (a) float32, the card against the CPU
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, tok, params = tiny_setup("cpu")
+    sess = {d: CommSession(Agent("s", cfg, p, tok), Agent("r", cfg, p, tok))
+            for d, p in (("cpu", params), ("cuda", to_device(params, dev)))}
+    batch = SyntheticTask(tok, TaskConfig("retrieval", num_facts=4,
+                                          seed=3)).batch(4)
+    kvcfg = KVCommConfig(ratio=0.5, alpha=0.7)
+    scores = sess["cpu"].calibrate(batch["context"][:1], batch["query"][:1])
+    for m in names:
+        a, b = (sess[d].run(m, batch, kvcfg=kvcfg, scores=scores,
+                            nld_tokens=4) for d in ("cpu", "cuda"))
+        check(np.array_equal(a.preds, b.preds),
+              f"comm_methods[{m}]: card predictions {b.preds} != CPU "
+              f"{a.preds}")
+        check((a.wire_bytes, a.flops, a.extras.get("M"))
+              == (b.wire_bytes, b.flops, b.extras.get("M")),
+              f"comm_methods[{m}]: bytes/flops/M differ card vs CPU")
+    pieces = {}
+    for name, fn in (("soft_embeds", lambda s: s.sender.message(
+            batch["context"], 4)[1]),
+            ("hiddens", lambda s: s.sender.export_hiddens(batch["context"]))):
+        want, got = fn(sess["cpu"]), fn(sess["cuda"]).cpu()
+        pieces[name], _ = tol_ratio(got, want, 2e-5, 2e-5)
+        check(pieces[name] <= 1.0, f"comm_methods: {name} card vs CPU "
+              f"reach {pieces[name]:.3g}x the float32 bound")
+    emit({"phase": "comm_methods_fp32", "methods": names,
+          "preds_bytes_flops_identical": True,
+          **{f"{k}_tol_ratio": v for k, v in pieces.items()}})
+
+    # (b) full width
+    cfg, tok, kvcfg = fw["cfg"], fw["tok"], fw["kvcfg"]
+    L = cfg.attn_layer_count
+    task = SyntheticTask(tok, TaskConfig("retrieval", num_facts=4, seed=42))
+    batch = task.batch(4)
+    B, Sc = batch["context"].shape
+    sess = fw_session(fw, InMemoryTransport())
+    scores = sess.calibrate(fw["calib"]["context"], fw["calib"]["query"],
+                            key="retrieval")
+    want_bytes = {"baseline": 0, "skyline": 0, "nld": 16 * B * 2,
+                  "cipher": 16 * B * cfg.d_model * 2,
+                  **{f"ac_{m}": B * cfg.d_model * 2
+                     for m in ("replace", "mean", "sum")}}
+    rows = {}
+    for m in names:
+        run = lambda: sess.run(m, batch, kvcfg=kvcfg,       # noqa: E731
+                               scores=scores, nld_tokens=16)
+        run()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        res = [run() for _ in range(3)]
+        r = res[-1]
+        M = r.extras.get("M")
+        want = want_bytes[m] if M is None else kv_wire_bytes(
+            cfg, B, Sc + 1, M, itemsize=getattr(torch, cfg.dtype).itemsize)
+        check(r.wire_bytes == want,
+              f"comm_methods[{m}]: {r.wire_bytes} B != {want}")
+        if m == "random":
+            draw = topk_mask(random_scores(kvcfg.seed, L),
+                             kvcfg.num_selected(L)).numpy()
+            check(np.array_equal(r.extras["select"], draw),
+                  "comm_methods[random]: selection is not the threefry "
+                  "draw")
+        rows[m] = {"latency_s": float(np.median([x.latency_s for x in res])),
+                   "wire_bytes": r.wire_bytes, "flops": r.flops, "M": M,
+                   "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+        emit({"phase": "comm_methods", "method": m, **rows[m],
+              "preds": r.preds.tolist(), "card": smi})
+
+    # two senders through the mailbox: the packed view against the dense
+    # combine_senders view of the same sends
+    select = sess.selection(kvcfg, scores=scores)
+    idx = torch.nonzero(select).flatten().tolist()
+    ctxs = [batch["context"], SyntheticTask(tok, TaskConfig(
+        "retrieval", num_facts=6, seed=43)).batch(B)["context"]]
+    for i, c in enumerate(ctxs):
+        sess.attach_sender(sess.sender, name=f"s{i}").send(c, kvcfg,
+                                                           select=select)
+    packed = sess.combined(clear=True)
+    dense = combine_senders([
+        SharedKV(kv=kv, select=select, prefix_len=p, pos_mode=kvcfg.pos_mode)
+        for kv, p in (sess.sender.export_kv(c) for c in ctxs)])
+    for p in ("k", "v"):
+        check(torch.equal(packed.packed_kv[p], dense.kv[p][idx]),
+              f"comm_methods mailbox: packed {p} != the dense view's "
+              "selected slots")
+    qry = batch["query"]
+    lp, ld = (sess.receiver.prefill(qry, v, max_new=1).logits[:, -1].float()
+              for v in (packed, dense))
+    mailbox_ratio, mailbox_err = tol_ratio(lp, ld, *BF16_TOLS)
+    check(mailbox_ratio <= 1.0, f"comm_methods mailbox: packed vs dense "
+          f"logits reach {mailbox_ratio:.3g}x the bf16 bound")
+
+    # full_kv with one parameter set on both sides is skyline: the receiver
+    # reads the sender's KV of [BOS context] as its own
+    full, _ = sess.share(batch["context"],
+                         KVCommConfig(ratio=1.0, alpha=0.7, selector="all"))
+    lf = sess.receiver.prefill(qry, full, max_new=1).logits[:, -1].float()
+    ls = sess.receiver.prefill(
+        np.concatenate([sess.receiver.with_bos(batch["context"]), qry], 1),
+        None, max_new=1).logits[:, -1].float()
+    full_rel = float((lf - ls).abs().max() / ls.abs().max())
+    check(full_rel <= 5e-2, f"comm_methods: full_kv vs skyline logits rel "
+          f"err {full_rel} > 5e-2")
+    check(kernel_launches() == launches0,
+          "comm_methods: the methods launched a kernel")
+    emit({"phase": "comm_methods_checks", "batch": B, "context_len": Sc + 1,
+          "mailbox_prefix_len": packed.prefix_len,
+          "mailbox_logits_tol_ratio": mailbox_ratio,
+          "mailbox_logits_max_abs_err": mailbox_err,
+          "full_kv_vs_skyline_rel_err": full_rel, "bound": 5e-2,
+          "kernel_launches": 0, "phase_wall_s": time.perf_counter() - t0,
+          "card": smi})
+    del sess, packed, dense, full
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # the kernel entry point (repro_torch.kernels.ops: K2, K3, K4) and the
 # sequence-sharded decode
 # ---------------------------------------------------------------------------
@@ -1155,6 +1329,7 @@ def main() -> int:
     plan = phase_wire_codec(dev, smi, fw)
     paged_launches, paged_steps = phase_paged_serving(dev, smi, fw)
     tier_launches, tier_steps = phase_wire_tiers(dev, smi, fw, plan)
+    phase_comm_methods(dev, smi, fw)
     k1_paths = {"full_width_serving": launches,
                 "paged_serving": paged_launches,
                 "wire_tiers": tier_launches}

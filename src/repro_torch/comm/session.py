@@ -1,25 +1,56 @@
 """CommSession: a sender/receiver pairing over a transport.
 
 It owns the calibration state (Eq. (1) scores and frozen layer selections,
-cached per task key and ``KVCommConfig``), the transport, and batched and
-streaming generation on the receiver, the per-layer ``WirePlan`` of a
-frozen selection, and the paged-store dedup summary. Multi-sender
-mailboxes, the resilience ladder and heterogeneous pairs are not ported
-yet.
+cached per task key and ``KVCommConfig``), the transport, the multi-sender
+mailbox of §J (extra senders ``attach_sender`` and deposit views that
+``combined`` merges), batched and streaming generation on the receiver,
+the per-layer ``WirePlan`` of a frozen selection, and the paged-store
+dedup summary. ``run(method, batch, ...)`` dispatches through the
+``METHODS`` registry. The resilience ladder and heterogeneous pairs are
+not ported yet.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, Optional, Tuple
+import time
+from dataclasses import dataclass
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.comm.agent import Agent
+from repro_torch.comm.methods import CommRequest, MethodResult, get_method
 from repro_torch.comm.transport import (InMemoryTransport, Transport,
                                         WirePlan)
 from repro_torch.core import protocol
+from repro_torch.core.channel import combine_senders
 from repro_torch.core.selection import gaussian_prior, selection_scores
 from repro_torch.core.types import KVCommConfig, SharedKV
+
+
+@dataclass
+class SenderHandle:
+    """A registered extra sender. ``send`` prefills its context, pushes the
+    selected KV through the session's transport and deposits the receiver's
+    view in the session's mailbox."""
+    session: "CommSession"
+    agent: Agent
+    name: str
+
+    def send(self, context: np.ndarray, kvcfg: KVCommConfig,
+             select: Optional[torch.Tensor] = None,
+             scores: Optional[torch.Tensor] = None,
+             calib_key: Optional[str] = None) -> SharedKV:
+        sess = self.session
+        if self.agent.cfg.attn_layer_count != sess.cfg.attn_layer_count:
+            raise ValueError("the multi-sender mailbox needs sender depth "
+                             "== receiver depth")
+        if select is None:
+            select = sess.selection(kvcfg, scores=scores, key=calib_key)
+        kv, _ = self.agent.export_kv(context)
+        shared = sess.transport.send(sess.cfg, kvcfg, kv, select)
+        sess.mailbox.append((self.name, shared))
+        return shared
 
 
 class CommSession:
@@ -39,6 +70,8 @@ class CommSession:
         self._score_cache: Dict[Optional[str], torch.Tensor] = {}
         self._sel_cache: Dict[Tuple[Optional[str], KVCommConfig],
                               torch.Tensor] = {}
+        self.mailbox: List[Tuple[str, SharedKV]] = []
+        self._n_handles = 0
 
     # ---- calibration + frozen selections ---------------------------------
     def calibrate(self, context: np.ndarray, query: np.ndarray,
@@ -102,6 +135,25 @@ class CommSession:
         shared = self.transport.send(self.cfg, kvcfg, kv, select, sync=sync)
         return shared, select
 
+    # ---- multi-sender (§J) ------------------------------------------------
+    def attach_sender(self, agent: Agent,
+                      name: Optional[str] = None) -> SenderHandle:
+        """Register an additional sender; returns its mailbox handle."""
+        handle = SenderHandle(self, agent,
+                              name or f"{agent.name}#{self._n_handles}")
+        self._n_handles += 1
+        return handle
+
+    def combined(self, clear: bool = False) -> SharedKV:
+        """Every mailbox deposit merged along the context axis
+        (``combine_senders``: one joint selection covers every prefix)."""
+        if not self.mailbox:
+            raise ValueError("no sender has deposited a SharedKV yet")
+        merged = combine_senders([s for _, s in self.mailbox])
+        if clear:
+            self.mailbox.clear()
+        return merged
+
     # ---- paged-store accounting -------------------------------------------
     def dedup_summary(self) -> Dict[str, float]:
         """The transport log's paged dedup accounting: pages the transfers
@@ -118,6 +170,25 @@ class CommSession:
             "hit_rate": (hit / total) if total else 0.0,
             "bytes": sum(r.n_bytes for r in recs),
         }
+
+    # ---- dispatch ---------------------------------------------------------
+    def run(self, method: str, batch: Dict[str, np.ndarray],
+            kvcfg: Optional[KVCommConfig] = None,
+            scores: Optional[torch.Tensor] = None,
+            ac_layer: Optional[int] = None, nld_tokens: int = 16,
+            max_new: int = 1, calib_key: Optional[str] = None,
+            layer_map: str = "depth_proportional") -> MethodResult:
+        """Run one registered method over a batch. The latency ends after
+        the receiver's card has finished the method's work."""
+        req = CommRequest(kvcfg=kvcfg, scores=scores, ac_layer=ac_layer,
+                          nld_tokens=nld_tokens, max_new=max_new,
+                          calib_key=calib_key, layer_map=layer_map)
+        t0 = time.perf_counter()
+        result = get_method(method).run(self, batch, req)
+        if self.receiver.device.type == "cuda":
+            torch.cuda.synchronize(self.receiver.device)
+        result.latency_s = time.perf_counter() - t0
+        return result
 
     # ---- generation -------------------------------------------------------
     def generate(self, query: np.ndarray, shared: Optional[SharedKV] = None,

@@ -621,6 +621,20 @@ class Transport(abc.ABC):
         self._pending_ingest.append((ingest, wire))
         return shared
 
+    def send_text(self, token_count: int, bytes_per_token: int = 2) -> int:
+        """Account a natural-language transfer (NLD ids, or CIPHER's soft
+        tokens at ``bytes_per_token`` each); returns its bytes."""
+        n = token_count * bytes_per_token
+        self.log.append(TransferRecord("text", n, 0, token_count))
+        return n
+
+    def send_hidden(self, batch: int, d_model: int, itemsize: int = 2) -> int:
+        """Account an activation transfer: one d_model vector per sample
+        (Ramesh & Li 2025); returns its bytes."""
+        n = batch * d_model * itemsize
+        self.log.append(TransferRecord("hidden", n, 1, 1))
+        return n
+
     def _wire_spec(self) -> str:
         """The record's string form of this transport's wire dtype ("model"
         for the dtype-less in-memory hand-over)."""

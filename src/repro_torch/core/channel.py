@@ -1,15 +1,19 @@
-"""Transfer records and the analytic wire-byte counts."""
+"""Transfer records, the analytic wire-byte counts and the multi-sender
+composition of §J."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
+
+import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.types import SharedKV
 
 
 @dataclass
 class TransferRecord:
-    kind: str                   # "kv"
+    kind: str                   # "kv" | "text" | "hidden"
     n_bytes: int
     layers: int
     context_len: int
@@ -30,6 +34,36 @@ class TransferRecord:
         (0.0 for unpaged transfers)."""
         return (self.pages_hit / self.pages_total) if self.pages_total \
             else 0.0
+
+
+def combine_senders(shareds: List[SharedKV]) -> SharedKV:
+    """§J multi-sender composition: the senders' prefixes concatenated
+    along the context axis, in order. Packed views with one layer map stay
+    packed (``src_layers`` kept only when every sender has the same one);
+    otherwise the dense views concatenate and their selection masks are
+    OR-combined."""
+    if not shareds:
+        raise ValueError("need at least one sender")
+    base = shareds[0]
+    if any(s.pos_mode != base.pos_mode for s in shareds):
+        raise ValueError("senders disagree on pos_mode")
+    prefix_len = sum(s.prefix_len for s in shareds)
+    if all(s.is_packed for s in shareds) \
+            and len({s.layers for s in shareds}) == 1:
+        packed = {p: torch.cat([s.packed_kv[p] for s in shareds], dim=2)
+                  for p in ("k", "v")}
+        src = (base.src_layers
+               if len({s.src_layers for s in shareds}) == 1 else None)
+        return SharedKV(packed_kv=packed, layers=base.layers,
+                        src_layers=src, select=base.select,
+                        prefix_len=prefix_len, pos_mode=base.pos_mode)
+    dense = [s.to_dense() for s in shareds]
+    kv = {p: torch.cat([s.kv[p] for s in dense], dim=2) for p in ("k", "v")}
+    select = base.select
+    for s in dense[1:]:
+        select = select | s.select
+    return SharedKV(kv=kv, select=select, prefix_len=prefix_len,
+                    pos_mode=base.pos_mode)
 
 
 # per-value wire widths, as in repro_torch.comm.transport._WIRE_BITS (core

@@ -7,6 +7,7 @@
   make_selection    — masses + KVCommConfig -> the layer subset S.
   build/pack_shared — the receiver-side SharedKV view (dense or packed).
   receiver_prefill  — M_r prefills Q with the sender prefix integrated.
+  receiver_decode   — one eager greedy step on the masked-dense path.
   decode_step / ragged_decode_step — one greedy step, with the cache
                       updated in place (the reference donated it).
 
@@ -159,6 +160,16 @@ def receiver_prefill(params, cfg: ModelConfig, query_tokens,
     return tfm.apply_model(params, cfg, query_tokens, mode="cached",
                            cache=cache, shared=shared,
                            collect_mass=collect_mass, prefix_lens=prefix_lens)
+
+
+@torch.no_grad()
+def receiver_decode(params, cfg: ModelConfig, token, cache,
+                    shared: Optional[SharedKV] = None):
+    """One decode step over ``token`` (B, 1) on the masked-dense path;
+    returns the model output (last-position logits, the cache updated in
+    place)."""
+    return tfm.apply_model(params, cfg, token, mode="cached", cache=cache,
+                           shared=shared, logits_mode="last")
 
 
 @torch.no_grad()

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.types import KVCommConfig
@@ -57,11 +58,42 @@ def topk_mask(scores: torch.Tensor, m: int) -> torch.Tensor:
     return mask
 
 
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _threefry2x32(k0: int, k1: int, x0: np.ndarray, x1: np.ndarray):
+    """Threefry-2x32 with 20 rounds (Salmon et al. 2011), the block cipher
+    behind ``jax.random``'s default PRNG, on uint32 arrays."""
+    ks = (np.uint32(k0), np.uint32(k1),
+          np.uint32(k0 ^ k1 ^ 0x1BD11BDA))
+    x0, x1 = x0 + ks[0], x1 + ks[1]
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = x0 + x1
+            x1 = ((x1 << np.uint32(r)) | (x1 >> np.uint32(32 - r))) ^ x0
+        x0 = x0 + ks[(i + 1) % 3]
+        x1 = x1 + ks[(i + 2) % 3] + np.uint32(i + 1)
+    return x0, x1
+
+
+def random_scores(seed: int, num_layers: int) -> torch.Tensor:
+    """``jax.random.uniform(jax.random.PRNGKey(seed), (num_layers,))``, bit
+    for bit, under the partitionable threefry that jax defaults to: key
+    words (0, seed), counters (0, i) for i < n, the two output words XORed,
+    and the top 23 bits as the mantissa of a float in [1, 2), minus 1."""
+    lo = np.arange(num_layers, dtype=np.uint32)
+    with np.errstate(over="ignore"):
+        x0, x1 = _threefry2x32((seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF,
+                               np.zeros_like(lo), lo)
+    bits = ((x0 ^ x1) >> np.uint32(9)) | np.uint32(0x3F800000)
+    return torch.from_numpy(bits.view(np.float32) - np.float32(1.0))
+
+
 def select_layers(attn_scores: Optional[torch.Tensor], num_layers: int,
                   cfg: KVCommConfig) -> torch.Tensor:
     """The layer subset S as an (L,) CPU bool mask. Selectors: kvcomm,
-    prior_only, contiguous, all. The reference's ``random`` selector draws
-    from ``jax.random``, whose bits torch cannot reproduce: not ported."""
+    random (M layers drawn uniformly from ``cfg.seed``; the Table 2
+    baseline), prior_only, contiguous, all."""
     m = cfg.num_selected(num_layers)
     if cfg.selector == "all":
         return torch.ones((num_layers,), dtype=torch.bool)
@@ -76,5 +108,5 @@ def select_layers(attn_scores: Optional[torch.Tensor], num_layers: int,
             raise ValueError("kvcomm selector needs calibration scores")
         return topk_mask(selection_scores(attn_scores, cfg), m)
     if cfg.selector == "random":
-        raise NotImplementedError("the random selector is not ported yet")
+        return topk_mask(random_scores(cfg.seed, num_layers), m)
     raise ValueError(f"unknown selector {cfg.selector!r}")

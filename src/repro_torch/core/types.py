@@ -28,6 +28,9 @@ class SharedKV:
     pos_mode: str = "shift"          # "shift" (paper) | "zero_unselected"
     packed_kv: Optional[dict] = None
     layers: Optional[Tuple[int, ...]] = None
+    # sender-side provenance of each packed slot (None = identity, the
+    # homogeneous case); decode steps never read it, so meta() drops it
+    src_layers: Optional[Tuple[int, ...]] = None
 
     @property
     def is_packed(self) -> bool:
@@ -64,9 +67,11 @@ class KVCommConfig:
     alpha: float = 1.0            # score mix: alpha*S_a + (1-alpha)*prior
     mu: Optional[float] = None    # Gaussian center; None -> L/2
     sigma: float = 10.0
-    selector: str = "kvcomm"      # kvcomm | prior_only | contiguous | all
+    selector: str = "kvcomm"      # kvcomm | random | prior_only |
+                                  # contiguous | all
     pos_mode: str = "shift"
     layer_from: int = 0           # contiguous-chunk ablation start
+    seed: int = 0                 # for the random selector
 
     def num_selected(self, num_layers: int) -> int:
         """M = ceil(ratio * L), clamped to [1, L]."""

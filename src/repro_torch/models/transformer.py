@@ -16,8 +16,10 @@ views map onto per-layer cache entries:
   * dense — every layer holds the prefix and ``ctx_valid`` masks it on
     unselected layers.
 
-SSM, MoE, cross-attention, encoders, AC injection and hidden capture are
-not ported yet and raise.
+The comparison methods enter through three more arguments: ``extra``
+soft embeddings (CIPHER), ``capture_hidden`` (each layer's last-token
+input, the AC wire payload) and ``inject`` (AC, dense path only).
+SSM, MoE, cross-attention and encoders are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ class ModelOut(NamedTuple):
     logits: torch.Tensor
     cache: Optional[Dict[str, Any]]
     masses: Optional[torch.Tensor]     # (L_attn, B) Eq. (1) raw mass
+    hiddens: Optional[torch.Tensor] = None   # (L_attn, B, D) last token
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -190,15 +193,31 @@ def cache_insert_row_paged(cfg: ModelConfig, table: Dict[str, Any],
 # ---------------------------------------------------------------------------
 def apply_model(params, cfg: ModelConfig, tokens: torch.Tensor, *,
                 mode: str = "train", cache=None, shared=None,
+                extra: Optional[Dict[str, Any]] = None,
                 collect_mass: bool = False, logits_mode: str = "all",
+                capture_hidden: bool = False,
+                inject: Optional[Dict[str, Any]] = None,
                 prefix_lens: Optional[torch.Tensor] = None,
                 decode_backend: str = "reference") -> ModelOut:
     """Forward over ``tokens`` (B, S). In ``cached`` mode the cache is
-    updated in place and returned with ``len`` advanced by S."""
+    updated in place and returned with ``len`` advanced by S.
+
+    ``extra={"soft_embeds": (B, n, D), "soft_start": i}`` replaces the
+    embeddings of positions [i, i + n) (CIPHER's soft tokens).
+    ``capture_hidden`` returns each layer's last-token input in
+    ``hiddens``, taken before any injection. ``inject={"vec": (L_attn, B,
+    D), "mask": (L_attn,) bool, "mode": "replace" | "sum" | "mean"}``
+    merges ``vec[l]`` into the last position's input of each flagged layer
+    l (the AC baselines); it runs on the dense path only."""
     check_supported(cfg)
     B, S = tokens.shape
     if shared is not None and shared.is_packed and mode != "cached":
         shared = shared.to_dense(cfg.attn_layer_count)
+    flags = [False] * cfg.attn_layer_count
+    if inject is not None:
+        if shared is not None and shared.is_packed:
+            raise ValueError("AC injection runs on the dense path")
+        flags = [bool(f) for f in torch.as_tensor(inject["mask"]).tolist()]
     prefix_len = 0 if shared is None else shared.prefix_len
     zero_unsel = (shared is not None and prefix_len
                   and shared.pos_mode == "zero_unselected")
@@ -206,8 +225,20 @@ def apply_model(params, cfg: ModelConfig, tokens: torch.Tensor, *,
         prefix_lens = None
     cache_len = cache["len"] if cache is not None else 0
     x = params["embed"][tokens]
+    if extra is not None and "soft_embeds" in extra:
+        se = extra["soft_embeds"].to(x.dtype)
+        start = extra.get("soft_start", 0)
+        x[:, start:start + se.shape[1]] = se
     masses: List[torch.Tensor] = []
+    hiddens: List[torch.Tensor] = []
     for l, lp in enumerate(params["layers"]):
+        if capture_hidden:
+            hiddens.append(x[:, -1, :])
+        if flags[l]:
+            vec, last = inject["vec"][l].to(x.dtype), x[:, -1, :]
+            x = x.clone()
+            x[:, -1, :] = {"replace": vec, "sum": last + vec,
+                           "mean": 0.5 * (last + vec)}[inject["mode"]]
         if mode == "cached":
             entry = cache["layers"][l]
             has_prefix, sel = entry["prefix"], entry["ctx_valid"]
@@ -247,4 +278,5 @@ def apply_model(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     if mode == "cached":
         new_cache = {"len": cache_len + S, "layers": cache["layers"]}
     return ModelOut(logits=logits, cache=new_cache,
-                    masses=torch.stack(masses) if masses else None)
+                    masses=torch.stack(masses) if masses else None,
+                    hiddens=torch.stack(hiddens) if hiddens else None)

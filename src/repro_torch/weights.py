@@ -33,14 +33,21 @@ def _nest(flat: Mapping[str, Any]) -> Dict[str, Any]:
 
 
 def _tensor(a, device, dtype) -> torch.Tensor:
-    t = torch.from_numpy(np.array(a, dtype=np.float32))
+    """One array as a tensor of its own dtype (or ``dtype``). numpy has no
+    bfloat16: ml_dtypes' bf16 arrays cross through their uint16 bits."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
 def params_from_jax(tree: Mapping[str, Any], *, device=None,
                     dtype: torch.dtype = None) -> Dict[str, Any]:
     """Reference parameters (nested numpy tree, or flat checkpoint keys) ->
-    the port's parameters on ``device`` (cast to ``dtype`` if given). The
+    the port's parameters on ``device``, each in its array's own dtype
+    (float32, float16 or bfloat16) unless ``dtype`` is given. The
     default device is the card: without one this raises unless the caller
     passes ``device="cpu"``."""
     device = resolve_device(device)

@@ -672,3 +672,101 @@ def test_paged_scheduler_on_card_matches_unpaged(cuda):
     for unpaged, paged in (runs[:2], runs[2:]):
         for a, b in zip(unpaged, paged):
             np.testing.assert_array_equal(a.tokens, b.tokens)
+
+
+# --- the comparison methods (no kernel of their own): the card against the
+# CPU on one parameter set drawn on the CPU, float32 with TF32 off
+
+COMM_METHODS = ["ac_mean", "ac_replace", "ac_sum", "baseline", "cipher",
+                "contiguous", "full_kv", "kvcomm", "nld", "prior_only",
+                "random", "skyline"]
+
+
+def _methods_setup(dev):
+    """(CPU session, card session, tokenizer, batch): the tiny float32
+    pair with one parameter set on both sides of each session."""
+    import dataclasses
+    from repro_torch.comm import Agent, CommSession
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import SyntheticTask, TaskConfig
+    from repro_torch.data.tokenizer import SymbolTokenizer
+    from repro_torch.models import transformer as tfm
+    tok = SymbolTokenizer(16, 8)
+    cfg = dataclasses.replace(
+        get_config("llama3.2-3b-pair"), num_layers=4, d_model=64, d_ff=128,
+        num_heads=4, num_kv_heads=2, head_dim=16, vocab_size=tok.vocab_size,
+        dtype="float32", tie_embeddings=False)
+    cpu = tfm.init_params(cfg, 0, device="cpu")
+    card = {"embed": cpu["embed"].to(dev),
+            "final_norm": cpu["final_norm"].to(dev),
+            "lm_head": cpu["lm_head"].to(dev),
+            "layers": [{k: ({n: t.to(dev) for n, t in v.items()}
+                            if isinstance(v, dict) else v.to(dev))
+                        for k, v in lp.items()} for lp in cpu["layers"]]}
+    sessions = [CommSession(Agent("s", cfg, p, tok), Agent("r", cfg, p, tok))
+                for p in (cpu, card)]
+    batch = SyntheticTask(tok, TaskConfig("retrieval", num_facts=4,
+                                          seed=3)).batch(4)
+    return sessions[0], sessions[1], tok, batch
+
+
+def test_method_registry_is_what_the_card_tests_cover():
+    from repro_torch.comm import METHODS
+    assert sorted(set(METHODS) - {"hetero_kvcomm"}) == COMM_METHODS
+
+
+@pytest.mark.parametrize("method", COMM_METHODS)
+def test_method_on_card_matches_cpu(cuda, method):
+    from repro_torch.core.types import KVCommConfig
+    cpu, card, _, batch = _methods_setup(cuda)
+    scores = cpu.calibrate(batch["context"][:1], batch["query"][:1])
+    kw = dict(kvcfg=KVCommConfig(ratio=0.5, alpha=0.7), scores=scores,
+              nld_tokens=4)
+    a, b = cpu.run(method, batch, **kw), card.run(method, batch, **kw)
+    np.testing.assert_array_equal(b.preds, a.preds)
+    assert (b.wire_bytes, b.flops, b.extras.get("M")) == \
+        (a.wire_bytes, a.flops, a.extras.get("M"))
+    assert b.latency_s > 0
+
+
+def test_message_and_hiddens_on_card_match_cpu(cuda):
+    cpu, card, _, batch = _methods_setup(cuda)
+    ta, ea = cpu.sender.message(batch["context"], 4)
+    tb, eb = card.sender.message(batch["context"], 4)
+    np.testing.assert_array_equal(tb, ta)
+    np.testing.assert_allclose(eb.cpu().numpy(), ea.numpy(), atol=2e-5,
+                               rtol=2e-5)
+    np.testing.assert_allclose(
+        card.sender.export_hiddens(batch["context"]).cpu().numpy(),
+        cpu.sender.export_hiddens(batch["context"]).numpy(), atol=2e-5,
+        rtol=2e-5)
+
+
+def test_two_sender_mailbox_on_card_matches_cpu(cuda):
+    from repro_torch.core.channel import combine_senders
+    from repro_torch.core.types import KVCommConfig, SharedKV
+    cpu, card, _, batch = _methods_setup(cuda)
+    kvcfg = KVCommConfig(ratio=0.7, selector="prior_only")
+    rng = np.random.default_rng(0)
+    V = cpu.cfg.vocab_size
+    ctxs = [rng.integers(4, V, (2, n)).astype(np.int32) for n in (6, 9)]
+    qry = rng.integers(4, V, (2, 4)).astype(np.int32)
+    views, logits = [], []
+    for sess in (cpu, card):
+        select = sess.selection(kvcfg)
+        for c in ctxs:
+            sess.attach_sender(sess.sender).send(c, kvcfg, select=select)
+        views.append(sess.combined(clear=True))
+        logits.append(sess.receiver.prefill(qry, views[-1],
+                                            max_new=0).logits.cpu())
+    dense = combine_senders([
+        SharedKV(kv=kv, select=select, prefix_len=p)
+        for kv, p in (card.sender.export_kv(c) for c in ctxs)])
+    idx = np.nonzero(select.numpy())[0].tolist()
+    for p in ("k", "v"):
+        assert torch.equal(views[1].packed_kv[p], dense.kv[p][idx])
+        np.testing.assert_allclose(views[1].packed_kv[p].cpu().numpy(),
+                                   views[0].packed_kv[p].numpy(),
+                                   atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(logits[1].numpy(), logits[0].numpy(),
+                               atol=2e-5, rtol=2e-5)

@@ -75,3 +75,30 @@ def test_kvcomm_selection_on_calibrated_scores(tiny_cfg, tiny_params, tok,
             protocol.make_selection(cfg, KVCommConfig(**kw), ts).numpy(),
             np.asarray(jcore.make_selection(tiny_cfg, JKVCommConfig(**kw),
                                             js)))
+
+
+@pytest.fixture
+def partitionable_threefry():
+    """jax.random's bits depend on this flag; the port reproduces its
+    default, True. Pinned for the test and restored after."""
+    import jax
+    old = jax.config.jax_threefry_partitionable
+    jax.config.update("jax_threefry_partitionable", True)
+    yield
+    jax.config.update("jax_threefry_partitionable", old)
+
+
+@pytest.mark.parametrize("L", [4, 12, 28, 36])
+def test_random_selector_is_bit_identical(partitionable_threefry, L):
+    """The numpy threefry draws equal jax.random.uniform bit for bit, and
+    the random selector picks the same layers, for seeds 0-49."""
+    import jax
+    for seed in range(50):
+        want = np.asarray(jax.random.uniform(jax.random.PRNGKey(seed), (L,)))
+        got = tsel.random_scores(seed, L).numpy()
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.view(np.uint32))
+        kw = dict(ratio=0.5, selector="random", seed=seed)
+        np.testing.assert_array_equal(
+            tsel.select_layers(None, L, KVCommConfig(**kw)).numpy(),
+            np.asarray(jsel.select_layers(None, L, JKVCommConfig(**kw))))

@@ -49,8 +49,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
      times the int8 wire's.
      Phases 4, 4b and 4c are K1's main paths: each sets the counter to 0,
      and must launch the kernel once per layer per ragged step.
-  4d. comm_methods — every registered comparison method but hetero_kvcomm
-     through CommSession.run: first float32 tiny_cfg on the card against
+  4d. comm_methods — every registered comparison method (hetero_kvcomm
+     included: on this same-depth pair its map is the identity) through
+     CommSession.run: first float32 tiny_cfg on the card against
      the CPU (predictions, bytes and FLOPs identical; CIPHER's soft
      embeddings and AC's hiddens within 2e-5), then llama3.2-3b-pair at
      full width on 4 retrieval samples, one line per method (latency,
@@ -59,6 +60,24 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
      mailbox equal to the dense combine_senders view (K/V bit for bit,
      logits within the bf16 rule) and full_kv within 5e-2 of skyline.
      The methods launch none of K1-K4.
+  4e. hetero_pair — llama3.2-3b-pair (28 layers, seed 0) against the same
+     widths at 42 layers (seed 1): hetero_kvcomm both ways for each LayerMap
+     policy, in memory, at an int8 wire and over a bf16 RemoteTransport,
+     bytes at assignment_bytes, packed vs dense logits within the bf16
+     rule, identity at 28 -> 28 bit-equal to kvcomm, a float32 6 -> 10 tiny
+     pair card vs CPU; then 8 tokens streamed through the 28 -> 42 mapped
+     prefix on K1 (7 x 42 launches) with the first step's logits within
+     5e-2 of the plain backend.
+  4f. remote_serving — the 10 requests of phase 4 through RemoteTransport
+     over a LoopbackChannel (bf16 streamed and monolithic, int8 streamed)
+     beside in-memory and SerializedTransport(int8), and the 12 requests of
+     4b through a bf16 RemoteTransport with a PageStore(page_len=16) and
+     without: tokens identical, int8 bytes identical, received K/V
+     bit-equal to the in-memory hand-over, 1,848 pages at a hit rate of
+     0.75; one 2,049-position transfer's record (bytes, frame bytes,
+     serialize / channel / deserialize ms, median of 3), and frames from
+     the card's tensors byte-identical to the CPU's at every tier.
+     Phases 4e (the stream) and 4f are K1 paths too.
   5. the kernel entry point — repro_torch.kernels.ops driven at full
      published widths with the K2/K3/K4 counters at 0 (llama3.2-3b-pair
      prefills with and without the Eq. (1) mass, a gemma3-4b local
@@ -72,7 +91,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
      monolithic decode, the LSE combine checked against both; then its
      sharded_decode timed beside the monolithic decode.
   7. the kernels line — one JSON object listing every kernel (K1-K4),
-     with each one's device ms over SDPA's at its main case.
+     with each one's device ms over SDPA's at its main case; K1's launches
+     by path (full-width, paged, wire tiers, remote serving, the hetero
+     stream).
 
 The second-to-last line is nvidia-smi's name and power limit; the last line
 is {"ok": true, "device": {...}}.
@@ -820,7 +841,8 @@ def kernel_launches():
 
 
 def phase_comm_methods(dev, smi, fw):
-    """Every registered method but hetero_kvcomm through CommSession.run.
+    """Every registered method through CommSession.run (hetero_kvcomm on
+    this same-depth pair maps depth-proportionally, which is the identity).
     (a) float32 tiny_cfg, one CPU-seeded parameter set on the card and on
     the CPU: predictions, wire bytes and FLOPs identical; CIPHER's soft
     embeddings and AC's hiddens within float32 2e-5 (tol_ratio). (b)
@@ -840,7 +862,7 @@ def phase_comm_methods(dev, smi, fw):
     from repro_torch.core.selection import random_scores, topk_mask
     from repro_torch.core.types import KVCommConfig, SharedKV
     from repro_torch.data.synthetic import SyntheticTask, TaskConfig
-    names = sorted(m for m in METHODS if m != "hetero_kvcomm")
+    names = sorted(METHODS)
     launches0 = kernel_launches()
     t0 = time.perf_counter()
 
@@ -961,6 +983,374 @@ def phase_comm_methods(dev, smi, fw):
     del sess, packed, dense, full
     torch.cuda.empty_cache()
     return rows
+
+
+# ---------------------------------------------------------------------------
+# heterogeneous pairs (LayerMap policies, hetero_kvcomm) at full width
+# ---------------------------------------------------------------------------
+HETERO_POLICIES = ("identity", "depth_proportional", "score_greedy")
+
+
+def clone_cache(cache):
+    """A deep copy of a decode cache (tensors cloned, structure kept)."""
+    import torch
+    if isinstance(cache, dict):
+        return {k: clone_cache(v) for k, v in cache.items()}
+    if isinstance(cache, list):
+        return [clone_cache(v) for v in cache]
+    return cache.clone() if isinstance(cache, torch.Tensor) else cache
+
+
+def hetero_fp32_parity(dev):
+    """The float32 tiny 6 -> 10 pair, one parameter draw per depth on the
+    CPU and its copy on the card: hetero_kvcomm's predictions, bytes and
+    assignments identical for every policy, both directions."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.comm import Agent, CommSession
+    from repro_torch.core.types import KVCommConfig
+    from repro_torch.data.synthetic import SyntheticTask, TaskConfig
+    from repro_torch.models import transformer as tfm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg4, tok, _ = tiny_setup("cpu")
+    cfgs = {L: dataclasses.replace(cfg4, num_layers=L) for L in (6, 10)}
+    params = {L: tfm.init_params(cfgs[L], L, device="cpu") for L in cfgs}
+    batch = SyntheticTask(tok, TaskConfig("retrieval", num_facts=4,
+                                          seed=11)).batch(4)
+    kvcfg = KVCommConfig(ratio=0.5, alpha=0.7)
+    rows = 0
+    for L_s, L_r in ((6, 10), (10, 6)):
+        sess = {d: CommSession(
+            Agent("s", cfgs[L_s], to_device(params[L_s], d), tok),
+            Agent("r", cfgs[L_r], to_device(params[L_r], d), tok))
+            for d in ("cpu", dev)}
+        scores = sess["cpu"].calibrate_side("sender", batch["context"][:1],
+                                            batch["query"][:1])
+        for policy in HETERO_POLICIES:
+            a, b = (s.run("hetero_kvcomm", batch, kvcfg=kvcfg,
+                          scores=scores, layer_map=policy)
+                    for s in sess.values())
+            check(np.array_equal(a.preds, b.preds)
+                  and (a.wire_bytes, a.extras["src_layers"],
+                       a.extras["dst_layers"])
+                  == (b.wire_bytes, b.extras["src_layers"],
+                      b.extras["dst_layers"]),
+                  f"hetero_pair fp32 {L_s}->{L_r} {policy}: card differs "
+                  "from the CPU")
+            rows += 1
+    return rows
+
+
+def phase_hetero_pair(dev, smi, fw):
+    """llama3.2-3b-pair (28 layers, seed 0) paired with the same widths at
+    42 layers (seed 1, the 12:8 ratio of deep_receiver_config): every
+    LayerMap policy through CommSession.run("hetero_kvcomm") both ways, in
+    memory, at an int8 wire and over a bf16 RemoteTransport on a loopback,
+    on the comparison methods' batch (4 retrieval samples, 9 positions with
+    BOS) with scores from calibrate_side("sender"). Gates: bytes at
+    assignment_bytes (2,064,384 for 28 -> 42 depth_proportional in
+    memory), packed and dense mapped logits within the bf16 rule, identity
+    at 28 -> 28 bit-equal to kvcomm, the float32 tiny pair card vs CPU;
+    then 8 tokens streamed through the 28 -> 42 mapped prefix on K1 (7 x 42
+    launches, counter at 0 first), the first step's logits against the
+    plain backend within 5e-2. Returns the stream's K1 launches."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.comm import (Agent, CommSession, InMemoryTransport,
+                                  RemoteTransport, SerializedTransport)
+    from repro_torch.comm.transport import assignment_bytes
+    from repro_torch.core.layermap import LayerAssignment
+    from repro_torch.data.synthetic import SyntheticTask, TaskConfig
+    from repro_torch.kernels.ragged_decode import ragged_decode
+    from repro_torch.models import transformer as tfm
+    t_phase = time.perf_counter()
+    cfg, tok, kvcfg = fw["cfg"], fw["tok"], fw["kvcfg"]
+    deep = dataclasses.replace(cfg, num_layers=42)
+    t0 = time.perf_counter()
+    deep_params = tfm.init_params(deep, 1, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    models = {28: (cfg, fw["sender"]), 42: (deep, deep_params)}
+    batch = SyntheticTask(tok, TaskConfig("retrieval", num_facts=4,
+                                          seed=42)).batch(4)
+    B, Sc = batch["context"].shape[0], batch["context"].shape[1] + 1
+    launches0 = kernel_launches()
+
+    def session(L_s, L_r, tr):
+        return CommSession(Agent("sender", *models[L_s], tok),
+                           Agent("receiver", *models[L_r], tok), tr)
+
+    wires = {"inmemory": (InMemoryTransport, None, 0),
+             "serialized_int8": (lambda: SerializedTransport("int8"), 1, 1),
+             "remote_bf16": (lambda: RemoteTransport("bfloat16"), 2, 0)}
+    rows = []
+    for L_s, L_r in ((28, 42), (42, 28)):
+        probe = session(L_s, L_r, None)
+        scores = probe.calibrate_side("sender", fw["calib"]["context"],
+                                      fw["calib"]["query"])
+        kv_s, _ = probe.sender.export_kv(batch["context"])
+        for policy in HETERO_POLICIES:
+            row = {"direction": f"{L_s}->{L_r}", "policy": policy}
+            for name, (make, isz, scaled) in wires.items():
+                sess = session(L_s, L_r, make())
+                run = lambda: sess.run(                     # noqa: E731
+                    "hetero_kvcomm", batch, kvcfg=kvcfg, scores=scores,
+                    layer_map=policy)
+                run()
+                res = [run() for _ in range(3)]
+                r = res[-1]
+                P = r.extras["M"]
+                asg = LayerAssignment(r.extras["src_layers"],
+                                      r.extras["dst_layers"], L_s, L_r)
+                want = assignment_bytes(kv_s, asg, itemsize=isz) \
+                    + 2 * 4 * P * scaled
+                check(r.wire_bytes == want,
+                      f"hetero_pair {row['direction']} {policy} {name}: "
+                      f"{r.wire_bytes} B != {want}")
+                if (L_s, L_r, policy, name) == (28, 42, "depth_proportional",
+                                                "inmemory"):
+                    check(P == 14 and r.wire_bytes == 2064384,
+                          f"hetero_pair 28->42 depth_proportional: P {P}, "
+                          f"{r.wire_bytes} B (want 14, 2,064,384)")
+                row[name] = {"bytes": r.wire_bytes, "P": P,
+                             "latency_ms": float(np.median(
+                                 [x.latency_s for x in res])) * 1e3,
+                             "preds": r.preds.tolist()}
+                if name == "remote_bf16":
+                    rec = sess.transport.last
+                    row[name].update(frame_bytes=rec.frame_bytes,
+                                     serialize_ms=rec.serialize_s * 1e3,
+                                     channel_ms=rec.channel_s * 1e3,
+                                     deserialize_ms=rec.deserialize_s * 1e3)
+            row["src_layers"] = list(r.extras["src_layers"])
+            row["dst_layers"] = list(r.extras["dst_layers"])
+            # packed and dense mapped views: the same logits (bf16 rule)
+            lg = []
+            for packed in (True, False):
+                sess = session(L_s, L_r, InMemoryTransport(packed=packed))
+                shared, _ = sess.share_mapped(batch["context"], kvcfg,
+                                              policy=policy,
+                                              src_scores=scores)
+                lg.append(sess.receiver.prefill(
+                    batch["query"], shared, max_new=1).logits[:, -1].float())
+            row["packed_vs_dense_tol_ratio"], _ = tol_ratio(lg[0], lg[1],
+                                                            *BF16_TOLS)
+            check(row["packed_vs_dense_tol_ratio"] <= 1.0,
+                  f"hetero_pair {row['direction']} {policy}: packed vs "
+                  "dense logits beyond the bf16 rule")
+            rows.append(row)
+            emit({"phase": "hetero_pair", **row, "card": smi})
+
+    # identity on the 28 -> 28 pair is kvcomm, bit for bit
+    sess = fw_session(fw, InMemoryTransport())
+    same = fw_session(fw, InMemoryTransport())
+    scores = sess.calibrate(fw["calib"]["context"], fw["calib"]["query"])
+    a = sess.run("kvcomm", batch, kvcfg=kvcfg, scores=scores)
+    b = same.run("hetero_kvcomm", batch, kvcfg=kvcfg, scores=scores,
+                 layer_map="identity")
+    sa, _ = sess.share(batch["context"], kvcfg, scores=scores)
+    sb, asg = same.share_mapped(batch["context"], kvcfg, policy="identity",
+                                src_scores=scores)
+    la = sess.receiver.prefill(batch["query"], sa, max_new=1).logits
+    lb = same.receiver.prefill(batch["query"], sb, max_new=1).logits
+    check(asg.is_identity and torch.equal(la, lb)
+          and np.array_equal(a.preds, b.preds)
+          and a.wire_bytes == b.wire_bytes,
+          "hetero_pair: identity at 28->28 differs from kvcomm")
+    fp32_rows = hetero_fp32_parity(dev)
+    check(kernel_launches() == launches0,
+          "hetero_pair: hetero_kvcomm launched a kernel")
+
+    # 8 tokens through the 28 -> 42 mapped prefix on K1
+    sess = session(28, 42, InMemoryTransport())
+    scores = sess.calibrate_side("sender", fw["calib"]["context"],
+                                 fw["calib"]["query"])
+    shared, asg = sess.share_mapped(batch["context"], kvcfg,
+                                    policy="depth_proportional",
+                                    src_scores=scores)
+    qry = batch["query"]
+    out = sess.receiver.prefill(qry, shared, max_new=8)
+    tok0 = torch.argmax(out.logits[:, -1, :], dim=-1)[:, None]
+    step = {}
+    for backend in ("kernel", "reference"):
+        _, lg, _ = sess.receiver.decode_step(tok0, clone_cache(out.cache),
+                                             shared, backend=backend)
+        step[backend] = lg.float()
+    rel = float((step["kernel"] - step["reference"]).abs().max()
+                / step["reference"].abs().max())
+    check(rel <= 5e-2, f"hetero_pair stream: kernel vs reference step "
+          f"logits rel {rel} > 5e-2")
+    torch.cuda.synchronize()
+    ragged_decode.launches = 0                 # this path starts here
+    t0 = time.perf_counter()
+    toks = np.stack(list(sess.stream(qry, shared, max_new=8,
+                                     backend="kernel")), axis=1)
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    launches = ragged_decode.launches
+    check(launches == 7 * 42, f"hetero_pair stream: {launches} K1 "
+          "launches, expected 7 x 42")
+    check(toks.shape == (B, 8), "hetero_pair stream: token shape")
+    emit({"phase": "hetero_pair_checks", "deep_layers": 42,
+          "deep_params": sum(t.numel() for t in leaves(deep_params)),
+          "deep_init_s": init_s, "batch": B, "context_len": Sc,
+          "identity_bit_equal_kvcomm": True,
+          "fp32_card_vs_cpu_rows": fp32_rows,
+          "stream_tokens": toks.tolist(), "stream_s": stream_s,
+          "stream_k1_launches": launches,
+          "stream_step_logits_rel_err": rel, "bound": 5e-2,
+          "assignment_28_42_depth_proportional": [list(asg.src),
+                                                  list(asg.dst)],
+          "phase_wall_s": time.perf_counter() - t_phase, "card": smi})
+    del models, deep_params, sess, shared, out, probe, kv_s
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# serving over the remote wire (RemoteTransport on a LoopbackChannel)
+# ---------------------------------------------------------------------------
+def phase_remote_serving(dev, smi, fw, plan):
+    """The 10 requests of full_width_serving through RemoteTransport over a
+    LoopbackChannel: a bf16 wire streamed and monolithic, int8 streamed,
+    beside the in-memory and SerializedTransport("int8") streams of this
+    call; then the 12 paged_serving requests through a bf16
+    RemoteTransport with a PageStore(page_len=16) and without. Gates:
+    bf16 tokens identical to in-memory and the received K/V bit-equal to
+    the in-memory hand-over (streamed and monolithic alike); int8 tokens
+    and bytes identical to SerializedTransport's; paged: 1,848 pages sent,
+    a hit rate of exactly 0.75, tokens identical to unpaged; frames built
+    from the card's tensors byte-identical to frames built on the CPU at
+    every tier; K1 at 28 launches per step (counter at 0 first). Returns
+    (K1 launches, steps)."""
+    import numpy as np
+    import torch
+    from repro_torch.comm import (InMemoryTransport, RemoteTransport,
+                                  SerializedTransport)
+    from repro_torch.comm.remote import encode_kv_transfer
+    from repro_torch.kernels.ragged_decode import ragged_decode
+    from repro_torch.store import PageStore
+    t_phase = time.perf_counter()
+    cfg, kvcfg = fw["cfg"], fw["kvcfg"]
+    reqs = serving_requests(fw["tok"])
+    streams = {
+        "inmemory": InMemoryTransport,
+        "remote_bf16_streamed": lambda: RemoteTransport("bfloat16"),
+        "remote_bf16_monolithic": lambda: RemoteTransport(
+            "bfloat16", chunk_bytes=None),
+        "serialized_int8": lambda: SerializedTransport("int8"),
+        "remote_int8_streamed": lambda: RemoteTransport("int8")}
+    ragged_decode.launches = 0                 # this path starts here
+    steps, out = 0, {}
+    for name, make in streams.items():
+        sess, _, comps, stats = serve_stream(fw, dev, make(), reqs, name)
+        steps += stats["steps"]
+        recs = [r for r in sess.transport.log if r.kind == "kv"]
+        out[name] = {"tokens": [c.tokens.tolist() for c in comps],
+                     "bytes": [r.n_bytes for r in recs], "stats": stats,
+                     "frame_bytes": sum(r.frame_bytes for r in recs)}
+    for name, base in (("remote_bf16_streamed", "inmemory"),
+                       ("remote_bf16_monolithic", "inmemory"),
+                       ("remote_int8_streamed", "serialized_int8")):
+        check(out[name]["tokens"] == out[base]["tokens"],
+              f"remote_serving[{name}]: tokens differ from {base}")
+    check(out["remote_int8_streamed"]["bytes"]
+          == out["serialized_int8"]["bytes"],
+          "remote_serving: int8 bytes differ from SerializedTransport's")
+    preqs = paged_requests(fw["tok"])
+    store = PageStore(page_len=16)
+    paged = {}
+    for name, tr in (("remote_bf16_unpaged", RemoteTransport("bfloat16")),
+                     ("remote_bf16_paged", RemoteTransport("bfloat16",
+                                                           store=store))):
+        sess, sched, comps, stats = serve_stream(fw, dev, tr, preqs, name)
+        steps += stats["steps"]
+        paged[name] = {"tokens": [c.tokens.tolist() for c in comps],
+                       "stats": stats, "dedup": sess.dedup_summary(),
+                       "M": len(sched.layers)}
+    launches = ragged_decode.launches
+    check(launches == cfg.num_layers * steps, "remote_serving: K1 launches")
+    summary = paged["remote_bf16_paged"]["dedup"]
+    check(paged["remote_bf16_paged"]["tokens"]
+          == paged["remote_bf16_unpaged"]["tokens"],
+          "remote_serving[paged]: tokens differ from unpaged")
+    check(summary["pages_sent"] == 1848 and summary["hit_rate"] == 0.75,
+          f"remote_serving[paged]: {summary['pages_sent']} pages sent, hit "
+          f"rate {summary['hit_rate']} (want 1,848 and 0.75)")
+    for name, o in out.items():
+        st = o["stats"]
+        emit({"phase": "remote_serving", "transport": name,
+              "tokens_per_s": st["tokens_per_s"],
+              "ttft_p50_ms": st["ttft_p50_ms"], "steps": st["steps"],
+              "kernel_launches": st["kernel_launches"],
+              "bytes_moved": st["bytes_moved"],
+              "frame_bytes": o["frame_bytes"],
+              "peak_mem_gb": st["peak_mem_gb"], "card": smi})
+    for name, o in paged.items():
+        st = o["stats"]
+        emit({"phase": "remote_serving", "transport": name,
+              "requests": len(preqs), "tokens_per_s": st["tokens_per_s"],
+              "ttft_p50_ms": st["ttft_p50_ms"], "steps": st["steps"],
+              "kernel_launches": st["kernel_launches"],
+              "bytes_moved": st["bytes_moved"], **o["dedup"],
+              "card": smi})
+
+    # one transfer of the 2,049-position request alone: the remote views
+    # against the in-memory hand-over, the record's breakdown (median of
+    # 3), and the frames from the card against the frames from the CPU
+    sess = fw_session(fw, InMemoryTransport())
+    kv, select, _ = long_context_kv(fw, sess, reqs)
+    want = InMemoryTransport().send(cfg, kvcfg, kv, select)
+    views, transfer = {}, {}
+    for name, make in (
+            ("bf16_streamed", lambda: RemoteTransport("bfloat16")),
+            ("bf16_monolithic", lambda: RemoteTransport(
+                "bfloat16", chunk_bytes=None)),
+            ("int8_streamed", lambda: RemoteTransport("int8")),
+            ("int8_monolithic", lambda: RemoteTransport(
+                "int8", chunk_bytes=None))):
+        tr = make()
+        views[name] = tr.send(cfg, kvcfg, kv, select)
+        for _ in range(2):
+            tr.send(cfg, kvcfg, kv, select)
+        med = lambda f: float(np.median(                    # noqa: E731
+            [getattr(r, f) for r in tr.log]))
+        transfer[name] = {
+            "n_bytes": tr.last.n_bytes, "frame_bytes": tr.last.frame_bytes,
+            **{f"{f}_ms": med(f) * 1e3 for f in (
+                "serialize_s", "channel_s", "deserialize_s", "latency_s")}}
+    for p in ("k", "v"):
+        for name in ("bf16_streamed", "bf16_monolithic"):
+            check(torch.equal(views[name].packed_kv[p], want.packed_kv[p]),
+                  f"remote_serving: {name} {p} != the in-memory hand-over")
+        check(torch.equal(views["int8_streamed"].packed_kv[p],
+                          views["int8_monolithic"].packed_kv[p]),
+              f"remote_serving: int8 streamed {p} != monolithic")
+    del views, want
+    host_kv = {p: kv[p].cpu() for p in ("k", "v")}
+    tiers = ("float32", "float16", "bfloat16", "int8", "int4", plan)
+    frame_ms = {}
+    for wire in tiers:
+        t0 = time.perf_counter()
+        a = encode_kv_transfer(kvcfg, kv, select, wire_dtype=wire)
+        frame_ms[wire if isinstance(wire, str) else "plan"] = \
+            (time.perf_counter() - t0) * 1e3
+        b = encode_kv_transfer(kvcfg, host_kv, select, wire_dtype=wire)
+        check(a == b, f"remote_serving: {wire} frame from the card differs "
+              "from the CPU's")
+        del a, b
+    emit({"phase": "remote_transfer", "context_len": int(kv["k"].shape[2]),
+          "selected_layers": int(select.sum()), **transfer,
+          "card_frames_byte_identical_to_cpu": [
+              t if isinstance(t, str) else t.spec for t in tiers],
+          "card_frame_encode_ms": frame_ms,
+          "phase_wall_s": time.perf_counter() - t_phase, "card": smi})
+    del kv, host_kv, sess
+    torch.cuda.empty_cache()
+    return launches, steps
 
 
 # ---------------------------------------------------------------------------
@@ -1330,11 +1720,15 @@ def main() -> int:
     paged_launches, paged_steps = phase_paged_serving(dev, smi, fw)
     tier_launches, tier_steps = phase_wire_tiers(dev, smi, fw, plan)
     phase_comm_methods(dev, smi, fw)
+    hetero_launches = phase_hetero_pair(dev, smi, fw)
+    remote_launches, remote_steps = phase_remote_serving(dev, smi, fw, plan)
     k1_paths = {"full_width_serving": launches,
                 "paged_serving": paged_launches,
-                "wire_tiers": tier_launches}
+                "wire_tiers": tier_launches,
+                "remote_serving": remote_launches,
+                "hetero_stream": hetero_launches}
     launches = sum(k1_paths.values())
-    steps += paged_steps + tier_steps
+    steps += paged_steps + tier_steps + remote_steps
     del fw
     torch.cuda.empty_cache()
     ep_launches, ep_results = phase_entry_point(dev, flush, smi)
@@ -1345,7 +1739,10 @@ def main() -> int:
                         "src/repro_torch/kernels/csrc/ragged_decode.cu",
                         "src/repro/kernels/ragged_decode.py:46", launches,
                         "main_path_selected_layer"),
-         "launches_per_step": launches // max(steps, 1),
+         # the 28-layer served paths' launches per ragged step; the
+         # hetero stream decodes at the 42-layer receiver's depth
+         "launches_per_step": (launches - hetero_launches) // max(steps, 1),
+         "hetero_stream_launches_per_step": hetero_launches // 7,
          "launches_by_path": k1_paths},
         kernel_entry(results, "flash_attention",
                      "src/repro_torch/kernels/csrc/flash_attention.cu",

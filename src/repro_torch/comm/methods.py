@@ -10,8 +10,9 @@ registered in ``METHODS`` so that ``CommSession.run`` dispatches by name:
   cipher     — like nld, but the expected embeddings cross (soft tokens).
   ac_replace / ac_mean / ac_sum — the sender's last-token hidden state
                merged into the receiver's at one layer (Ramesh & Li 2025).
-  hetero_kvcomm — registered so the names match the reference; it needs
-               heterogeneous pairs, which are not ported yet, and raises.
+  hetero_kvcomm — kvcomm across a depth-mismatched pair: the sender
+               selects over its own depth and the ``req.layer_map`` policy
+               places its layers in receiver slots.
 
 A method's ``run`` takes the session, a batch of host numpy arrays and a
 ``CommRequest``, and returns a ``MethodResult``: host numpy predictions,
@@ -158,13 +159,35 @@ class SelectiveKV(CommMethod):
 
 
 class HeteroSelectiveKV(CommMethod):
-    """KV sharing across a depth-mismatched pair through a ``LayerMap``.
-    Heterogeneous pairs are not ported yet."""
+    """KV sharing across a depth-mismatched pair: the sender selects over
+    its own depth (``req.scores`` are SENDER-side, e.g. from
+    ``session.calibrate_side("sender", ...)``), the ``req.layer_map``
+    policy places the selected layers in receiver slots, and the transport
+    moves exactly the mapped payload. On a same-depth pair with
+    ``layer_map="identity"`` it is kvcomm, bit for bit."""
     name = "hetero_kvcomm"
 
     def run(self, session, batch, req):
-        raise NotImplementedError("hetero_kvcomm needs heterogeneous pairs "
-                                  "(LayerMap policies), not ported yet")
+        if req.kvcfg is None:
+            raise ValueError(f"{self.name} needs a KVCommConfig")
+        rx, tx = session.receiver, session.sender
+        ctx, qry = batch["context"], batch["query"]
+        shared, assignment = session.share_mapped(
+            ctx, req.kvcfg, policy=req.layer_map, src_scores=req.scores,
+            key=req.calib_key)
+        out = rx.prefill(qry, shared, max_new=1)
+        rec = session.transport.last
+        P = rec.layers           # mapped pairs = receiver-consumed layers
+        # the receiver's cost at its own depth plus the sender's prefill of
+        # [BOS context] at its own (flops_baseline at Tr = 0)
+        fl = (costs.flops_kvcomm_receiver(rx.cfg, shared.prefix_len,
+                                          qry.shape[1], req.max_new, P)
+              + costs.flops_baseline(tx.cfg, ctx.shape[1] + 1, 0))
+        return _result(
+            rx.predict_last(out.logits), batch["answer"], rec.n_bytes, fl,
+            transfer=rec, M=P, policy=req.layer_map,
+            src_layers=assignment.src, dst_layers=assignment.dst,
+            select=shared.select.cpu().numpy(), packed=shared.is_packed)
 
 
 # ---------------------------------------------------------------------------
@@ -223,6 +246,11 @@ class ActivationComm(CommMethod):
 
     @torch.no_grad()
     def run(self, session, batch, req):
+        # injection is same-index: the vectors are stacked over SENDER
+        # layers and the mask addresses receiver layers
+        if session.is_hetero:
+            raise ValueError("ac_* baselines need equal depths "
+                             "(hetero pairs: hetero_kvcomm)")
         tx, rx, cfg = session.sender, session.receiver, session.cfg
         ctx, qry = batch["context"], batch["query"]
         B = ctx.shape[0]

@@ -6,8 +6,13 @@ mailbox of §J (extra senders ``attach_sender`` and deposit views that
 ``combined`` merges), batched and streaming generation on the receiver,
 the per-layer ``WirePlan`` of a frozen selection, and the paged-store
 dedup summary. ``run(method, batch, ...)`` dispatches through the
-``METHODS`` registry. The resilience ladder and heterogeneous pairs are
-not ported yet.
+``METHODS`` registry.
+
+Heterogeneous pairs: sender and receiver may differ in depth (not in KV
+geometry). ``calibrate_side`` / ``side_selection`` score and select each
+model over its own layers, and ``share_mapped`` aligns them with a
+``LayerMap`` policy; the same-index ``calibrate`` and ``share`` refuse such
+a pair. The resilience ladder is not ported yet.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from repro_torch.comm.transport import (InMemoryTransport, Transport,
                                         WirePlan)
 from repro_torch.core import protocol
 from repro_torch.core.channel import combine_senders
+from repro_torch.core.layermap import LayerAssignment, get_layer_map
 from repro_torch.core.selection import gaussian_prior, selection_scores
 from repro_torch.core.types import KVCommConfig, SharedKV
 
@@ -57,11 +63,14 @@ class CommSession:
     def __init__(self, sender: Agent, receiver: Agent,
                  transport: Optional[Transport] = None):
         scfg, rcfg = sender.cfg, receiver.cfg
-        if scfg.attn_layer_count != rcfg.attn_layer_count:
-            raise NotImplementedError("heterogeneous pairs are not ported")
+        # depths may differ (a LayerMap aligns them); the per-layer KV
+        # geometry must match for the receiver to read the sender's KV
         if (scfg.num_kv_heads, scfg.resolved_head_dim) != \
                 (rcfg.num_kv_heads, rcfg.resolved_head_dim):
-            raise ValueError("sender/receiver must agree on KV geometry")
+            raise ValueError(
+                "sender/receiver must agree on KV geometry (Hkv, Dh): "
+                f"{(scfg.num_kv_heads, scfg.resolved_head_dim)} vs "
+                f"{(rcfg.num_kv_heads, rcfg.resolved_head_dim)}")
         self.sender = sender
         self.receiver = receiver
         self.transport = transport if transport is not None \
@@ -70,14 +79,43 @@ class CommSession:
         self._score_cache: Dict[Optional[str], torch.Tensor] = {}
         self._sel_cache: Dict[Tuple[Optional[str], KVCommConfig],
                               torch.Tensor] = {}
+        # per-side state of heterogeneous pairs: scores and selections
+        # keyed by ("sender" | "receiver", task key), each over that
+        # side's own depth
+        self._side_scores: Dict[Tuple[str, Optional[str]],
+                                torch.Tensor] = {}
+        self._side_sel: Dict[Tuple[str, Optional[str], KVCommConfig],
+                             torch.Tensor] = {}
         self.mailbox: List[Tuple[str, SharedKV]] = []
         self._n_handles = 0
+
+    @property
+    def is_hetero(self) -> bool:
+        """Sender and receiver differ in attention depth: the same-index
+        protocol (``share``, "kvcomm") no longer applies and a
+        ``LayerMap`` must align the sides (``share_mapped``,
+        "hetero_kvcomm"). The port's models are attention-only, so
+        attention depth is the whole depth."""
+        return (self.sender.cfg.attn_layer_count
+                != self.receiver.cfg.attn_layer_count)
+
+    def _agent(self, side: str) -> Agent:
+        if side not in ("sender", "receiver"):
+            raise ValueError(f"side must be 'sender' or 'receiver', "
+                             f"got {side!r}")
+        return self.sender if side == "sender" else self.receiver
 
     # ---- calibration + frozen selections ---------------------------------
     def calibrate(self, context: np.ndarray, query: np.ndarray,
                   key: Optional[str] = None) -> torch.Tensor:
         """Eq. (1) scores from one calibration sample, cached under
-        ``key``: the receiver consumes the sender's KV of ``context``."""
+        ``key``: the receiver consumes the sender's KV of ``context``, so
+        both sides must agree on depth (a heterogeneous pair calibrates
+        each side with ``calibrate_side``)."""
+        if self.is_hetero:
+            raise ValueError("cross-model calibration needs equal depths; "
+                             "use calibrate_side('sender', ...) on a "
+                             "heterogeneous pair")
         if key is not None and key in self._score_cache:
             return self._score_cache[key]
         kv, _ = self.sender.export_kv(context)
@@ -85,6 +123,37 @@ class CommSession:
         if key is not None:
             self._score_cache[key] = scores
         return scores
+
+    def calibrate_side(self, side: str, context: np.ndarray,
+                       query: np.ndarray,
+                       key: Optional[str] = None) -> torch.Tensor:
+        """Eq. (1) scores of one side over its own layers: ``side``'s agent
+        calibrates against its own KV of ``context``. Cached under
+        (side, key)."""
+        cache_key = (side, key)
+        if key is not None and cache_key in self._side_scores:
+            return self._side_scores[cache_key]
+        scores = self._agent(side).self_scores(context, query)
+        if key is not None:
+            self._side_scores[cache_key] = scores
+        return scores
+
+    def side_selection(self, side: str, kvcfg: KVCommConfig,
+                       scores: Optional[torch.Tensor] = None,
+                       key: Optional[str] = None) -> torch.Tensor:
+        """The frozen layer subset over ``side``'s own depth; explicit
+        ``scores`` recompute and refresh the cache, score-less calls serve
+        the frozen mask."""
+        agent = self._agent(side)
+        cache_key = (side, key, kvcfg)
+        if scores is None and key is not None:
+            if cache_key in self._side_sel:
+                return self._side_sel[cache_key]
+            scores = self._side_scores.get((side, key))
+        select = protocol.make_selection(agent.cfg, kvcfg, scores)
+        if key is not None:
+            self._side_sel[cache_key] = select
+        return select
 
     def selection(self, kvcfg: KVCommConfig,
                   scores: Optional[torch.Tensor] = None,
@@ -130,10 +199,44 @@ class CommSession:
         the transport. Returns (receiver-side SharedKV, select).
         ``sync=False`` keeps the round free of host waits (the transfer's
         stamp is deferred)."""
+        if self.is_hetero:
+            raise ValueError("sender and receiver disagree on depth; use "
+                             "share_mapped (or the 'hetero_kvcomm' method) "
+                             "with a LayerMap policy")
         select = self.selection(kvcfg, scores=scores, key=key)
         kv, _ = self.sender.export_kv(context)
         shared = self.transport.send(self.cfg, kvcfg, kv, select, sync=sync)
         return shared, select
+
+    def share_mapped(self, context: np.ndarray, kvcfg: KVCommConfig,
+                     policy: str = "depth_proportional",
+                     src_scores: Optional[torch.Tensor] = None,
+                     dst_scores: Optional[torch.Tensor] = None,
+                     key: Optional[str] = None,
+                     sync: Optional[bool] = None
+                     ) -> Tuple[SharedKV, LayerAssignment]:
+        """The heterogeneous round: the sender selects over its own depth,
+        the ``policy`` LayerMap places the selected layers in receiver
+        slots, and the transport moves exactly the mapped payload. On a
+        same-depth pair ``policy="identity"`` reproduces ``share`` bit for
+        bit. Returns (receiver-side SharedKV, the assignment)."""
+        src_select = self.side_selection("sender", kvcfg, scores=src_scores,
+                                         key=key)
+        if src_scores is None and key is not None:
+            src_scores = self._side_scores.get(("sender", key))
+        if dst_scores is None and key is not None:
+            dst_scores = self._side_scores.get(("receiver", key))
+        host = lambda x: None if x is None else np.asarray(   # noqa: E731
+            x.cpu() if isinstance(x, torch.Tensor) else x)
+        assignment = get_layer_map(policy).assign(
+            protocol.selected_layer_ids(src_select),
+            num_src_layers=self.sender.cfg.attn_layer_count,
+            num_dst_layers=self.receiver.cfg.attn_layer_count,
+            src_scores=host(src_scores), dst_scores=host(dst_scores))
+        kv, _ = self.sender.export_kv(context)
+        shared = self.transport.send(self.cfg, kvcfg, kv, None,
+                                     assignment=assignment, sync=sync)
+        return shared, assignment
 
     # ---- multi-sender (§J) ------------------------------------------------
     def attach_sender(self, agent: Agent,

@@ -15,9 +15,11 @@ latency-stamped ``TransferRecord``.
 The codec computes what the reference's ``encode_wire`` computes, in the
 payload's own dtype (absmax, scale, division and rounding), so its arrays
 are byte-identical to the reference's at every input dtype. The
-reference's host codec ``np_encode_wire`` upcasts to float32 first and so
-ships other bytes at bf16/fp16: a streamed remote counterpart has to pick
-the codec its peer uses.
+reference's streamed remote frames use its host codec ``np_encode_wire``
+only for float32 payloads, where the two codecs agree, and ``encode_wire``
+for every other dtype; so this one codec gives the peer's frames at every
+dtype (``np_encode_wire`` / ``np_decode_wire`` here are it, run on the
+host).
 
 With a ``PageStore`` attached (``store=``), every KV send goes through the
 content-addressed paged path (``repro_torch.store``): only the pages the
@@ -26,8 +28,13 @@ pages_total / pages_sent / pages_hit breakdown. ``send(sync=False)`` builds
 the receiver view on the device and parks the hashing until
 ``last_table``, ``poll_latency`` or ``flush_latency`` needs it.
 
-Not ported yet: SSM state leaves on the wire (``roundtrip_states``), mapped
-(heterogeneous) sends and the remote transport.
+``send(..., assignment=LayerAssignment)`` is the heterogeneous path: the
+wire carries exactly the assignment's P sender layers, keyed by receiver
+slot, and the record's ``layers`` and bytes track P. ``RemoteTransport``
+(``repro_torch.comm.remote``) frames the same payload through a byte
+channel.
+
+Not ported yet: SSM state leaves on the wire (``roundtrip_states``).
 """
 from __future__ import annotations
 
@@ -41,8 +48,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.channel import TransferRecord
-from repro_torch.core.protocol import (build_packed, build_shared,
-                                       gather_selected, pack_shared,
+from repro_torch.core.layermap import LayerAssignment
+from repro_torch.core.protocol import (build_mapped, build_packed,
+                                       build_shared, gather_mapped,
+                                       gather_selected, pack_mapped,
+                                       pack_shared, scatter_mapped,
                                        selected_layer_ids)
 from repro_torch.core.types import KVCommConfig, SharedKV
 
@@ -318,6 +328,40 @@ def decode_wire(wire, wire_dtype, dtype: torch.dtype,
     return out
 
 
+def _host_tensor(a) -> torch.Tensor:
+    return a.cpu() if isinstance(a, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(a))
+
+
+def np_encode_wire(x, wire_dtype):
+    """The host codec for one uniform wire dtype: ``encode_wire`` run on
+    the CPU over a host array (numpy or tensor). Returns ((CPU tensors),
+    n_bytes). The reference's numpy host codec computes at float32 and so
+    equals its ``encode_wire`` only on float32 payloads, the only ones its
+    stream sender encodes with it; this one equals ``encode_wire`` at every
+    dtype."""
+    wd = resolve_wire_dtype(wire_dtype)
+    if isinstance(wd, WirePlan):
+        raise ValueError("np_encode_wire takes a uniform wire dtype; plan "
+                         "wires encode slot by slot")
+    wire = _encode_uniform(_host_tensor(x), wd)
+    return wire, sum(_nbytes(a) for a in wire)
+
+
+def np_decode_wire(wire, wire_dtype, dtype) -> torch.Tensor:
+    """The host decoder for one uniform wire dtype: ``decode_wire`` on the
+    CPU (int8 and int4 through a float32 product, then one cast), bit-equal
+    to the decode on the card. ``dtype`` is a torch dtype or its name."""
+    wd = resolve_wire_dtype(wire_dtype)
+    if isinstance(wd, WirePlan):
+        raise ValueError("np_decode_wire takes a uniform wire dtype; plan "
+                         "wires decode slot by slot")
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
+    return _decode_uniform(tuple(_host_tensor(a) for a in wire), wd, dtype,
+                           "cpu")
+
+
 def device_wire_roundtrip(x: torch.Tensor, wire_dtype, dtype) -> torch.Tensor:
     """``decode_wire(encode_wire(x))`` without leaving x's device: the same
     arithmetic with no host copy (nibble packing cannot change a value, so
@@ -408,6 +452,29 @@ def payload_bytes(kv, select) -> int:
     _, B, Sc, Hkv, Dh = kv["k"].shape
     return (2 * selected_count(select) * B * Sc * Hkv * Dh
             * kv["k"].element_size())
+
+
+def assignment_bytes(kv, assignment: LayerAssignment,
+                     itemsize: Optional[int] = None) -> int:
+    """Analytic bytes of a mapped (heterogeneous) KV transfer: exactly the
+    P assigned pairs cross, even when the sender selected more."""
+    if kv is None or assignment.num_pairs == 0:
+        return 0
+    _, B, Sc, Hkv, Dh = kv["k"].shape
+    isz = itemsize if itemsize is not None else kv["k"].element_size()
+    return 2 * assignment.num_pairs * B * Sc * Hkv * Dh * isz
+
+
+def _mapped_or_selected(kv, select, assignment):
+    """(payload, receiver layers, sender provenance, receiver mask, layer
+    count) of a send: the assignment's pairs, or the selected layers."""
+    if assignment is not None:
+        return (gather_mapped(kv, assignment), tuple(assignment.dst),
+                tuple(assignment.src),
+                torch.from_numpy(assignment.dst_mask()),
+                assignment.num_pairs)
+    layers = selected_layer_ids(select)
+    return gather_selected(kv, select), layers, None, select, len(layers)
 
 
 class Transport(abc.ABC):
@@ -507,20 +574,32 @@ class Transport(abc.ABC):
         return n
 
     def send(self, cfg: ModelConfig, kvcfg: KVCommConfig, kv, select,
+             assignment: Optional[LayerAssignment] = None,
              sync: Optional[bool] = None) -> SharedKV:
         """Move the selected KV across; return the receiver-side view and
-        record a TransferRecord."""
+        record a TransferRecord.
+
+        ``assignment`` switches on the heterogeneous path: the wire carries
+        the assignment's sender layers (``src``, possibly fewer than the
+        sender selected) and the view is keyed by its receiver slots
+        (``dst``); the record's ``layers`` is the mapped pair count."""
         do_sync = self.sync if sync is None else sync
         if do_sync:
             self.flush_latency()
         cuda = kv["k"].device.type == "cuda"
         t0 = time.perf_counter()
-        if self.store is None:
-            shared = self._send(cfg, kvcfg, kv, select)
-        elif do_sync:
-            shared = self._send_paged(kvcfg, kv, select)
+        if self.store is not None:
+            # a transport whose own paged exchange reads host bytes
+            # (RemoteTransport's) keeps the eager ingest under sync=False
+            if do_sync or type(self)._send_paged is not Transport._send_paged:
+                shared = self._send_paged(kvcfg, kv, select, assignment)
+            else:
+                shared = self._send_paged_deferred(kvcfg, kv, select,
+                                                   assignment)
+        elif assignment is not None:
+            shared = self._send_mapped(cfg, kvcfg, kv, assignment)
         else:
-            shared = self._send_paged_deferred(kvcfg, kv, select)
+            shared = self._send(cfg, kvcfg, kv, select)
         if do_sync:
             if cuda:
                 torch.cuda.synchronize(kv["k"].device)
@@ -537,6 +616,15 @@ class Transport(abc.ABC):
     def _send(self, cfg: ModelConfig, kvcfg: KVCommConfig, kv,
               select) -> SharedKV:
         """Transport-specific transfer; must append a TransferRecord."""
+
+    def _send_mapped(self, cfg: ModelConfig, kvcfg: KVCommConfig, kv,
+                     assignment: LayerAssignment) -> SharedKV:
+        """Heterogeneous transfer under a ``LayerAssignment``; must append a
+        TransferRecord whose ``layers`` is the mapped pair count. A
+        subclass that only implements ``_send`` cannot serve it."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support mapped "
+            "(heterogeneous) transfers; override _send_mapped")
 
     # -- the paged (content-addressed) path --------------------------------
     def _paged_wire_dtype(self, kv):
@@ -556,16 +644,21 @@ class Transport(abc.ABC):
         rec.pages_sent = len(novel)
         rec.pages_hit = table.num_pages - len(novel)
 
-    def _send_paged(self, kvcfg: KVCommConfig, kv, select) -> SharedKV:
-        """Gather the selected payload, ingest it into the attached store
-        (dedup against the pool happens there) and materialize the receiver
-        view back out of the pool, so the receiver consumes what the pages
-        hold. Counted bytes are the novel pages plus the scales."""
+    def _send_paged(self, kvcfg: KVCommConfig, kv, select,
+                    assignment: Optional[LayerAssignment] = None
+                    ) -> SharedKV:
+        """Gather the selected (or assignment-mapped) payload, ingest it
+        into the attached store (dedup against the pool happens there) and
+        materialize the receiver view back out of the pool, so the receiver
+        consumes what the pages hold. Counted bytes are the novel pages
+        plus the scales."""
         self._settle_ingests()      # older deferred ingests land first
-        layers = selected_layer_ids(select)
+        payload, layers, src_layers, sel_mask, count = _mapped_or_selected(
+            kv, select, assignment)
         table, novel, novel_bytes = self.store.ingest(
-            gather_selected(kv, select), layers=layers, select=select,
-            wire_dtype=self._paged_wire_dtype(kv), pos_mode=kvcfg.pos_mode)
+            payload, layers=layers, select=sel_mask,
+            wire_dtype=self._paged_wire_dtype(kv), pos_mode=kvcfg.pos_mode,
+            src_layers=src_layers)
         # ingest pinned the table: release it if anything fails before the
         # swap, so an aborted send leaks no refcounts into the pool
         try:
@@ -576,15 +669,16 @@ class Transport(abc.ABC):
         except BaseException:
             self.store.release(table)
             raise
-        rec = TransferRecord(kind="kv", n_bytes=0, layers=len(layers),
+        rec = TransferRecord(kind="kv", n_bytes=0, layers=count,
                              context_len=table.prefix_len,
                              wire_dtype=self._wire_spec())
         self._record_paged(rec, table, novel, novel_bytes)
         self.log.append(rec)
         return shared
 
-    def _send_paged_deferred(self, kvcfg: KVCommConfig, kv,
-                             select) -> SharedKV:
+    def _send_paged_deferred(self, kvcfg: KVCommConfig, kv, select,
+                             assignment: Optional[LayerAssignment] = None
+                             ) -> SharedKV:
         """``sync=False`` paged send that never waits for the card: the
         receiver view is a device codec roundtrip (bit-identical to what
         ``PageStore.materialize`` rebuilds), the wire is encoded on the
@@ -592,16 +686,20 @@ class Transport(abc.ABC):
         hashing and pool insert are parked as a thunk. The record is logged
         now with zeroed page counts; the thunk fills them in."""
         self._settle_ingests()
-        payload = gather_selected(kv, select)
-        layers = selected_layer_ids(select)
+        payload, layers, src_layers, sel_mask, count = _mapped_or_selected(
+            kv, select, assignment)
         wd = self._paged_wire_dtype(kv)
         prefix_len = int(kv["k"].shape[2])
         rx = {part: device_wire_roundtrip(payload[part], wd, kv["k"].dtype)
               for part in ("k", "v")}
-        shared = build_packed(kvcfg, rx, layers, prefix_len, select=select)
+        if assignment is not None:
+            shared = build_mapped(kvcfg, rx, assignment, prefix_len)
+        else:
+            shared = build_packed(kvcfg, rx, layers, prefix_len,
+                                  select=select)
         if not self.packed:
             shared = shared.to_dense()
-        rec = TransferRecord(kind="kv", n_bytes=0, layers=len(layers),
+        rec = TransferRecord(kind="kv", n_bytes=0, layers=count,
                              context_len=prefix_len,
                              wire_dtype=self._wire_spec())
         self.log.append(rec)
@@ -609,8 +707,8 @@ class Transport(abc.ABC):
 
         def ingest():
             table, novel, novel_bytes = self.store.ingest(
-                wire, layers=layers, select=select, wire_dtype=wd,
-                pos_mode=kvcfg.pos_mode)
+                wire, layers=layers, select=sel_mask, wire_dtype=wd,
+                pos_mode=kvcfg.pos_mode, src_layers=src_layers)
             try:
                 self._swap_table(table)
             except BaseException:
@@ -660,6 +758,18 @@ class InMemoryTransport(Transport):
                         wire_dtype="model")
         return shared
 
+    def _send_mapped(self, cfg, kvcfg, kv, assignment) -> SharedKV:
+        if self.packed:
+            shared = pack_mapped(kvcfg, kv, assignment)
+        else:
+            shared = scatter_mapped(kvcfg, gather_mapped(kv, assignment),
+                                    assignment, int(kv["k"].shape[2]))
+        self.log.append(TransferRecord(
+            kind="kv", n_bytes=assignment_bytes(kv, assignment),
+            layers=assignment.num_pairs, context_len=shared.prefix_len,
+            wire_dtype="model"))
+        return shared
+
 
 class SerializedTransport(Transport):
     """Materializes the wire payload on the host and counts its bytes.
@@ -693,4 +803,16 @@ class SerializedTransport(Transport):
             shared = build_shared(kvcfg, dense, select)
         self._record_kv(n_bytes, select, prefix_len,
                         wire_dtype=self._wire_spec())
+        return shared
+
+    def _send_mapped(self, cfg, kvcfg, kv, assignment) -> SharedKV:
+        prefix_len = int(kv["k"].shape[2])
+        rx, n_bytes = roundtrip_kv(gather_mapped(kv, assignment),
+                                   self.wire_dtype, kv["k"].dtype,
+                                   kv["k"].device)
+        build = build_mapped if self.packed else scatter_mapped
+        shared = build(kvcfg, rx, assignment, prefix_len)
+        self.log.append(TransferRecord(
+            kind="kv", n_bytes=n_bytes, layers=assignment.num_pairs,
+            context_len=prefix_len, wire_dtype=self._wire_spec()))
         return shared

@@ -20,6 +20,14 @@ class TransferRecord:
     wire_dtype: str = "model"   # payload dtype ("model" = compute dtype)
     latency_s: float = 0.0      # device-synced wall clock of the transfer
                                 # (0.0 until a deferred stamp settles)
+    # the remote breakdown (RemoteTransport stamps these; in-process
+    # transports leave them 0): encode and framing, channel write and read
+    # back, parse and rebuild; frame_bytes is the whole frame, header and
+    # checksum included, beside the payload-only n_bytes
+    serialize_s: float = 0.0
+    channel_s: float = 0.0
+    deserialize_s: float = 0.0
+    frame_bytes: int = 0
     # paged-store dedup accounting (zero on the unpaged path): the block
     # table referenced pages_total pages, pages_hit of them were already in
     # the receiver's pool and only pages_sent crossed; n_bytes then matches
@@ -27,6 +35,11 @@ class TransferRecord:
     pages_total: int = 0
     pages_sent: int = 0
     pages_hit: int = 0
+    # channel attempts the transfer took (RemoteTransport stamps it), and
+    # the fallback that served it; degradation stays None until the
+    # resilience ladder is ported
+    attempts: int = 1
+    degradation: Optional[object] = None
 
     @property
     def hit_rate(self) -> float:

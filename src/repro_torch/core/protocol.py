@@ -6,6 +6,8 @@
                       shared and measures the Eq. (1) masses.
   make_selection    — masses + KVCommConfig -> the layer subset S.
   build/pack_shared — the receiver-side SharedKV view (dense or packed).
+  gather/build/pack/scatter_mapped — the same for a heterogeneous pair,
+                      keyed by the receiver slots of a ``LayerAssignment``.
   receiver_prefill  — M_r prefills Q with the sender prefix integrated.
   receiver_decode   — one eager greedy step on the masked-dense path.
   decode_step / ragged_decode_step — one greedy step, with the cache
@@ -120,6 +122,52 @@ def pack_shared(kvcfg: KVCommConfig, kv, select) -> SharedKV:
     return build_packed(kvcfg, gather_selected(kv, select),
                         selected_layer_ids(select), int(kv["k"].shape[2]),
                         select=select)
+
+
+# ---------------------------------------------------------------------------
+# heterogeneous transmission (sender depth != receiver depth)
+# ---------------------------------------------------------------------------
+def gather_mapped(kv, assignment) -> Dict[str, torch.Tensor]:
+    """The heterogeneous wire payload: the sender layers named by
+    ``assignment.src``, stacked in receiver-slot (``dst``) order,
+    (P, B, Sc, Hkv, Dh)."""
+    idx = assignment.src
+    return {p: (torch.stack([kv[p][i] for i in idx]) if idx
+                else kv[p][:0]) for p in ("k", "v")}
+
+
+def build_mapped(kvcfg: KVCommConfig, payload, assignment,
+                 prefix_len: int) -> SharedKV:
+    """The packed receiver-side view of a gathered mapped payload:
+    ``layers`` are the receiver slots (what the packed cache partitions
+    on), ``src_layers`` the sender provenance."""
+    return SharedKV(packed_kv=payload, layers=tuple(assignment.dst),
+                    src_layers=tuple(assignment.src),
+                    select=torch.from_numpy(assignment.dst_mask()),
+                    prefix_len=prefix_len, pos_mode=kvcfg.pos_mode)
+
+
+def pack_mapped(kvcfg: KVCommConfig, kv, assignment) -> SharedKV:
+    """``pack_shared`` for a heterogeneous pair: gather the assignment's
+    sender layers and key the packed view by receiver slot."""
+    return build_mapped(kvcfg, gather_mapped(kv, assignment), assignment,
+                        int(kv["k"].shape[2]))
+
+
+def scatter_mapped(kvcfg: KVCommConfig, payload, assignment,
+                   prefix_len: int) -> SharedKV:
+    """The dense receiver-side view of a mapped payload: a zero-padded
+    (L_dst, ...) stack with each packed slice in its receiver slot
+    (``select`` masks the zeros)."""
+    kv = {}
+    for part in ("k", "v"):
+        p = payload[part]
+        dense = p.new_zeros((assignment.num_dst_layers,) + tuple(p.shape[1:]))
+        for m, j in enumerate(assignment.dst):
+            dense[j] = p[m]
+        kv[part] = dense
+    return SharedKV(kv=kv, select=torch.from_numpy(assignment.dst_mask()),
+                    prefix_len=prefix_len, pos_mode=kvcfg.pos_mode)
 
 
 def pad_prefix(shared: SharedKV, prefix_len: int) -> SharedKV:

@@ -25,14 +25,78 @@ def normalize_scores(raw: torch.Tensor) -> torch.Tensor:
     return (raw - lo) / torch.clamp(hi - lo, min=1e-9)
 
 
+def _fma32(a, b, c) -> np.ndarray:
+    """float32 fused multiply-add, rounded once: the product of two float32
+    values is exact in float64; the sum is rounded to odd (an inexact
+    result with an even last bit moves one ulp toward the lost part), so
+    the final cast to float32 rounds exactly as a hardware FMA does."""
+    p = np.asarray(a, np.float64) * np.asarray(b, np.float64)
+    c = np.asarray(c, np.float64)
+    s = p + c
+    t = s - p
+    err = (p - (s - t)) + (c - t)                  # TwoSum: s + err exact
+    fix = (err != 0) & ((s.view(np.int64) & 1) == 0)
+    s = np.where(fix, np.nextafter(s, np.where(err > 0, np.inf, -np.inf)), s)
+    return s.astype(np.float32)
+
+
+_F = np.float32
+_EXP_POLY = (8.3334519073e-3, 4.1665795894e-2, 1.6666665459e-1,
+             5.0000001201e-1)
+
+
+def _exp_f32(x: np.ndarray) -> np.ndarray:
+    """float32 exp as the reference's CPU backend (XLA) computes it, bit for
+    bit: the Cephes range reduction e^x = e^a * 2^n, n = floor(x log2(e) +
+    1/2) clamped to [-127, 127], a degree-5 polynomial for e^a, each step a
+    fused multiply-add, and results below the smallest normal flushed to
+    0. ``torch.exp`` rounds otherwise for ~10% of inputs, and one ulp of
+    the depth prior reorders its ties (l = L/2 +- k), so a selection or a
+    ``ScoreGreedy`` slot would differ from the reference's."""
+    x = np.clip(np.asarray(x, _F), _F(-87.8), _F(88.8))
+    n = np.clip(np.floor(_fma32(x, _F(1.44269504088896341), _F(0.5))),
+                _F(-127), _F(127))
+    a = _fma32(-_F(0.693359375), n, x)
+    a = _fma32(-_F(-2.12194440e-4), n, a)
+    z = _fma32(a, _F(1.9875691500e-4), _F(1.3981999507e-3))
+    for c in _EXP_POLY:
+        z = _fma32(z, a, _F(c))
+    z = _F(1) + _fma32(z, a * a, a)
+    pow2 = ((n.astype(np.int32) + 127).astype(np.uint32) << 23).view(_F)
+    out = (z * pow2).astype(_F)
+    return np.where(np.abs(out) < np.finfo(_F).tiny, _F(0), out).astype(_F)
+
+
 def gaussian_prior(num_layers: int, mu: Optional[float] = None,
                    sigma: float = 10.0) -> torch.Tensor:
-    """P^l = exp(-(l - mu)^2 / (2 sigma^2)), l = 1..L; |sigma| floored."""
+    """P^l = exp(-(l - mu)^2 / (2 sigma^2)), l = 1..L; |sigma| floored.
+    The reference's float32 values, bit for bit (``_exp_f32``)."""
     if mu is None:
         mu = num_layers / 2
-    l = torch.arange(1, num_layers + 1, dtype=torch.float32)
+    l = np.arange(1, num_layers + 1, dtype=_F)
     sigma = max(abs(float(sigma)), 1e-6)
-    return torch.exp(-torch.square(l - mu) / (2.0 * sigma ** 2))
+    arg = -np.square(l - _F(mu)) / _F(2.0 * sigma ** 2)
+    return torch.from_numpy(_exp_f32(arg))
+
+
+def interp_scores(scores, num_layers: int) -> torch.Tensor:
+    """Resample a per-layer score vector onto a model of ``num_layers``
+    layers by linear interpolation over normalized depth (the anchor
+    alignment of heterogeneous pairs); a single-layer source broadcasts.
+    float64 arithmetic, one rounding to float32, as the reference."""
+    src = np.asarray(scores, np.float64).reshape(-1)
+    L = src.shape[0]
+    if L < 1 or num_layers < 1:
+        raise ValueError(f"cannot resample {L} scores onto {num_layers} "
+                         "layers")
+    if L == num_layers:
+        out = src
+    elif L == 1:
+        out = np.full((num_layers,), src[0])
+    else:
+        out = np.interp(np.linspace(0.0, 1.0, num_layers),
+                        np.linspace(0.0, 1.0, L), src)
+    return torch.from_numpy(out.astype(np.float32))
 
 
 def selection_scores(attn_scores: torch.Tensor,

@@ -42,6 +42,41 @@ class SharedKV:
         return SharedKV(select=self.select, prefix_len=self.prefix_len,
                         pos_mode=self.pos_mode, layers=self.layers)
 
+    def wire_meta(self) -> dict:
+        """The JSON-safe static description a remote receiver rebuilds the
+        view from besides the payload (the reference's key order, so a
+        frame header built from it is the reference's byte for byte)."""
+        return {
+            "prefix_len": int(self.prefix_len),
+            "pos_mode": self.pos_mode,
+            "packed": self.is_packed,
+            "layers": None if self.layers is None else list(self.layers),
+            "src_layers": (None if self.src_layers is None
+                           else list(self.src_layers)),
+            "select": (None if self.select is None
+                       else [bool(b) for b in self.select.tolist()]),
+        }
+
+    @classmethod
+    def from_wire(cls, meta: dict, payload: Optional[dict] = None,
+                  num_layers: Optional[int] = None) -> "SharedKV":
+        """Rebuild a receiver-side view from ``wire_meta()`` output and the
+        decoded (M, B, Sc, Hkv, Dh) payload. The wire always carries the
+        packed payload; ``meta["packed"]`` False asks for the dense view,
+        scattered here on the receiving side."""
+        select = (None if meta["select"] is None
+                  else torch.tensor(meta["select"], dtype=torch.bool))
+        layers = (None if meta["layers"] is None
+                  else tuple(int(i) for i in meta["layers"]))
+        src_layers = (None if meta["src_layers"] is None
+                      else tuple(int(i) for i in meta["src_layers"]))
+        shared = cls(packed_kv=payload, layers=layers, src_layers=src_layers,
+                     select=select, prefix_len=int(meta["prefix_len"]),
+                     pos_mode=meta["pos_mode"])
+        if payload is not None and not meta.get("packed", True):
+            return shared.to_dense(num_layers)
+        return shared
+
     def to_dense(self, num_layers: Optional[int] = None) -> "SharedKV":
         """Scatter the packed payload into a zero-padded dense stack."""
         if not self.is_packed:

@@ -1,7 +1,8 @@
 """The sender/receiver pair definitions of the port.
 
-``pair_config`` is the reference's tiny 8-layer Llama-3.2-family stand-in;
-``full_width_config`` is ``llama3.2-3b-pair`` as published. Both run on
+``pair_config`` is the reference's tiny 8-layer Llama-3.2-family stand-in
+and ``deep_receiver_config`` its 12-layer receiver of a heterogeneous pair;
+``full_width_config`` is ``llama3.2-3b-pair`` as published. All run on
 random weights drawn from a seed: the trained checkpoints are not in the
 repository, and training is not ported yet, so accuracy on random weights
 is near zero and only the plumbing and speed are meaningful.
@@ -29,6 +30,12 @@ def pair_config() -> ModelConfig:
         num_layers=8, d_model=192, d_ff=512, num_heads=6, num_kv_heads=6,
         head_dim=32, vocab_size=tok.vocab_size, dtype="float32",
         remat=False, tie_embeddings=False)
+
+
+def deep_receiver_config() -> ModelConfig:
+    """The heterogeneous counterpart of ``pair_config``: a deeper receiver
+    (12 layers against 8) with the same KV geometry and tokenizer."""
+    return dataclasses.replace(pair_config(), num_layers=12)
 
 
 def full_width_config() -> ModelConfig:

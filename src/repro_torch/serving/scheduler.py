@@ -21,8 +21,10 @@
 
 ``serve_serial`` is the blocking reference loop (per request: share,
 prefill, per-token stream) that the scheduler matches token for token.
-Not ported yet: the resilience ladder and sender quarantine, so also the
-reference's degraded and text-only (``force_baseline``) admissions.
+A heterogeneous session (sender and receiver of different depths) is
+refused, as the reference's scheduler refuses one. Not ported yet: the
+resilience ladder and sender quarantine, so also the reference's degraded
+and text-only (``force_baseline``) admissions.
 """
 from __future__ import annotations
 
@@ -113,6 +115,11 @@ class Scheduler:
     def __init__(self, session: CommSession, kvcfg: KVCommConfig, *,
                  calib_key: Optional[str] = None,
                  config: Optional[SchedulerConfig] = None):
+        if session.is_hetero:
+            raise ValueError("the scheduler serves homogeneous pairs; a "
+                             "heterogeneous session shares through "
+                             "share_mapped, which its slot table does not "
+                             "serve")
         tfm.check_supported(session.cfg)
         self.session = session
         self.kvcfg = kvcfg

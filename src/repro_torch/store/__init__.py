@@ -11,9 +11,9 @@ the pages a receiver's pool is missing are counted as moved.
   pool.py   — ``PagePool``: byte-budgeted residency with LRU/priority
               eviction and pin refcounts for in-flight requests.
   store.py  — ``PageStore``: the pool + table facade transports attach to.
-
-The reference's dedup frame protocol (``store/wire.py``) waits for the
-port's remote transport.
+  wire.py   — the page_query / page_need / page_data frames and
+              ``PagedReceiver``, the dedup exchange ``RemoteTransport``
+              drives (import it from ``repro_torch.store.wire``).
 """
 from repro_torch.store.paging import (BlockTable, Page, page_id_for,
                                       rebuild_payload, rebuild_shared,

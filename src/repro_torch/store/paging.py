@@ -394,5 +394,6 @@ def rebuild_shared(table: BlockTable, pages: Dict[str, Page], *,
     the unpaged transport would have produced for the same transfer."""
     payload = rebuild_decoded(table, pages, device=device)
     return SharedKV(packed_kv=payload, layers=table.layers,
+                    src_layers=table.src_layers,
                     select=torch.tensor(table.select, dtype=torch.bool),
                     prefix_len=table.prefix_len, pos_mode=table.pos_mode)

@@ -678,8 +678,8 @@ def test_paged_scheduler_on_card_matches_unpaged(cuda):
 # CPU on one parameter set drawn on the CPU, float32 with TF32 off
 
 COMM_METHODS = ["ac_mean", "ac_replace", "ac_sum", "baseline", "cipher",
-                "contiguous", "full_kv", "kvcomm", "nld", "prior_only",
-                "random", "skyline"]
+                "contiguous", "full_kv", "hetero_kvcomm", "kvcomm", "nld",
+                "prior_only", "random", "skyline"]
 
 
 def _methods_setup(dev):
@@ -712,7 +712,7 @@ def _methods_setup(dev):
 
 def test_method_registry_is_what_the_card_tests_cover():
     from repro_torch.comm import METHODS
-    assert sorted(set(METHODS) - {"hetero_kvcomm"}) == COMM_METHODS
+    assert sorted(METHODS) == COMM_METHODS
 
 
 @pytest.mark.parametrize("method", COMM_METHODS)
@@ -770,3 +770,133 @@ def test_two_sender_mailbox_on_card_matches_cpu(cuda):
                                    atol=2e-5, rtol=2e-5)
     np.testing.assert_allclose(logits[1].numpy(), logits[0].numpy(),
                                atol=2e-5, rtol=2e-5)
+
+
+# --- the remote wire on the card: frames built from card tensors are the
+# CPU's frames byte for byte, and a frame decodes on the card bit-equal to
+# the CPU decode, monolithic, streamed and paged
+
+REMOTE_TIERS = ["float32", "float16", "bfloat16", "int8", "int4",
+                "plan:float16,int4"]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("wire", REMOTE_TIERS)
+def test_remote_frames_from_card_tensors_match_cpu(cuda, wire, dtype):
+    from repro_torch.comm.remote import KVStreamSender, encode_kv_transfer
+    from repro_torch.core.types import KVCommConfig
+    host, dev = _bf16_payload(cuda)
+    host = {p: a.to(dtype) for p, a in host.items()}
+    dev = {p: a.to(dtype) for p, a in dev.items()}
+    select = torch.tensor([True, False, True])
+    kvcfg = KVCommConfig()
+    assert encode_kv_transfer(kvcfg, dev, select, wire_dtype=wire) == \
+        encode_kv_transfer(kvcfg, host, select, wire_dtype=wire)
+    frames = [list(KVStreamSender(kvcfg, kv, select, wire_dtype=wire,
+                                  chunk_bytes=700).frames())
+              for kv in (dev, host)]
+    assert frames[0] == frames[1] and len(frames[0]) > 3
+
+
+@pytest.mark.parametrize("chunk_bytes", [None, 700])
+@pytest.mark.parametrize("wire", REMOTE_TIERS)
+def test_remote_decode_on_card_is_bit_equal_to_cpu(cuda, wire, chunk_bytes):
+    from repro_torch.comm.remote import (LoopbackChannel, recv_shared,
+                                         send_shared)
+    from repro_torch.core.types import KVCommConfig
+    host, _ = _bf16_payload(cuda)
+    select = torch.tensor([True, False, True])
+    views = []
+    for device in ("cpu", cuda):
+        ch = LoopbackChannel()
+        send_shared(ch, KVCommConfig(), host, select, wire_dtype=wire,
+                    chunk_bytes=chunk_bytes)
+        views.append(recv_shared(ch, device=device)[0])
+    for p in ("k", "v"):
+        assert views[1].packed_kv[p].device.type == cuda.type
+        assert torch.equal(views[1].packed_kv[p].cpu(),
+                           views[0].packed_kv[p])
+
+
+def test_remote_paged_and_streamed_sends_on_card(cuda):
+    """RemoteTransport from card KV: streamed, monolithic and paged views
+    bit-equal to each other (bf16 wire of bf16 KV) and to the in-memory
+    hand-over; the paged repeat ships no page."""
+    from repro_torch.comm import InMemoryTransport
+    from repro_torch.comm.remote import RemoteTransport
+    from repro_torch.core.types import KVCommConfig
+    from repro_torch.store import PageStore
+    _, dev = _bf16_payload(cuda, Sc=40)
+    kv = {p: torch.cat([a, a[:1]]) for p, a in dev.items()}   # 4 layers
+    select = torch.tensor([True, False, True, True])
+    kvcfg = KVCommConfig()
+    want = InMemoryTransport().send(None, kvcfg, kv, select)
+    store = PageStore(page_len=16)
+    paged = RemoteTransport("bfloat16", store=store)
+    for tr in (RemoteTransport("bfloat16"),
+               RemoteTransport("bfloat16", chunk_bytes=None), paged, paged):
+        got = tr.send(None, kvcfg, kv, select)
+        for p in ("k", "v"):
+            assert got.packed_kv[p].device.type == cuda.type
+            assert torch.equal(got.packed_kv[p], want.packed_kv[p])
+    assert paged.log[0].pages_sent == paged.log[0].pages_total == 9
+    assert paged.log[1].pages_sent == 0
+
+
+# --- a heterogeneous pair on the card against the CPU: the float32 6 -> 10
+# pair on one parameter draw per depth, TF32 off
+
+def _hetero_setup(dev):
+    import dataclasses
+    from repro_torch.comm import Agent, CommSession
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import SyntheticTask, TaskConfig
+    from repro_torch.data.tokenizer import SymbolTokenizer
+    from repro_torch.models import transformer as tfm
+    tok = SymbolTokenizer(16, 8)
+    cfgs = {L: dataclasses.replace(
+        get_config("llama3.2-3b-pair"), num_layers=L, d_model=64, d_ff=128,
+        num_heads=4, num_kv_heads=2, head_dim=16, vocab_size=tok.vocab_size,
+        dtype="float32", tie_embeddings=False) for L in (6, 10)}
+    params = {L: tfm.init_params(cfgs[L], L, device="cpu") for L in cfgs}
+    batch = SyntheticTask(tok, TaskConfig("retrieval", num_facts=4,
+                                          seed=11)).batch(2)
+
+    def to(tree, device):
+        if isinstance(tree, dict):
+            return {k: to(v, device) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, device) for v in tree]
+        return tree.to(device)
+
+    def session(L_s, L_r, device):
+        return CommSession(Agent("s", cfgs[L_s], to(params[L_s], device), tok),
+                           Agent("r", cfgs[L_r], to(params[L_r], device), tok))
+    return session, batch
+
+
+@pytest.mark.parametrize("policy", ["identity", "depth_proportional",
+                                    "score_greedy"])
+@pytest.mark.parametrize("depths", [(6, 10), (10, 6)])
+def test_hetero_pair_on_card_matches_cpu(cuda, depths, policy):
+    from repro_torch.core.types import KVCommConfig
+    session, batch = _hetero_setup(cuda)
+    cpu, card = session(*depths, "cpu"), session(*depths, cuda)
+    kvcfg = KVCommConfig(ratio=0.5, alpha=0.7)
+    scores = cpu.calibrate_side("sender", batch["context"][:1],
+                                batch["query"][:1])
+    a, b = (s.run("hetero_kvcomm", batch, kvcfg=kvcfg, scores=scores,
+                  layer_map=policy) for s in (cpu, card))
+    np.testing.assert_array_equal(b.preds, a.preds)
+    assert (b.wire_bytes, b.flops) == (a.wire_bytes, a.flops)
+    for k in ("M", "src_layers", "dst_layers"):
+        assert b.extras[k] == a.extras[k]
+    shared, _ = card.share_mapped(batch["context"], kvcfg, policy=policy,
+                                  src_scores=scores)
+    want = cpu.generate(batch["query"], cpu.share_mapped(
+        batch["context"], kvcfg, policy=policy, src_scores=scores)[0],
+        max_new=4)
+    got = np.stack(list(card.stream(batch["query"], shared, max_new=4,
+                                    backend="kernel")), axis=1)
+    np.testing.assert_array_equal(got, want)

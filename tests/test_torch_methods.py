@@ -33,7 +33,7 @@ LOGIT_TOL = 1e-4
 PIECE_TOL = dict(atol=1e-5, rtol=1e-5)
 NLD_TOKENS = 4
 KW = dict(ratio=0.5, alpha=0.7)
-RUN_METHODS = sorted(m for m in JMETHODS if m != "hetero_kvcomm")
+RUN_METHODS = sorted(JMETHODS)
 
 
 @pytest.fixture(scope="module")
@@ -97,10 +97,38 @@ def test_register_and_get_method():
         register(CommMethod())
 
 
-def test_hetero_kvcomm_raises_until_ported(pair, batch, tok):
-    _, sess = _sessions(pair, tok)
-    with pytest.raises(NotImplementedError):
-        sess.run("hetero_kvcomm", batch, kvcfg=KVCommConfig(**KW))
+@pytest.mark.parametrize("policy", ["identity", "depth_proportional",
+                                    "score_greedy"])
+def test_hetero_kvcomm_matches_reference(pair, batch, tok, policy):
+    """hetero_kvcomm on a 4-layer sender and a 6-layer receiver (PRNGKey 2)
+    through both packages, on the reference's sender-side scores: bytes,
+    FLOPs, M and the layer maps identical, predictions under the margin
+    rule."""
+    import dataclasses
+    jcfg, js, _, cfg, s, _ = pair
+    jcfg6 = dataclasses.replace(jcfg, num_layers=6)
+    jr6 = jtfm.init_params(jcfg6, jax.random.PRNGKey(2))
+    jsess = JSession(JAgent("s", jcfg, js, tok), JAgent("r", jcfg6, jr6, tok))
+    sess = CommSession(Agent("s", cfg, s, tok),
+                       Agent("r", port_cfg(jcfg6), port_params(jr6), tok))
+    src_scores = np.array(jsess.calibrate_side(
+        "sender", batch["context"][:1], batch["query"][:1]))
+    logits = {}
+    _record_logits(jsess.receiver, logits, "ref")
+    _record_logits(sess.receiver, logits, "port")
+    want = jsess.run("hetero_kvcomm", batch, kvcfg=JKVCommConfig(**KW),
+                     scores=jnp.asarray(src_scores), layer_map=policy)
+    got = sess.run("hetero_kvcomm", batch, kvcfg=KVCommConfig(**KW),
+                   scores=torch.from_numpy(src_scores), layer_map=policy)
+    assert (got.wire_bytes, got.flops) == (want.wire_bytes, want.flops)
+    for k in ("M", "src_layers", "dst_layers"):
+        assert got.extras[k] == want.extras[k], k
+    top2 = np.sort(logits["ref"], axis=-1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] >= MARGIN
+    np.testing.assert_array_equal(got.preds[clear],
+                                  np.asarray(want.preds)[clear])
+    np.testing.assert_allclose(logits["port"][~clear], logits["ref"][~clear],
+                               atol=LOGIT_TOL, rtol=LOGIT_TOL)
 
 
 @pytest.mark.parametrize("method", RUN_METHODS)

@@ -78,6 +78,39 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
      serialize / channel / deserialize ms, median of 3), and frames from
      the card's tensors byte-identical to the CPU's at every tier.
      Phases 4e (the stream) and 4f are K1 paths too.
+  4g. resilient_serving — the 10 requests of phase 4 through a bf16
+     RemoteTransport over a FaultyChannel(LoopbackChannel()) under
+     RetryPolicy(max_attempts=3, seed=0), scripted from a clean run's
+     frame counts: rid 1 recovers on its second attempt, rid 4 exhausts
+     and lands on the serialized rung, rids 7 and 8 exhaust in a row and
+     open the breaker (threshold 2), rid 9 is quarantined. Under
+     default_resilience the events are those, and every row is
+     token-identical to this call's in-memory stream; under a text-only
+     ladder the degraded rows are text only, each within the bf16 rule
+     (5e-2 of the largest logit) of its serial text-only answer at every
+     step, and the rows beside them unchanged. The same script at float32
+     on tiny_cfg gives the CPU port's events, bytes and tokens. Per-request
+     bytes, the channel's bytes against the clean frames (retry overhead),
+     tokens/s and TTFT p50 beside the clean remote stream.
+  4h. fabric_serving — three KVServer replicas on 127.0.0.1 serving the
+     one receiver Agent, each with a PageStore(page_len=16), behind a
+     Router (bf16): the 12 requests of 4b answer as receiver.generate on
+     the same paged exchange in process; under affinity 1,848 pages cross
+     (each context's once) at a hit rate of exactly 0.75, round-robin's
+     beside it; ms per routed request and the probe round trip. Then
+     context 0's replica is killed after its second request (one hop, a
+     cold share to another replica, tokens unchanged), restarted, and all
+     three are partitioned (the local ladder answers as in memory). Then a
+     SchedulerPool over the retrieval and multihop keys (selections that
+     differ): tokens equal each key's own Scheduler.
+  4i. remote_serve_two_process — `python -m repro_torch.launch.remote_serve
+     server --config full --seed 0` in a second process (started before
+     4g, so it loads meanwhile; its probe logits equal this process's),
+     reached over TCP by a KVClient: a streamed bf16 share of the
+     2,049-position request, then generate; a paged share twice (the
+     second ships no page); answers equal to the in-process ones; the
+     server exits 0 on shutdown.
+     Phases 4g and the pool of 4h are K1 paths (28 launches per step).
   5. the kernel entry point — repro_torch.kernels.ops driven at full
      published widths with the K2/K3/K4 counters at 0 (llama3.2-3b-pair
      prefills with and without the Eq. (1) mass, a gemma3-4b local
@@ -92,8 +125,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
      sharded_decode timed beside the monolithic decode.
   7. the kernels line — one JSON object listing every kernel (K1-K4),
      with each one's device ms over SDPA's at its main case; K1's launches
-     by path (full-width, paged, wire tiers, remote serving, the hetero
-     stream).
+     by path (full-width, paged, wire tiers, remote serving, resilient
+     serving, the scheduler pool, the hetero stream).
 
 The second-to-last line is nvidia-smi's name and power limit; the last line
 is {"ok": true, "device": {...}}.
@@ -108,6 +141,9 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
+
+
+CHILDREN = []                             # processes this script started
 
 
 def check(cond, msg):
@@ -389,19 +425,19 @@ def full_width_pair(dev):
                 "retrieval", num_facts=6, seed=42)).batch(1)}
 
 
-def fw_session(fw, tr):
+def fw_session(fw, tr, resilience=None):
     """A session over transport ``tr``, calibrated on the one retrieval
     sample (ratio 0.5, alpha 0.7: 14 of 28 layers)."""
     from repro_torch.comm import Agent, CommSession
     s = CommSession(Agent("sender", fw["cfg"], fw["sender"], fw["tok"]),
                     Agent("receiver", fw["cfg"], fw["receiver"], fw["tok"]),
-                    tr)
+                    tr, resilience=resilience)
     s.calibrate(fw["calib"]["context"], fw["calib"]["query"],
                 key="retrieval")
     return s
 
 
-def serve_stream(fw, dev, tr, reqs, name):
+def serve_stream(fw, dev, tr, reqs, name, resilience=None):
     """One served stream at capacity 4 on K1; checks that every ragged step
     launched the kernel once per layer and every request completed.
     Returns (session, scheduler, completions, stats)."""
@@ -410,7 +446,7 @@ def serve_stream(fw, dev, tr, reqs, name):
     from repro_torch.kernels.ragged_decode import ragged_decode
     from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
     cfg = fw["cfg"]
-    sess = fw_session(fw, tr)
+    sess = fw_session(fw, tr, resilience)
     sched = Scheduler(sess, fw["kvcfg"], calib_key="retrieval",
                       config=SchedulerConfig(capacity=4,
                                              decode_backend="kernel"))
@@ -1354,6 +1390,638 @@ def phase_remote_serving(dev, smi, fw, plan):
 
 
 # ---------------------------------------------------------------------------
+# the resilience ladder, the serving fabric and the KV server in a second
+# process
+# ---------------------------------------------------------------------------
+# The fault script of resilient_serving, by request id (admission order):
+# rid 1 recovers on its second attempt (its first chunk truncated), rid 4
+# exhausts three attempts and lands on the serialized rung, rids 7 and 8
+# exhaust in a row and open the breaker (threshold 2), so rid 9 is
+# quarantined and goes straight down the ladder.
+RESILIENT_PLAN = {1: "recover", 4: "exhaust", 7: "exhaust", 8: "exhaust",
+                  9: "quarantine"}
+RESILIENT_EVENTS = [("serialized", 3, 4), ("serialized", 3, 7),
+                    ("serialized", 3, 8), ("serialized", 1, 9)]
+RETRY_ATTEMPTS = 3
+# an exhausted share's attempts: two that break the channel (the retry
+# resets it) and a last one that leaves it whole (a corrupt frame fails
+# its checksum), so the next request starts on a healthy channel
+EXHAUST_KINDS = ("disconnect", "drop", "corrupt")
+
+
+def stream_frames():
+    """A loopback that records whether each frame written is a stream's
+    begin frame: the frame counts of a clean run's shares, in order."""
+    from repro_torch.comm import LoopbackChannel
+
+    class Tape(LoopbackChannel):
+        def __init__(self):
+            super().__init__()
+            self.begins = []
+
+        def write(self, data):
+            self.begins.append(b'"kind": "kv_stream_begin"' in data[22:60])
+            super().write(data)
+
+        def counts(self):
+            idx = [i for i, b in enumerate(self.begins) if b]
+            return [b - a for a, b in zip(idx, idx[1:] + [len(self.begins)])]
+    return Tape()
+
+
+def fault_script(counts, plan):
+    """The faults that make ``plan`` happen to shares of ``counts`` frames
+    each: a retried attempt writes again from the stream's begin frame."""
+    from repro_torch.comm.resilience import Fault
+    faults, op = [], 0
+    for rid, n in enumerate(counts):
+        how = plan.get(rid)
+        if how == "recover":
+            faults.append(Fault(op + 1, "truncate", frac=0.5))
+            op += 2 + n
+        elif how == "exhaust":
+            for a in range(RETRY_ATTEMPTS):
+                faults.append(Fault(op, EXHAUST_KINDS[a], frac=0.5))
+                op += 1
+        elif how != "quarantine":
+            op += n
+    return faults
+
+
+def resilient_transport(wire, counts, chunk_bytes):
+    """A RemoteTransport over a FaultyChannel(LoopbackChannel()) that
+    fires the plan's faults, under RetryPolicy(3 attempts, seed 0)."""
+    from repro_torch.comm import (FaultSchedule, FaultyChannel,
+                                  LoopbackChannel, RemoteTransport,
+                                  RetryPolicy)
+    faulty = FaultyChannel(LoopbackChannel(), FaultSchedule(
+        fault_script(counts, RESILIENT_PLAN)))
+    return faulty, RemoteTransport(
+        wire, channel=faulty, chunk_bytes=chunk_bytes,
+        policy=RetryPolicy(max_attempts=RETRY_ATTEMPTS, seed=0))
+
+
+def ladders(wire):
+    """The two ladders of resilient_serving: remote -> serialized ->
+    text only, and text only alone; each breaker opens after two
+    consecutive failures and stays open for the run."""
+    from repro_torch.comm import (CircuitBreaker, Resilience,
+                                  default_resilience)
+    return {"default": default_resilience(wire, breaker=CircuitBreaker(
+                failure_threshold=2, reset_timeout_s=1e9)),
+            "baseline": Resilience(fallbacks=[("baseline", None)],
+                                   breaker=CircuitBreaker(
+                                       failure_threshold=2,
+                                       reset_timeout_s=1e9))}
+
+
+def degradation_rows(sess, comps):
+    events = [(e.stage, e.attempts, e.rid) for e in sess.degradations]
+    return events, {c.rid: c.degradation.stage for c in comps
+                    if c.degradation is not None}
+
+
+def teacher_forced(agent, query, tokens):
+    """The serial text-only path fed the scheduler row's tokens: at each
+    step, how far the row's token's logit falls below the largest (over
+    the largest |logit|), and whether it is the argmax (all argmax: the
+    row equals serve_serial's text-only answer)."""
+    import torch
+    out = agent.prefill(query[None], None, max_new=len(tokens))
+    logits, cache = out.logits[:, -1].float(), out.cache
+    worst, same = 0.0, True
+    for i, t in enumerate(tokens):
+        worst = max(worst, float((logits.max() - logits[0, t])
+                                 / logits.abs().max()))
+        same = same and int(logits.argmax()) == t
+        if i + 1 < len(tokens):
+            tok = torch.tensor([[t]], device=agent.device)
+            _, logits, cache = agent.decode_step(tok, cache, None)
+            logits = logits.float()
+    return worst, same
+
+
+def resilient_tiny(device, chunk_bytes=256):
+    """The script of resilient_serving at float32 on tiny_cfg (kernel
+    backend): events, per-request bytes and tokens of both ladders."""
+    import torch
+    from repro_torch.comm import (Agent, CommSession, FaultyChannel,
+                                  RemoteTransport)
+    from repro_torch.core.types import KVCommConfig
+    from repro_torch.launch.serve import build_requests
+    from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, tok, params = tiny_setup("cpu")
+    params = to_device(params, device)
+    reqs = build_requests(tok, "retrieval", 10, 4)
+    kvcfg = KVCommConfig(ratio=0.5, selector="prior_only")
+    sched_cfg = SchedulerConfig(capacity=3, prefix_bucket=8, query_bucket=4,
+                                decode_backend="kernel")
+
+    def session(tr, res=None):
+        return CommSession(Agent("s", cfg, params, tok),
+                           Agent("r", cfg, params, tok), tr, resilience=res)
+    tape = stream_frames()
+    Scheduler(session(RemoteTransport(
+        "float32", channel=FaultyChannel(tape), chunk_bytes=chunk_bytes)),
+        kvcfg, config=sched_cfg).run(reqs)
+    out = {}
+    for name, res in ladders("float32").items():
+        faulty, tr = resilient_transport("float32", tape.counts(),
+                                         chunk_bytes)
+        sess = session(tr, res)
+        comps, _ = Scheduler(sess, kvcfg, config=sched_cfg).run(reqs)
+        out[name] = {"tokens": [c.tokens.tolist() for c in comps],
+                     "events": degradation_rows(sess, comps)[0],
+                     "bytes": [r.n_bytes for r in tr.log],
+                     "writes": faulty.writes}
+    return out
+
+
+def phase_resilient_serving(dev, smi, fw):
+    """The 10 requests of full_width_serving through a bf16 RemoteTransport
+    over a FaultyChannel(LoopbackChannel()) under RetryPolicy(3 attempts,
+    seed 0), with the session's default ladder (remote -> serialized ->
+    text only) and then a text-only ladder, both under a breaker that
+    opens after two consecutive failures. The fault script comes from a
+    clean run's frame counts (RESILIENT_PLAN). Gates: the events (stage,
+    attempts, rid) as the plan implies; recovered and serialized rows
+    token-identical to this call's in-memory stream; text-only rows within
+    the bf16 rule of their serial text-only answer at every step (teacher
+    forced) and the rows beside them unchanged; the same script at
+    float32 on tiny_cfg gives the CPU port's events, bytes and tokens; K1
+    at 28 launches per step. Returns (K1 launches, steps)."""
+    import numpy as np
+    from repro_torch.comm import (FaultyChannel, InMemoryTransport,
+                                  RemoteTransport)
+    from repro_torch.comm.remote import DEFAULT_CHUNK_BYTES
+    from repro_torch.kernels.ragged_decode import ragged_decode
+    t_phase = time.perf_counter()
+    cfg = fw["cfg"]
+    reqs = serving_requests(fw["tok"])
+    ragged_decode.launches = 0                 # this path starts here
+    steps, runs = 0, {}
+    _, _, comps, stats = serve_stream(fw, dev, InMemoryTransport(), reqs,
+                                      "inmemory")
+    steps += stats["steps"]
+    runs["inmemory"] = {"tokens": [c.tokens.tolist() for c in comps],
+                        "stats": stats}
+    tape = stream_frames()
+    sess, _, comps, stats = serve_stream(
+        fw, dev, RemoteTransport("bfloat16", channel=FaultyChannel(tape)),
+        reqs, "remote_bf16_clean")
+    steps += stats["steps"]
+    counts = tape.counts()
+    check(len(counts) == len(reqs), f"resilient_serving: {len(counts)} "
+          f"streams for {len(reqs)} requests")
+    clean_bytes = sum(r.frame_bytes for r in sess.transport.log)
+    runs["remote_clean"] = {"tokens": [c.tokens.tolist() for c in comps],
+                            "stats": stats, "frame_bytes": clean_bytes,
+                            "bytes": [r.n_bytes for r in sess.transport.log]}
+    check(runs["remote_clean"]["tokens"] == runs["inmemory"]["tokens"],
+          "resilient_serving: the clean remote stream differs from "
+          "in-memory")
+    want = runs["inmemory"]["tokens"]
+    for name, res in ladders("bfloat16").items():
+        faulty, tr = resilient_transport("bfloat16", counts,
+                                         DEFAULT_CHUNK_BYTES)
+        sess, _, comps, stats = serve_stream(fw, dev, tr, reqs,
+                                             f"resilient_{name}", res)
+        steps += stats["steps"]
+        events, degraded = degradation_rows(sess, comps)
+        expect = [(name if name == "baseline" else stage, a, r)
+                  for stage, a, r in RESILIENT_EVENTS]
+        check(events == expect,
+              f"resilient_serving[{name}]: events {events}")
+        check(sess.degradations[-1].reason.startswith("CircuitOpenError"),
+              f"resilient_serving[{name}]: rid 9 was not quarantined")
+        attempts = [r.attempts for r in tr.log]
+        check(attempts[1] == 2 and tr.log[1].degradation is None,
+              f"resilient_serving[{name}]: rid 1 took {attempts[1]} "
+              "attempts")
+        tokens = [c.tokens.tolist() for c in comps]
+        # the frames of the attempts that landed, and those of the ones
+        # that failed (everything else the channel took)
+        landed = sum(r.frame_bytes for r in tr.log if r.degradation is None)
+        run = {"tokens": tokens, "stats": stats, "events": events,
+               "attempts": attempts, "bytes": [r.n_bytes for r in tr.log],
+               "writes": faulty.writes,
+               "bytes_written": faulty.bytes_written,
+               "landed_frame_bytes": landed,
+               "retry_overhead": faulty.bytes_written / landed - 1,
+               "resets": faulty.resets}
+        if name == "default":
+            check(tokens == want, "resilient_serving: recovered or "
+                  "serialized rows differ from the in-memory stream")
+        else:
+            for rid, row in enumerate(tokens):
+                if rid not in degraded:
+                    check(row == want[rid], f"resilient_serving: row {rid} "
+                          "beside a text-only row changed")
+            text_only = {}
+            for rid in sorted(degraded):
+                worst, same = teacher_forced(sess.receiver,
+                                             reqs[rid].query, tokens[rid])
+                check(worst <= 5e-2, f"resilient_serving: text-only row "
+                      f"{rid} is {worst} below the serial argmax")
+                text_only[rid] = {"worst_rel_shortfall": worst,
+                                  "token_identical_to_serial": same}
+            run["text_only"] = text_only
+        runs[name] = run
+    launches = ragged_decode.launches
+    check(launches == cfg.num_layers * steps,
+          f"resilient_serving: {launches} K1 launches for {steps} steps")
+
+    # the same script at float32 on tiny_cfg: the card against the CPU
+    t0 = time.perf_counter()
+    tiny = {d: resilient_tiny(d) for d in ("cpu", dev)}
+    check(tiny["cpu"] == tiny[dev], "resilient_serving: tiny fp32 card run "
+          "differs from the CPU port's")
+    check(tiny["cpu"]["default"]["events"] == RESILIENT_EVENTS,
+          f"resilient_serving: tiny events {tiny['cpu']['default']}")
+    tiny_s = time.perf_counter() - t0
+    ragged_decode.launches = launches
+
+    for name in ("inmemory", "remote_clean", "default", "baseline"):
+        st = runs[name]["stats"]
+        row = {"phase": "resilient_serving", "run": name,
+               "tokens_per_s": st["tokens_per_s"],
+               "ttft_p50_ms": st["ttft_p50_ms"], "steps": st["steps"],
+               "kernel_launches": st["kernel_launches"],
+               "bytes_moved": st["bytes_moved"], "card": smi}
+        if name in ("default", "baseline"):
+            r = runs[name]
+            row.update(events=r["events"], attempts=r["attempts"],
+                       per_request_bytes=r["bytes"],
+                       clean_per_request_bytes=runs["remote_clean"]["bytes"],
+                       channel_writes=r["writes"],
+                       channel_bytes_written=r["bytes_written"],
+                       landed_frame_bytes=r["landed_frame_bytes"],
+                       clean_frame_bytes=runs["remote_clean"]["frame_bytes"],
+                       retry_overhead=r["retry_overhead"],
+                       resets=r["resets"], text_only=r.get("text_only"))
+        emit(row)
+    emit({"phase": "resilient_serving_checks",
+          "frames_per_share": counts, "plan": RESILIENT_PLAN,
+          "tiny_fp32_card_equals_cpu": True,
+          "tiny_events": tiny["cpu"]["default"]["events"],
+          "tiny_s": tiny_s, "k1_launches": launches, "steps": steps,
+          "phase_wall_s": time.perf_counter() - t_phase, "card": smi})
+    return launches, steps
+
+
+def build_fleet(agent, n=3):
+    """n KVServer replicas of ``agent`` on 127.0.0.1, each with its own
+    PageStore(page_len=16), started, behind a ReplicaSet and a harness
+    whose restarts bring a replica back cold."""
+    from repro_torch.launch.remote_serve import KVServer
+    from repro_torch.serving.fabric import FleetHarness, Replica, ReplicaSet
+    from repro_torch.store import PageStore
+
+    def make(rid, port=0):
+        return KVServer(agent, port=port, store=PageStore(page_len=16))
+    servers = {f"r{i}": make(f"r{i}") for i in range(n)}
+    replicas = ReplicaSet([Replica(rid, s.host, s.port, connect_timeout_s=0.25,
+                                   io_timeout_s=300.0)
+                           for rid, s in servers.items()])
+    harness = FleetHarness(replicas, servers, make)
+    harness.start()
+    return replicas, harness
+
+
+def phase_fabric_serving(dev, smi, fw):
+    """Three KVServer replicas in this process (one receiver Agent on the
+    card), a Router (bf16 wire, page_len 16) over the 12 paged_serving
+    requests: tokens equal to receiver.generate on the same paged exchange
+    in process; under affinity each context's pages cross once (1,848)
+    and the hit rate is exactly 0.75; round-robin's beside it. Then a
+    FleetSchedule on context 0: its holder killed after its second
+    request (one hop, a cold share to the next replica, tokens unchanged),
+    restarted, and all three partitioned (the local ladder answers as the
+    in-memory stream). Then a SchedulerPool over the retrieval and
+    multihop keys against each key's own Scheduler, K1 at 28 per step.
+    Returns (K1 launches of the pool, its steps)."""
+    import numpy as np
+    import torch
+    from repro_torch.comm import Agent, InMemoryTransport, RemoteTransport
+    from repro_torch.data.synthetic import SyntheticTask, TaskConfig
+    from repro_torch.kernels.ragged_decode import ragged_decode
+    from repro_torch.launch.serve import build_requests
+    from repro_torch.serving.fabric import (FleetEvent, FleetSchedule,
+                                            Router, RouterConfig,
+                                            SchedulerPool)
+    from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
+    from repro_torch.store import PageStore
+    t_phase = time.perf_counter()
+    cfg, tok, kvcfg = fw["cfg"], fw["tok"], fw["kvcfg"]
+    reqs = paged_requests(tok)
+    receiver = Agent("receiver", cfg, fw["receiver"], tok)
+    sender = Agent("sender", cfg, fw["sender"], tok)
+
+    # the in-process answers: the same paged exchange, then generate
+    ref = fw_session(fw, RemoteTransport("bfloat16",
+                                         store=PageStore(page_len=16)))
+    mem = fw_session(fw, InMemoryTransport())
+    want, want_mem = {}, {}
+    for r in reqs:
+        shared, _ = ref.share(r.context[None], kvcfg, key="retrieval")
+        want[r.rid] = receiver.generate(r.query[None], shared,
+                                        max_new=r.max_new)[0][0].tolist()
+        if r.rid in (0, 9):
+            shared, _ = mem.share(r.context[None], kvcfg, key="retrieval")
+            want_mem[r.rid] = receiver.generate(
+                r.query[None], shared, max_new=r.max_new)[0][0].tolist()
+    ref.transport.release_table()
+    out = {}
+    for policy in ("affinity", "round_robin"):
+        replicas, harness = build_fleet(receiver)
+        router = Router(sender, kvcfg, replicas, config=RouterConfig(
+            wire_dtype="bfloat16", page_len=16, policy=policy),
+            fallback=mem)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            comps, metrics = router.run(reqs, calib_key="retrieval")
+            wall = time.perf_counter() - t0
+            probe_ms = []
+            for _ in range(5):
+                t1 = time.perf_counter()
+                replicas["r0"].probe()
+                probe_ms.append((time.perf_counter() - t1) * 1e3)
+        finally:
+            router.close()
+            harness.stop()
+        for srv in harness.servers.values():
+            check(srv.store.stats().pinned_bytes == 0,
+                  "fabric_serving: a pin outlived its connection")
+        check([c.tokens.tolist() for c in comps] ==
+              [want[r.rid] for r in reqs],
+              f"fabric_serving[{policy}]: tokens differ from in-process")
+        check(metrics["failovers"] == 0 and metrics["local"] == 0,
+              f"fabric_serving[{policy}]: {metrics}")
+        out[policy] = {"metrics": metrics, "wall_s": wall,
+                       "ms_per_request": wall / len(reqs) * 1e3,
+                       "probe_rtt_ms": float(np.median(probe_ms)),
+                       "routes": [(r.rid, r.replica_id, r.pages_sent)
+                                  for r in router.routes]}
+    aff = out["affinity"]["metrics"]
+    M = int(mem.selection(kvcfg, key="retrieval").sum())
+    distinct = M * sum(-(-(len(c) + 1) // 16) for c in
+                       {r.context.tobytes(): r.context for r in reqs}.values())
+    check(aff["pages_sent"] == distinct and aff["page_hit_rate"] == 0.75,
+          f"fabric_serving[affinity]: {aff['pages_sent']} pages sent, hit "
+          f"rate {aff['page_hit_rate']} (want {distinct} and 0.75)")
+
+    # the fleet schedule on context 0 (rids 0, 3, 6, 9), after one
+    # request of context 1 (rid 1) has made the fleet's first exchange, so
+    # context 0's first cold share is timed like the failover's
+    c0 = [r for r in reqs if r.rid % 3 == 0]
+    replicas, harness = build_fleet(receiver)
+    router = Router(sender, kvcfg, replicas, config=RouterConfig(
+        wire_dtype="bfloat16", page_len=16), fallback=mem)
+    times = []
+    try:
+        first = router.submit(reqs[1], calib_key="retrieval")
+        check(first.tokens.tolist() == want[1],
+              "fabric_serving[failover]: the first request's tokens")
+        t0 = time.perf_counter()
+        comps = [router.submit(c0[0], calib_key="retrieval")]
+        times.append(time.perf_counter() - t0)
+        holder = router.routes[1].replica_id
+        others = [rid for rid in replicas.ids() if rid != holder]
+        harness.schedule = FleetSchedule(
+            [FleetEvent(1, "kill", holder), FleetEvent(2, "restart", holder)]
+            + [FleetEvent(2, "partition", rid) for rid in replicas.ids()])
+        for i, r in enumerate(c0[1:]):
+            harness.before(i)
+            t0 = time.perf_counter()
+            comps.append(router.submit(r, calib_key="retrieval"))
+            times.append(time.perf_counter() - t0)
+        fleet_metrics = router.metrics()
+    finally:
+        router.close()
+        harness.stop()
+    routes = router.routes[1:]
+    # what one dial of a dead port costs at the replicas' 0.25 s deadline
+    import socket
+    from repro_torch.comm.remote import RemoteProtocolError, SocketChannel
+    probe = socket.socket()
+    probe.bind(("127.0.0.1", 0))
+    dead_port = probe.getsockname()[1]
+    probe.close()
+    t0 = time.perf_counter()
+    try:
+        SocketChannel.connect("127.0.0.1", dead_port, timeout_s=0.25)
+        check(False, "fabric_serving: a dead port accepted a dial")
+    except RemoteProtocolError:
+        dead_dial_ms = (time.perf_counter() - t0) * 1e3
+    check([c.tokens.tolist() for c in comps[:3]] == [want[r.rid]
+                                                     for r in c0[:3]],
+          "fabric_serving[failover]: tokens changed")
+    check(routes[2].hops == 1 and routes[2].replica_id in others
+          and routes[2].pages_sent == routes[2].pages_total > 0
+          and routes[1].pages_sent == 0,
+          f"fabric_serving[failover]: routes {routes}")
+    check(comps[2].degradation is not None
+          and comps[2].degradation.from_stage == f"replica:{holder}",
+          "fabric_serving[failover]: the hop left no event")
+    check(routes[3].replica_id is None
+          and comps[3].degradation.stage == "local"
+          and comps[3].tokens.tolist() == want_mem[9],
+          "fabric_serving[partition]: the local ladder did not answer as "
+          "the in-memory stream")
+    check(len(harness.schedule.fired) == 5, "fabric_serving: events fired")
+
+    # the SchedulerPool: one slot table per calibration key
+    sess = fw_session(fw, InMemoryTransport())
+    for seed in range(42, 47):
+        mh = SyntheticTask(tok, TaskConfig("multihop", num_facts=6,
+                                           seed=seed)).batch(1)
+        sess.calibrate(mh["context"], mh["query"], key=f"multihop{seed}")
+        if not torch.equal(sess.selection(kvcfg, key="retrieval"),
+                           sess.selection(kvcfg, key=f"multihop{seed}")):
+            break
+    mkey = f"multihop{seed}"
+    check(not torch.equal(sess.selection(kvcfg, key="retrieval"),
+                          sess.selection(kvcfg, key=mkey)),
+          "fabric_serving: the two keys select the same layers")
+    by_key = {"retrieval": build_requests(tok, "retrieval", 6, 8),
+              mkey: build_requests(tok, "multihop", 6, 8)}
+    for i, r in enumerate(by_key[mkey]):
+        r.rid = 100 + i
+    sc = SchedulerConfig(capacity=4, decode_backend="kernel")
+    pool = SchedulerPool(sess, kvcfg, config=sc)
+    for key, rs in by_key.items():
+        for r in rs:
+            pool.submit(r, calib_key=key)
+    torch.cuda.synchronize()
+    ragged_decode.launches = 0                 # this path starts here
+    t0 = time.perf_counter()
+    pcomps, pmetrics = pool.run()
+    torch.cuda.synchronize()
+    pool_wall = time.perf_counter() - t0
+    launches = ragged_decode.launches
+    pool_steps = sum(m["steps"] for m in pmetrics["per_key"].values())
+    check(launches == cfg.num_layers * pool_steps > 0,
+          f"fabric_serving[pool]: {launches} K1 launches for {pool_steps} "
+          "steps")
+    got = {c.rid: c.tokens.tolist() for c in pcomps}
+    for key, rs in by_key.items():
+        own, _ = Scheduler(sess, kvcfg, calib_key=key, config=sc).run(rs)
+        check(all(got[c.rid] == c.tokens.tolist() for c in own),
+              f"fabric_serving[pool]: key {key} differs from its own "
+              "Scheduler")
+    ragged_decode.launches = launches
+    for policy, o in out.items():
+        emit({"phase": "fabric_serving", "policy": policy,
+              "requests": len(reqs), **o["metrics"],
+              "ms_per_routed_request": o["ms_per_request"],
+              "probe_rtt_ms": o["probe_rtt_ms"], "routes": o["routes"],
+              "card": smi})
+    emit({"phase": "fabric_failover", "holder": holder,
+          "paged_answers_equal_in_memory": all(
+              want_mem[r] == want[r] for r in want_mem),
+          "routes": [(r.rid, r.replica_id, r.hops, r.pages_sent,
+                      r.pages_total) for r in routes],
+          "events": [(c.degradation.from_stage, c.degradation.stage)
+                     for c in comps if c.degradation is not None],
+          "ms": [t * 1e3 for t in times],
+          "failover_extra_ms": (times[2] - times[0]) * 1e3,
+          "dead_dial_ms": dead_dial_ms,
+          "metrics": fleet_metrics, "card": smi})
+    emit({"phase": "scheduler_pool", "keys": list(by_key),
+          "selected": {k: [int(i) for i in torch.nonzero(
+              sess.selection(kvcfg, key=k)).flatten()] for k in by_key},
+          "requests": len(pcomps), "tokens": pmetrics["tokens"],
+          "steps": pool_steps, "kernel_launches": launches,
+          "tokens_per_s": pmetrics["tokens"] / pool_wall,
+          "phase_wall_s": time.perf_counter() - t_phase, "card": smi})
+    return launches, pool_steps
+
+
+def start_remote_server(pool_mb=1024):
+    """``python -m repro_torch.launch.remote_serve server`` at full width on
+    the card (seed 0) in a second process. Returns the process; its
+    stdout's first lines are PROBE and PORT."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.remote_serve", "server",
+         "--port", "0", "--device", "cuda", "--config", "full", "--seed",
+         "0", "--pool-mb", str(pool_mb), "--timeout", "600"],
+        cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    CHILDREN.append(proc)
+    return proc
+
+
+def read_line(proc, prefix, timeout_s=300.0):
+    """The rest of the server's next output line that starts with
+    ``prefix``, other lines skipped (read with a deadline: a thread does
+    the blocking reads)."""
+    import threading
+    box, seen = [], []
+
+    def reader():
+        for line in proc.stdout:
+            if line.startswith(prefix):
+                box.append(line)
+                return
+            seen.append(line)
+    th = threading.Thread(target=reader, daemon=True)
+    th.start()
+    th.join(timeout_s)
+    check(bool(box), f"remote_serve server: no {prefix!r} line within "
+          f"{timeout_s}s (exit {proc.poll()}): {''.join(seen)[-2000:]}")
+    return box[0][len(prefix):].strip()
+
+
+def phase_remote_serve_two_process(dev, smi, fw, proc):
+    """The KV server in a second process at full width (same seed, same
+    card: its probe logits equal this process's), reached over TCP by a
+    KVClient here: a streamed bf16 share of the 2,049-position request
+    then generate, and a paged share twice (the second ships no page),
+    each answered as receiver.generate answers in process; the server
+    exits 0 on shutdown."""
+    import numpy as np
+    import torch
+    from repro_torch.comm import Agent, InMemoryTransport, RemoteTransport
+    from repro_torch.comm.remote import DEFAULT_CHUNK_BYTES
+    from repro_torch.launch.remote_serve import KVClient, probe_logits
+    from repro_torch.store import PageStore
+    t_phase = time.perf_counter()
+    cfg, tok, kvcfg = fw["cfg"], fw["tok"], fw["kvcfg"]
+    receiver = Agent("receiver", cfg, fw["receiver"], tok)
+    sender = Agent("sender", cfg, fw["sender"], tok)
+    theirs = json.loads(read_line(proc, "PROBE "))
+    port = int(read_line(proc, "PORT "))
+    mine = probe_logits(receiver)
+    diff = max(abs(a - b) for a, b in zip(mine, theirs))
+    check(diff <= 1e-2 * max(abs(x) for x in mine[:-1]),
+          f"remote_serve: the server's probe logits differ by {diff}")
+    req = serving_requests(tok)[-1]
+    want = {}
+    for name, tr in (("inmemory", InMemoryTransport()),
+                     ("streamed", RemoteTransport("bfloat16")),
+                     ("paged", RemoteTransport(
+                         "bfloat16", store=PageStore(page_len=16)))):
+        sess = fw_session(fw, tr)
+        shared, select = sess.share(req.context[None], kvcfg,
+                                    key="retrieval")
+        want[name] = receiver.generate(req.query[None], shared,
+                                       max_new=req.max_new)[0].cpu().numpy()
+    client = KVClient.connect("127.0.0.1", port, timeout_s=120.0,
+                              io_timeout_s=300.0)
+    ms = {}
+    try:
+        t0 = time.perf_counter()
+        n_streamed = client.share(sender, req.context[None], kvcfg, select,
+                                  wire_dtype="bfloat16",
+                                  chunk_bytes=DEFAULT_CHUNK_BYTES)
+        ms["share_streamed"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        got = [client.generate(req.query[None], max_new=req.max_new)]
+        ms["generate"] = (time.perf_counter() - t0) * 1e3
+        paged = []
+        for i in range(2):
+            t0 = time.perf_counter()
+            paged.append(client.share_paged(
+                sender, req.context[None], kvcfg, select, page_len=16,
+                wire_dtype="bfloat16"))
+            ms[f"share_paged_{i}"] = (time.perf_counter() - t0) * 1e3
+            got.append(client.generate(req.query[None],
+                                       max_new=req.max_new))
+        health = client.probe()
+    finally:
+        client.close()
+    try:
+        out, _ = proc.communicate(timeout=120)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+    check(proc.returncode == 0, f"remote_serve server exited "
+          f"{proc.returncode}: {out[-2000:]}")
+    for g, name in zip(got, ("streamed", "paged", "paged")):
+        check(np.array_equal(g, want[name]), f"remote_serve: the {name} "
+              "remote answer differs from the in-process one")
+    check(paged[0][2] == paged[0][1] > 0 and paged[1][2] == 0,
+          f"remote_serve: paged shares shipped {paged}")
+    emit({"phase": "remote_serve_two_process", "context_len":
+          int(req.context.shape[0]) + 1, "probe_max_abs_diff": diff,
+          "probe_identical": mine == theirs,
+          "streamed_payload_bytes": n_streamed,
+          "paged": [{"payload_bytes": n, "pages_total": t, "pages_sent": s}
+                    for n, t, s in paged], **{f"{k}_ms": v
+                                              for k, v in ms.items()},
+          "server_answered": health["answered"],
+          "in_process_exchanges_equal_in_memory": all(
+              np.array_equal(w, want["inmemory"]) for w in want.values()),
+          "server_stdout_tail": out.strip().splitlines()[-2:],
+          "phase_wall_s": time.perf_counter() - t_phase, "card": smi})
+
+
+# ---------------------------------------------------------------------------
 # the kernel entry point (repro_torch.kernels.ops: K2, K3, K4) and the
 # sequence-sharded decode
 # ---------------------------------------------------------------------------
@@ -1722,13 +2390,21 @@ def main() -> int:
     phase_comm_methods(dev, smi, fw)
     hetero_launches = phase_hetero_pair(dev, smi, fw)
     remote_launches, remote_steps = phase_remote_serving(dev, smi, fw, plan)
+    # the second process starts now and loads while the next phases run
+    server = start_remote_server()
+    res_launches, res_steps = phase_resilient_serving(dev, smi, fw)
+    pool_launches, pool_steps = phase_fabric_serving(dev, smi, fw)
+    phase_remote_serve_two_process(dev, smi, fw, server)
     k1_paths = {"full_width_serving": launches,
                 "paged_serving": paged_launches,
                 "wire_tiers": tier_launches,
                 "remote_serving": remote_launches,
+                "resilient_serving": res_launches,
+                "scheduler_pool": pool_launches,
                 "hetero_stream": hetero_launches}
     launches = sum(k1_paths.values())
-    steps += paged_steps + tier_steps + remote_steps
+    steps += (paged_steps + tier_steps + remote_steps + res_steps
+              + pool_steps)
     del fw
     torch.cuda.empty_cache()
     ep_launches, ep_results = phase_entry_point(dev, flush, smi)
@@ -1765,5 +2441,16 @@ def main() -> int:
     return 0
 
 
+def run() -> int:
+    """``main``, then stop every process it started, however it ended."""
+    try:
+        return main()
+    finally:
+        for proc in CHILDREN:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(run())

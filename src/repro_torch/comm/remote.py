@@ -34,10 +34,10 @@ subclass for every malformed input, never a partial result.
 
 The receiver-side view is the packed receiver-keyed ``SharedKV`` (with a
 ``LayerAssignment``'s slots and ``src_layers``), decoded onto the
-receiver's device. Not ported yet: SSM state leaves on the wire (ROADMAP
-queue 1, item 4), and the retry policy and circuit breaker of the
-resilience layer (ROADMAP queue 1, item 2): ``RemoteTransport`` refuses a
-``policy`` or a ``breaker``.
+receiver's device. ``RemoteTransport`` retries a failed exchange under a
+``RetryPolicy`` and short-circuits under a ``CircuitBreaker``
+(``repro_torch.comm.resilience``). Not ported yet: SSM state leaves on the
+wire (ROADMAP queue 1, item 4).
 """
 from __future__ import annotations
 
@@ -1126,10 +1126,17 @@ class RemoteTransport(Transport):
     The record carries ``serialize_s`` (gather, encode, framing),
     ``channel_s`` (write and read back), ``deserialize_s`` (parse and
     rebuild), ``frame_bytes`` (whole frames) beside the payload-only
-    ``n_bytes``, and ``attempts`` (1: nothing retries yet).
+    ``n_bytes``, and ``attempts``.
 
-    ``policy`` and ``breaker`` belong to the resilience layer, which is not
-    ported yet (ROADMAP queue 1, item 2): passing one raises."""
+    Fault tolerance (``repro_torch.comm.resilience``): a ``policy``
+    (``RetryPolicy``) re-runs a failed exchange over a healed channel:
+    ``channel_factory`` reconnects, a channel with ``reset()``
+    (``FaultyChannel``) is reset in place. A retried stream starts under a
+    fresh sid into a fresh assembler, and a retried paged exchange re-asks
+    ``page_query`` under a fresh xid, so it ships only the pages the pool
+    never got. A ``breaker`` (``CircuitBreaker``) raises
+    ``CircuitOpenError`` without writing a frame while its peer is
+    quarantined."""
 
     def __init__(self, wire_dtype="float16",
                  channel: Optional[RemoteChannel] = None,
@@ -1137,25 +1144,73 @@ class RemoteTransport(Transport):
                  store=None, policy=None, channel_factory=None,
                  breaker=None,
                  chunk_bytes: Optional[int] = DEFAULT_CHUNK_BYTES) -> None:
-        for name, arg in (("policy", policy), ("breaker", breaker)):
-            if arg is not None:
-                raise NotImplementedError(
-                    f"RemoteTransport({name}=...) needs the resilience "
-                    "layer (retry policies, circuit breaker), which is not "
-                    "ported yet (ROADMAP queue 1, item 2)")
         super().__init__(packed=packed, sync=sync, store=store)
         self.wire_dtype = resolve_wire_dtype(wire_dtype)
         self.chunk_bytes = chunk_bytes
+        self.policy = policy                    # resilience.RetryPolicy
+        self.channel_factory = channel_factory  # () -> RemoteChannel
+        self.breaker = breaker                  # resilience.CircuitBreaker
         if channel is None:
             channel = (channel_factory() if channel_factory is not None
                        else LoopbackChannel())
         self.channel = channel
         self._paged_rx = None          # PagedReceiver over self.store
         self._xid = 0                  # paged exchange counter
-        self._sid = 0                  # stream id counter
+        self._sid = 0                  # stream id counter (fresh per try)
+
+    # -- retry plumbing ----------------------------------------------------
+    def _reset_channel(self) -> None:
+        """Heal the channel between attempts: forget the paged receiver's
+        pending exchange, then reconnect through the factory or reset the
+        channel in place."""
+        if self._paged_rx is not None:
+            self._paged_rx.abort()
+        if self.channel_factory is not None:
+            try:
+                self.channel.close()
+            except (RemoteProtocolError, OSError):
+                pass
+            self.channel = self.channel_factory()
+        elif hasattr(self.channel, "reset"):
+            self.channel.reset()
+
+    def _attempt(self, fn, describe: str):
+        """Run one exchange under the breaker and the retry policy; ``fn``
+        appends its own record on success, whose ``attempts`` is stamped
+        here."""
+        from repro_torch.comm.resilience import CircuitOpenError
+        if self.breaker is not None and not self.breaker.allow():
+            raise CircuitOpenError(
+                f"{describe}: peer circuit is open (quarantined after "
+                f"{self.breaker.failures} consecutive failures)")
+        used = [1]
+
+        def wrapped(attempt: int):
+            used[0] = attempt + 1
+            if attempt:
+                self._reset_channel()
+            return fn()
+
+        try:
+            out = wrapped(0) if self.policy is None \
+                else self.policy.run(wrapped, describe=describe)
+        except (RemoteProtocolError, OSError):
+            if self.breaker is not None:
+                self.breaker.record_failure()
+            raise
+        if self.breaker is not None:
+            self.breaker.record_success()
+        self.log[-1].attempts = used[0]
+        return out
 
     def _ship(self, kvcfg: KVCommConfig, kv, select,
               assignment: Optional[LayerAssignment]) -> SharedKV:
+        return self._attempt(
+            lambda: self._ship_once(kvcfg, kv, select, assignment),
+            describe="remote shared_kv exchange")
+
+    def _ship_once(self, kvcfg: KVCommConfig, kv, select,
+                   assignment: Optional[LayerAssignment]) -> SharedKV:
         if self.chunk_bytes is not None:
             return self._ship_streamed(kvcfg, kv, select, assignment)
         dev = kv["k"].device
@@ -1176,7 +1231,7 @@ class RemoteTransport(Transport):
             kind="kv", n_bytes=n_decoded, layers=layer_count,
             context_len=prefix_len, wire_dtype=wire_spec(self.wire_dtype),
             serialize_s=t1 - t0, channel_s=t2 - t1, deserialize_s=t3 - t2,
-            frame_bytes=len(frame), attempts=1))
+            frame_bytes=len(frame)))
         return shared
 
     def _ship_streamed(self, kvcfg: KVCommConfig, kv, select,
@@ -1218,7 +1273,7 @@ class RemoteTransport(Transport):
             context_len=sender.prefix_len,
             wire_dtype=wire_spec(self.wire_dtype),
             serialize_s=ser_s, channel_s=chan_s, deserialize_s=deser_s,
-            frame_bytes=frame_bytes, attempts=1))
+            frame_bytes=frame_bytes))
         return shared
 
     def _send(self, cfg, kvcfg, kv, select) -> SharedKV:
@@ -1234,7 +1289,16 @@ class RemoteTransport(Transport):
         """The dedup-aware three-frame exchange: ``page_query`` carries the
         block table (and the scales), ``page_need`` answers with the pool's
         missing IDs, ``page_data`` ships only those pages. The ingest is
-        eager: the exchange reads the pages' host bytes."""
+        eager: the exchange reads the pages' host bytes. A retry re-asks
+        ``page_query`` under a fresh xid: pages pooled before the failure
+        answer as hits."""
+        return self._attempt(
+            lambda: self._send_paged_once(kvcfg, kv, select, assignment),
+            describe="paged page_query/need/data exchange")
+
+    def _send_paged_once(self, kvcfg: KVCommConfig, kv, select,
+                         assignment: Optional[LayerAssignment] = None
+                         ) -> SharedKV:
         # deferred: the store package imports this module's codec
         from repro_torch.store.paging import split_payload
         from repro_torch.store.wire import (PagedReceiver, decode_page_need,
@@ -1299,5 +1363,5 @@ class RemoteTransport(Transport):
             deserialize_s=(t3 - t2) + (t6 - t5),
             frame_bytes=len(qframe) + len(need_frame) + len(dframe),
             pages_total=table.num_pages, pages_sent=len(need),
-            pages_hit=table.num_pages - len(need), attempts=1))
+            pages_hit=table.num_pages - len(need)))
         return shared

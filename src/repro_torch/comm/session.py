@@ -12,7 +12,13 @@ Heterogeneous pairs: sender and receiver may differ in depth (not in KV
 geometry). ``calibrate_side`` / ``side_selection`` score and select each
 model over its own layers, and ``share_mapped`` aligns them with a
 ``LayerMap`` policy; the same-index ``calibrate`` and ``share`` refuse such
-a pair. The resilience ladder is not ported yet.
+a pair.
+
+Graceful degradation: with a ``Resilience`` (``repro_torch.comm.
+resilience``) a share whose transport exhausts its retries, or whose peer's
+breaker is open, walks the fallback ladder (serialized in process, then
+text only) instead of raising; every downgrade is a ``DegradationEvent`` in
+``degradations``.
 """
 from __future__ import annotations
 
@@ -25,13 +31,21 @@ import torch
 
 from repro_torch.comm.agent import Agent
 from repro_torch.comm.methods import CommRequest, MethodResult, get_method
+from repro_torch.comm.remote import RemoteProtocolError
+from repro_torch.comm.resilience import (CircuitOpenError, DegradationEvent,
+                                         Resilience)
 from repro_torch.comm.transport import (InMemoryTransport, Transport,
                                         WirePlan)
 from repro_torch.core import protocol
-from repro_torch.core.channel import combine_senders
+from repro_torch.core.channel import TransferRecord, combine_senders
 from repro_torch.core.layermap import LayerAssignment, get_layer_map
 from repro_torch.core.selection import gaussian_prior, selection_scores
 from repro_torch.core.types import KVCommConfig, SharedKV
+
+# what the degradation ladder catches: transport and protocol failures
+# (RetriesExhaustedError and CircuitOpenError included) and socket errors;
+# programming errors propagate
+_LADDER_ERRORS = (RemoteProtocolError, OSError)
 
 
 @dataclass
@@ -61,7 +75,8 @@ class SenderHandle:
 
 class CommSession:
     def __init__(self, sender: Agent, receiver: Agent,
-                 transport: Optional[Transport] = None):
+                 transport: Optional[Transport] = None,
+                 resilience: Optional[Resilience] = None):
         scfg, rcfg = sender.cfg, receiver.cfg
         # depths may differ (a LayerMap aligns them); the per-layer KV
         # geometry must match for the receiver to read the sender's KV
@@ -88,6 +103,9 @@ class CommSession:
                              torch.Tensor] = {}
         self.mailbox: List[Tuple[str, SharedKV]] = []
         self._n_handles = 0
+        self.resilience = resilience
+        self.degradations: List[DegradationEvent] = []
+        self.last_degradation: Optional[DegradationEvent] = None
 
     @property
     def is_hetero(self) -> bool:
@@ -191,21 +209,88 @@ class CommSession:
                                     top_frac=top_frac, low_frac=low_frac)
 
     # ---- one communication round -----------------------------------------
+    def _resilient_send(self, kvcfg: KVCommConfig, kv, select, *,
+                        assignment: Optional[LayerAssignment] = None,
+                        sync: Optional[bool] = None,
+                        rid: Optional[int] = None) -> Optional[SharedKV]:
+        """One transfer through the primary transport, walking the
+        ``Resilience`` ladder when it fails (or its breaker is open). A
+        rung with a transport serves the same payload in process; the
+        terminal ``("baseline", None)`` rung returns None (text only, a
+        zero-byte record). Each downgrade's ``DegradationEvent`` lands in
+        ``degradations`` and on the record appended to the primary
+        transport's log (a fallback rung's record is moved there)."""
+        self.last_degradation = None
+        res = self.resilience
+        if res is None:
+            return self.transport.send(self.cfg, kvcfg, kv, select,
+                                       assignment=assignment, sync=sync)
+        failure: Optional[BaseException] = None
+        if res.breaker is None or res.breaker.allow():
+            try:
+                shared = self.transport.send(self.cfg, kvcfg, kv, select,
+                                             assignment=assignment,
+                                             sync=sync)
+                if res.breaker is not None:
+                    res.breaker.record_success()
+                return shared
+            except _LADDER_ERRORS as e:
+                failure = e
+                if res.breaker is not None:
+                    res.breaker.record_failure()
+        else:
+            failure = CircuitOpenError(
+                "sender quarantined: circuit open after "
+                f"{res.breaker.failures} consecutive failures")
+        attempts = getattr(failure, "attempts", 1)
+        reason = f"{type(failure).__name__}: {failure}"
+        for stage, tr in res.fallbacks:
+            if tr is None:
+                ev = DegradationEvent(stage="baseline", reason=reason,
+                                      attempts=attempts, rid=rid)
+                # one row per request, so byte and dedup summaries see it
+                self.transport.log.append(TransferRecord(
+                    kind="kv", n_bytes=0, layers=0, context_len=0,
+                    wire_dtype="none", attempts=attempts, degradation=ev))
+                self.degradations.append(ev)
+                self.last_degradation = ev
+                return None
+            try:
+                # synced: the degraded rung leaves no deferred stamp on a
+                # log nobody flushes
+                shared = tr.send(self.cfg, kvcfg, kv, select,
+                                 assignment=assignment, sync=True)
+            except _LADDER_ERRORS as e:
+                reason = f"{reason}; then {stage}: {type(e).__name__}: {e}"
+                continue
+            ev = DegradationEvent(stage=stage, reason=reason,
+                                  attempts=attempts, rid=rid)
+            rec = tr.log.pop()
+            rec.degradation = ev
+            self.transport.log.append(rec)
+            self.degradations.append(ev)
+            self.last_degradation = ev
+            return shared
+        raise failure           # the ladder had no terminal baseline rung
+
     def share(self, context: np.ndarray, kvcfg: KVCommConfig,
               scores: Optional[torch.Tensor] = None,
-              key: Optional[str] = None, sync: Optional[bool] = None
-              ) -> Tuple[SharedKV, torch.Tensor]:
+              key: Optional[str] = None, sync: Optional[bool] = None,
+              rid: Optional[int] = None
+              ) -> Tuple[Optional[SharedKV], torch.Tensor]:
         """Prefill the context on the sender, select layers, push through
         the transport. Returns (receiver-side SharedKV, select).
         ``sync=False`` keeps the round free of host waits (the transfer's
-        stamp is deferred)."""
+        stamp is deferred). With a ``resilience`` the view may come from a
+        fallback rung or be None (text only; see ``last_degradation``);
+        ``rid`` tags the event."""
         if self.is_hetero:
             raise ValueError("sender and receiver disagree on depth; use "
                              "share_mapped (or the 'hetero_kvcomm' method) "
                              "with a LayerMap policy")
         select = self.selection(kvcfg, scores=scores, key=key)
         kv, _ = self.sender.export_kv(context)
-        shared = self.transport.send(self.cfg, kvcfg, kv, select, sync=sync)
+        shared = self._resilient_send(kvcfg, kv, select, sync=sync, rid=rid)
         return shared, select
 
     def share_mapped(self, context: np.ndarray, kvcfg: KVCommConfig,
@@ -213,8 +298,9 @@ class CommSession:
                      src_scores: Optional[torch.Tensor] = None,
                      dst_scores: Optional[torch.Tensor] = None,
                      key: Optional[str] = None,
-                     sync: Optional[bool] = None
-                     ) -> Tuple[SharedKV, LayerAssignment]:
+                     sync: Optional[bool] = None,
+                     rid: Optional[int] = None
+                     ) -> Tuple[Optional[SharedKV], LayerAssignment]:
         """The heterogeneous round: the sender selects over its own depth,
         the ``policy`` LayerMap places the selected layers in receiver
         slots, and the transport moves exactly the mapped payload. On a
@@ -234,8 +320,8 @@ class CommSession:
             num_dst_layers=self.receiver.cfg.attn_layer_count,
             src_scores=host(src_scores), dst_scores=host(dst_scores))
         kv, _ = self.sender.export_kv(context)
-        shared = self.transport.send(self.cfg, kvcfg, kv, None,
-                                     assignment=assignment, sync=sync)
+        shared = self._resilient_send(kvcfg, kv, None, assignment=assignment,
+                                      sync=sync, rid=rid)
         return shared, assignment
 
     # ---- multi-sender (§J) ------------------------------------------------

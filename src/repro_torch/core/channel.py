@@ -36,8 +36,8 @@ class TransferRecord:
     pages_sent: int = 0
     pages_hit: int = 0
     # channel attempts the transfer took (RemoteTransport stamps it), and
-    # the fallback that served it; degradation stays None until the
-    # resilience ladder is ported
+    # the DegradationEvent of the fallback rung that served it (None on the
+    # primary path)
     attempts: int = 1
     degradation: Optional[object] = None
 

@@ -19,12 +19,18 @@
     ``cache_insert_row_paged``; otherwise it comes from the row as
     prefilled. Both give the same bytes.
 
+  * Degraded admissions — a share the session's ``Resilience`` ladder
+    served from a fallback rung is admitted as usual; a text-only one (the
+    ladder's baseline rung, or a share that raised: the sender is
+    quarantined and the row admitted with ``force_baseline``) gets a zero
+    prefix that ``prefix_lens=0`` masks out, so it answers exactly like
+    ``prefill(query, None)`` and its neighbours in the table do not move.
+    Each such request's ``Completion`` carries its ``DegradationEvent``.
+
 ``serve_serial`` is the blocking reference loop (per request: share,
 prefill, per-token stream) that the scheduler matches token for token.
 A heterogeneous session (sender and receiver of different depths) is
-refused, as the reference's scheduler refuses one. Not ported yet: the
-resilience ladder and sender quarantine, so also the reference's degraded
-and text-only (``force_baseline``) admissions.
+refused, as the reference's scheduler refuses one.
 """
 from __future__ import annotations
 
@@ -36,8 +42,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.comm.session import CommSession
+from repro_torch.comm.resilience import DegradationEvent
+from repro_torch.comm.session import _LADDER_ERRORS, CommSession
 from repro_torch.core import protocol
+from repro_torch.core.channel import TransferRecord
 from repro_torch.core.types import KVCommConfig, SharedKV
 from repro_torch.models import transformer as tfm
 
@@ -57,6 +65,9 @@ class Completion:
     rid: int
     tokens: np.ndarray           # generated token ids
     ttft_s: float = 0.0          # submit -> first token read on the host
+    # set when the request's transfer degraded (a fallback rung or text
+    # only) instead of riding the primary transport
+    degradation: Optional[DegradationEvent] = None
 
     @property
     def pred(self) -> int:
@@ -151,16 +162,33 @@ class Scheduler:
         return protocol.build_shared(self.kvcfg, kv, self.select)
 
     # -- admission ----------------------------------------------------------
-    def _admit(self, req: Request, state: dict, slot: int) -> torch.Tensor:
-        """Enqueue one request's admission pipeline with no host wait."""
+    def _admit(self, req: Request, state: dict, slot: int,
+               force_baseline: bool = False) -> torch.Tensor:
+        """Enqueue one request's admission pipeline with no host wait.
+        ``force_baseline`` skips the share and admits the request text
+        only (the quarantine ``run`` applies when a share raised)."""
         sess, cfgd = self.session, self.config
-        shared, _ = sess.share(req.context[None, :], self.kvcfg,
-                               key=self.calib_key, sync=False)
-        if self.packed and shared.layers != self.layers:
-            raise ValueError("a scheduler serves ONE frozen selection; "
-                             "run one scheduler per calib_key")
-        sc_real = shared.prefix_len
-        scb = min(_bucket(sc_real, cfgd.prefix_bucket), state["dst_prefix"])
+        degraded: Optional[DegradationEvent] = None
+        shared = None
+        if not force_baseline:
+            shared, _ = sess.share(req.context[None, :], self.kvcfg,
+                                   key=self.calib_key, sync=False,
+                                   rid=req.rid)
+            degraded = sess.last_degradation
+        if shared is None:
+            # a zero prefix that prefix_lens=0 masks out entirely, in the
+            # bucket this request's real share would have used
+            scb = min(_bucket(int(req.context.shape[0]) + 1,
+                              cfgd.prefix_bucket), state["dst_prefix"])
+            shared = self._zero_shared(scb, 1)
+            sc_real = 0
+        else:
+            if self.packed and shared.layers != self.layers:
+                raise ValueError("a scheduler serves ONE frozen selection; "
+                                 "run one scheduler per calib_key")
+            sc_real = shared.prefix_len
+            scb = min(_bucket(sc_real, cfgd.prefix_bucket),
+                      state["dst_prefix"])
         sq_real = int(req.query.shape[0])
         sqb = min(_bucket(sq_real, cfgd.query_bucket), state["query_max"])
         qry = np.full((1, sqb), self.pad_token, np.int32)
@@ -175,8 +203,12 @@ class Scheduler:
                         row_max_len=sqb + state["budget"])
             store = sess.transport.store
             # reading last_table settles this request's deferred ingest;
-            # the gather must come before the next share() swaps the table
-            btab = sess.transport.last_table if store is not None else None
+            # the gather must come before the next share() swaps the table.
+            # A degraded or text-only admission leaves it alone: the table
+            # belongs to an earlier request's exchange
+            btab = (sess.transport.last_table
+                    if store is not None and degraded is None
+                    and not force_baseline else None)
             if self.packed and btab is not None:
                 prefix = store.gather_prefix(btab, scb, device=self.device)
                 tfm.cache_insert_row_paged(sess.cfg, state["table"],
@@ -201,6 +233,7 @@ class Scheduler:
             return [], {"iterations": 0, "steps": 0, "occupancy": 0.0,
                         "tokens": 0}
         sess, cfgd = self.session, self.config
+        n_deg0 = len(sess.degradations)    # events of this run only
         cap, dev = cfgd.capacity, self.device
         budget = max(max(r.max_new for r in requests) - 1, 1)
         dst_prefix = _bucket(max(int(r.context.shape[0]) + 1
@@ -251,7 +284,25 @@ class Scheduler:
                     break
                 if slots[i] is None:
                     req = pending.popleft()
-                    read = _HostRead(self._admit(req, state, i))
+                    try:
+                        tok1 = self._admit(req, state, i)
+                    except _LADDER_ERRORS as e:
+                        # quarantine: the failing sender's request is
+                        # admitted text only and in-flight rows never
+                        # notice (with a ladder this fires only when no
+                        # rung could serve)
+                        ev = DegradationEvent(
+                            stage="baseline",
+                            reason=f"{type(e).__name__}: {e}",
+                            attempts=getattr(e, "attempts", 1), rid=req.rid)
+                        sess.transport.log.append(TransferRecord(
+                            kind="kv", n_bytes=0, layers=0, context_len=0,
+                            wire_dtype="none", attempts=ev.attempts,
+                            degradation=ev))
+                        sess.degradations.append(ev)
+                        tok1 = self._admit(req, state, i,
+                                           force_baseline=True)
+                    read = _HostRead(tok1)
                     first_tok[req.rid] = read
                     fetch_q.append((it, read, req.rid))
                     if req.max_new > 1:
@@ -300,6 +351,10 @@ class Scheduler:
             ttft.setdefault(rid, now)
         sess.transport.flush_latency()
 
+        # per-request degradation events of this run (the last per rid)
+        dmap: Dict[int, DegradationEvent] = {
+            ev.rid: ev for ev in sess.degradations[n_deg0:]
+            if ev.rid is not None}
         completions = []
         for rid in sorted(done):
             s = done[rid]
@@ -311,7 +366,7 @@ class Scheduler:
                 toks = toks[:toks.index(eos) + 1]
             completions.append(Completion(
                 rid=rid, tokens=np.asarray(toks, np.int32),
-                ttft_s=ttft.get(rid, now)))
+                ttft_s=ttft.get(rid, now), degradation=dmap.get(rid)))
         return completions, {
             "iterations": it,
             "steps": len(history),       # ragged steps run on the table
@@ -331,7 +386,8 @@ def serve_serial(session: CommSession, requests: Sequence[Request],
     t0 = time.perf_counter()
     for req in sorted(requests, key=lambda r: r.rid):
         shared, _ = session.share(req.context[None, :], kvcfg,
-                                  key=calib_key, sync=True)
+                                  key=calib_key, sync=True, rid=req.rid)
+        degraded = session.last_degradation
         toks, ttft = [], 0.0
         for step_tok in session.stream(req.query[None, :], shared,
                                        max_new=req.max_new,
@@ -342,7 +398,8 @@ def serve_serial(session: CommSession, requests: Sequence[Request],
             if eos_token is not None and toks[-1] == eos_token:
                 break
         completions.append(Completion(
-            rid=req.rid, tokens=np.asarray(toks, np.int32), ttft_s=ttft))
+            rid=req.rid, tokens=np.asarray(toks, np.int32), ttft_s=ttft,
+            degradation=degraded))
     return completions, {
         "iterations": sum(len(c.tokens) for c in completions),
         "occupancy": 1.0,

@@ -900,3 +900,152 @@ def test_hetero_pair_on_card_matches_cpu(cuda, depths, policy):
     got = np.stack(list(card.stream(batch["query"], shared, max_new=4,
                                     backend="kernel")), axis=1)
     np.testing.assert_array_equal(got, want)
+
+
+# --- the resilience layer and the KV server on the card: a retried stream
+# lands bit-equal to a clean one, a card KVServer answers as a CPU one, and
+# the scheduler's degraded admissions give the CPU port's events and tokens
+
+def _tiny_fp32(device):
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.tokenizer import SymbolTokenizer
+    from repro_torch.models import transformer as tfm
+    tok = SymbolTokenizer(16, 8)
+    cfg = dataclasses.replace(
+        get_config("llama3.2-3b-pair"), num_layers=4, d_model=64, d_ff=128,
+        num_heads=4, num_kv_heads=2, head_dim=16, vocab_size=tok.vocab_size,
+        dtype="float32", tie_embeddings=False)
+    params = tfm.init_params(cfg, 0, device="cpu")
+
+    def to(tree):
+        if isinstance(tree, dict):
+            return {k: to(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v) for v in tree]
+        return tree.to(device)
+    return cfg, tok, to(params)
+
+
+def test_streamed_retry_at_every_frame_on_card(cuda):
+    """A truncate at each frame index of a streamed share from card KV,
+    each followed by a retry: the K/V received on the card equal a clean
+    share's bit for bit (no half-filled pinned buffer, no stale upload)."""
+    from repro_torch.comm.remote import (KVStreamSender, LoopbackChannel,
+                                         RemoteTransport)
+    from repro_torch.comm.resilience import (Fault, FaultSchedule,
+                                             FaultyChannel, RetryPolicy)
+    from repro_torch.core.types import KVCommConfig
+    _, dev = _bf16_payload(cuda, Sc=40)
+    kv = {p: torch.cat([a, a[:1]]) for p, a in dev.items()}
+    select = torch.tensor([True, False, True, True])
+    kvcfg = KVCommConfig()
+    want = RemoteTransport("bfloat16", chunk_bytes=700).send(
+        None, kvcfg, kv, select)
+    n = KVStreamSender(kvcfg, kv, select, wire_dtype="bfloat16",
+                       chunk_bytes=700).n_frames
+    assert n > 4
+    for op in range(n):
+        faulty = FaultyChannel(LoopbackChannel(), FaultSchedule(
+            [Fault(op, "truncate", frac=0.6)]))
+        tr = RemoteTransport("bfloat16", channel=faulty, chunk_bytes=700,
+                             policy=RetryPolicy(backoff_s=0.0, jitter=0.0))
+        got = tr.send(None, kvcfg, kv, select)
+        assert tr.last.attempts == 2
+        for p in ("k", "v"):
+            assert got.packed_kv[p].device.type == cuda.type
+            assert torch.equal(got.packed_kv[p], want.packed_kv[p])
+
+
+def test_kv_server_on_card_answers_as_on_cpu(cuda):
+    from repro_torch.comm import Agent
+    from repro_torch.core.protocol import make_selection
+    from repro_torch.core.types import KVCommConfig
+    from repro_torch.launch.remote_serve import KVClient, KVServer
+    from repro_torch.store import PageStore
+    cfg, tok, cpu_params = _tiny_fp32("cpu")
+    _, _, card_params = _tiny_fp32(cuda)
+    kvcfg = KVCommConfig(ratio=0.5, selector="prior_only")
+    rng = np.random.default_rng(1)
+    ctx = rng.integers(4, cfg.vocab_size, (2, 7)).astype(np.int32)
+    qry = rng.integers(4, cfg.vocab_size, (2, 4)).astype(np.int32)
+    sender = Agent("s", cfg, cpu_params, tok)
+    select = make_selection(cfg, kvcfg)
+    answers = {}
+    for name, params in (("cpu", cpu_params), ("card", card_params)):
+        server = KVServer(Agent("r", cfg, params, tok),
+                          store=PageStore(page_len=4))
+        server.start()
+        client = KVClient.connect(server.host, server.port, timeout_s=20.0,
+                                  io_timeout_s=60.0)
+        try:
+            out = []
+            client.share(sender, ctx, kvcfg, select, wire_dtype="float32",
+                         chunk_bytes=300)
+            out.append(client.generate(qry, max_new=4))
+            for _ in range(2):
+                _, total, sent = client.share_paged(
+                    sender, ctx, kvcfg, select, page_len=4,
+                    wire_dtype="float32")
+                out.append(client.generate(qry, max_new=4))
+            assert sent == 0 and total > 0
+        finally:
+            client.close()
+            server.stop()
+        assert server.store.stats().pinned_bytes == 0
+        answers[name] = out
+    for a, b in zip(answers["cpu"], answers["card"]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_degraded_admissions_on_card_match_cpu(cuda):
+    """One fault script through the scheduler on the card (kernel backend)
+    and on the CPU: the same degradation events, bytes and tokens."""
+    from repro_torch.comm import Agent, CommSession
+    from repro_torch.comm.remote import LoopbackChannel, RemoteTransport
+    from repro_torch.comm.resilience import (CircuitBreaker, Fault,
+                                             FaultSchedule, FaultyChannel,
+                                             Resilience, RetryPolicy,
+                                             default_resilience)
+    from repro_torch.core.types import KVCommConfig
+    from repro_torch.serving.scheduler import (Request, Scheduler,
+                                               SchedulerConfig)
+    kvcfg = KVCommConfig(ratio=0.5, selector="prior_only")
+    out = {}
+    for device in ("cpu", cuda):
+        cfg, tok, params = _tiny_fp32(device)
+        reqs = [Request(rid=i, context=np.random.default_rng(9 + i)
+                        .integers(4, cfg.vocab_size, 5 + i).astype(np.int32),
+                        query=np.random.default_rng(50 + i).integers(
+                            4, cfg.vocab_size, 4).astype(np.int32),
+                        max_new=3) for i in range(6)]
+        runs = []
+        for ladder in ("default", "baseline"):
+            faulty = FaultyChannel(LoopbackChannel(), FaultSchedule([
+                Fault(1, "truncate"), Fault(3, "disconnect"),
+                Fault(4, "disconnect"), Fault(5, "drop"), Fault(6, "drop")]))
+            breaker = CircuitBreaker(failure_threshold=2,
+                                     reset_timeout_s=1e9)
+            res = (default_resilience("float32", breaker=breaker)
+                   if ladder == "default" else
+                   Resilience(fallbacks=[("baseline", None)],
+                              breaker=breaker))
+            tr = RemoteTransport("float32", channel=faulty, chunk_bytes=None,
+                                 policy=RetryPolicy(max_attempts=2,
+                                                    backoff_s=0.0,
+                                                    jitter=0.0))
+            sess = CommSession(Agent("s", cfg, params, tok),
+                               Agent("r", cfg, params, tok), tr,
+                               resilience=res)
+            comps, _ = Scheduler(sess, kvcfg, config=SchedulerConfig(
+                capacity=3, prefix_bucket=8, query_bucket=4,
+                decode_backend="kernel")).run(reqs)
+            runs.append(([c.tokens.tolist() for c in comps],
+                         [None if c.degradation is None else
+                          (c.degradation.stage, c.degradation.attempts)
+                          for c in comps],
+                         [(r.n_bytes, r.attempts) for r in tr.log]))
+        out[str(device)] = runs
+    assert out["cpu"] == out[str(cuda)]
+    assert [e and e[0] for e in out["cpu"][1][1]] == \
+        [None, None, "baseline", "baseline", "baseline", "baseline"]

@@ -10,8 +10,8 @@ way round; the paged page_query / page_need / page_data exchange works
 across frameworks with the same page IDs. Then ``tests/test_remote.py``'s
 round-trip, truncation, header, payload, mutation (hypothesis, capped),
 channel, FileChannel-nonce, frame-deadline and streaming classes, ported,
-and ``RemoteTransport`` (mapped and paged sends, the refused resilience
-arguments, the scheduler over it). Every comparison here is exact."""
+and ``RemoteTransport`` (mapped and paged sends, its retry policy and
+breaker, the scheduler over it). Every comparison here is exact."""
 import json
 import os
 import socket
@@ -768,10 +768,31 @@ class TestFrameDeadline:
 # ---------------------------------------------------------------------------
 # RemoteTransport
 # ---------------------------------------------------------------------------
-def test_resilience_arguments_are_refused():
-    for kw in ({"policy": object()}, {"breaker": object()}):
-        with pytest.raises(NotImplementedError, match="item 2"):
-            RemoteTransport("int8", **kw)
+def test_policy_and_breaker_are_honoured():
+    """A ``policy`` retries a disconnect over the reset channel; an open
+    ``breaker`` raises CircuitOpenError without writing a frame."""
+    from repro_torch.comm.resilience import (CircuitBreaker,
+                                             CircuitOpenError, Fault,
+                                             FaultSchedule, FaultyChannel,
+                                             RetryPolicy)
+    _, kv = _kv("float32", seed=2)
+    select = torch.from_numpy(SELECT)
+    faulty = FaultyChannel(LoopbackChannel(),
+                           FaultSchedule([Fault(0, "disconnect")]))
+    tr = RemoteTransport("int8", channel=faulty,
+                         policy=RetryPolicy(backoff_s=0.0, jitter=0.0))
+    got = tr.send(None, KVCFG, kv, select)
+    want = RemoteTransport("int8").send(None, KVCFG, kv, select)
+    for p in ("k", "v"):
+        assert torch.equal(got.packed_kv[p], want.packed_kv[p])
+    assert tr.last.attempts == 2 and faulty.resets == 1
+    breaker = CircuitBreaker(failure_threshold=1, reset_timeout_s=1e9)
+    breaker.record_failure()
+    quiet = FaultyChannel(LoopbackChannel())
+    with pytest.raises(CircuitOpenError):
+        RemoteTransport("int8", channel=quiet, breaker=breaker).send(
+            None, KVCFG, kv, select)
+    assert quiet.writes == 0
 
 
 @pytest.mark.parametrize("chunk_bytes", [None, 300])

@@ -111,6 +111,32 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
      second ships no page); answers equal to the in-process ones; the
      server exits 0 on shutdown.
      Phases 4g and the pool of 4h are K1 paths (28 launches per step).
+  4j. state_sharing — rwkv6-1.6b and zamba2-2.7b as published, bf16,
+     random weights from seed 0 for both roles (each model freed before the
+     next). RWKV6: 4 requests of a 2,049-token context and 16 new tokens,
+     prior_only at ratio 0.5, in memory, Serialized bf16 / int8 and a
+     streamed bf16 RemoteTransport; every state shared equals the skyline
+     over [C; Q] within the F5 bf16 rule (3e-2 of the largest |logit|,
+     argmax >= 95%) and, with the weights upcast, within 1e-3 at float32;
+     none shared is further off; bytes at the analytic count; remote
+     tokens = Serialized bf16 tokens; K4 launched exactly 24 times per
+     forward call; K4 against its plain version at the served T 2049 and
+     T 1. Zamba2: 4 requests of a 257-token context and 8 new tokens,
+     kvcomm calibrated on one sample (ratio 0.5, alpha 0.7), in memory,
+     Serialized int8, a PageStore(page_len=16), bf16 remote and
+     Serialized; every layer's KV and state shared equals the skyline
+     within 1e-3 at float32, and at bf16 lies no further from the float32
+     skyline than twice the bf16 skyline does (on an H100 at 700 W the
+     two bf16 runs of its 63 layers came out 0.034 apart, past the F5
+     rule, both ~0.10 from float32); bytes (KV + states) at the analytic count; paged tokens
+     = unpaged; decode on K1 (G 1, D 80), 9 launches per step, its logits
+     within the full-width step rule (5e-2) of the plain backend's,
+     teacher-forced. Each model also runs its reduced float32 pair card vs
+     CPU through Serialized int8 (bytes equal, logits within 1e-4, tokens
+     under the top-2 margin rule with K1 / K4 on the card against the
+     plain versions on the CPU). Stage ms, tokens/s, state bytes per tier,
+     K4 device ms at T 2049 and T 1, the Mamba2 scan's ms per layer. These
+     are K4's served path and a K1 path.
   5. the kernel entry point — repro_torch.kernels.ops driven at full
      published widths with the K2/K3/K4 counters at 0 (llama3.2-3b-pair
      prefills with and without the Eq. (1) mass, a gemma3-4b local
@@ -126,7 +152,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   7. the kernels line — one JSON object listing every kernel (K1-K4),
      with each one's device ms over SDPA's at its main case; K1's launches
      by path (full-width, paged, wire tiers, remote serving, resilient
-     serving, the scheduler pool, the hetero stream).
+     serving, the scheduler pool, the hetero stream, state sharing); K4's
+     (state sharing, entry point).
 
 The second-to-last line is nvidia-smi's name and power limit; the last line
 is {"ok": true, "device": {...}}.
@@ -339,6 +366,9 @@ def phase_kernel_vs_plain(dev, flush):
         ("tiny_prefix", torch.float32, 4, 24, 8, 4, 2, 16, 2),
         ("full_width_serving", torch.bfloat16, 4, 2079, 2064, 24, 8, 128, 0),
         ("long_cache", torch.bfloat16, 8, 4096, 2048, 24, 8, 128, 0),
+        # zamba2-2.7b's shared attention: MHA (G 1) at head dim 80 over a
+        # 257-position prefix and its decode steps
+        ("zamba2_shared_attn", torch.bfloat16, 4, 281, 257, 32, 32, 80, 0),
     ]
     for i, (name, dt, B, S, P, Hq, Hkv, D, dead) in enumerate(shapes):
         q, k, v, kl, pf = random_case(dev, dt, B, S, P, Hq, Hkv, D, i, dead)
@@ -530,7 +560,7 @@ def phase_full_width(dev, smi, fw):
     # one more served stream
     agent = Agent("receiver", cfg, receiver, tok)
     short, long_ = reqs[0], reqs[-1]
-    kv_long, _ = agent.export_kv(long_.context[None])
+    kv_long, _, _ = agent.export_kv(long_.context[None])
     shared = protocol.pack_shared(kvcfg, kv_long, sched.select)
     qry = np.zeros((1, st["query_max"]), np.int32)
     stages = {
@@ -609,7 +639,7 @@ def long_context_kv(fw, sess, reqs):
     layers)."""
     from repro_torch.core.protocol import gather_selected
     select = sess.selection(fw["kvcfg"], key="retrieval")
-    kv, _ = sess.sender.export_kv(reqs[-1].context[None])
+    kv, _, _ = sess.sender.export_kv(reqs[-1].context[None])
     return kv, select, gather_selected(kv, select)
 
 
@@ -859,12 +889,27 @@ def phase_wire_tiers(dev, smi, fw, plan):
 # ---------------------------------------------------------------------------
 # the paper's comparison methods (repro_torch.comm.methods)
 # ---------------------------------------------------------------------------
-def to_device(tree, dev):
+def to_device(tree, dev, memo=None):
+    """A copy of a tree of tensors on ``dev``; an entry that appears twice
+    (Zamba2's one shared attention block) stays one object."""
+    memo = {} if memo is None else memo
+    if id(tree) in memo:
+        return memo[id(tree)]
     if isinstance(tree, dict):
-        return {k: to_device(v, dev) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [to_device(v, dev) for v in tree]
-    return tree.to(dev)
+        out = {k: to_device(v, dev, memo) for k, v in tree.items()}
+    elif isinstance(tree, list):
+        out = [to_device(v, dev, memo) for v in tree]
+    else:
+        out = tree.to(dev)
+    memo[id(tree)] = out
+    return out
+
+
+def param_count(params) -> int:
+    """Parameters of a tree, each tensor counted once however often the
+    tree refers to it."""
+    return sum(x.numel() for x in {id(x): x for x in leaves(params)}
+               .values())
 
 
 def kernel_launches():
@@ -984,7 +1029,7 @@ def phase_comm_methods(dev, smi, fw):
     packed = sess.combined(clear=True)
     dense = combine_senders([
         SharedKV(kv=kv, select=select, prefix_len=p, pos_mode=kvcfg.pos_mode)
-        for kv, p in (sess.sender.export_kv(c) for c in ctxs)])
+        for kv, _, p in (sess.sender.export_kv(c) for c in ctxs)])
     for p in ("k", "v"):
         check(torch.equal(packed.packed_kv[p], dense.kv[p][idx]),
               f"comm_methods mailbox: packed {p} != the dense view's "
@@ -1127,7 +1172,7 @@ def phase_hetero_pair(dev, smi, fw):
         probe = session(L_s, L_r, None)
         scores = probe.calibrate_side("sender", fw["calib"]["context"],
                                       fw["calib"]["query"])
-        kv_s, _ = probe.sender.export_kv(batch["context"])
+        kv_s, _, _ = probe.sender.export_kv(batch["context"])
         for policy in HETERO_POLICIES:
             row = {"direction": f"{L_s}->{L_r}", "policy": policy}
             for name, (make, isz, scaled) in wires.items():
@@ -2025,6 +2070,456 @@ def phase_remote_serve_two_process(dev, smi, fw, proc):
 # the kernel entry point (repro_torch.kernels.ops: K2, K3, K4) and the
 # sequence-sharded decode
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# state sharing: rwkv6-1.6b (K4 in every time mix) and zamba2-2.7b (Mamba2
+# plus shared attention, K1 on its decode) at their published widths
+# ---------------------------------------------------------------------------
+# bf16 logits against a float path or another bf16 path (ROADMAP F5): within
+# 3e-2 of the largest |logit|, argmax agreeing at >= 95% of positions
+F5_BOUND, F5_ARGMAX = 3e-2, 0.95
+# float32 card against CPU: logits within 1e-4 of the largest |logit|, and
+# tokens equal wherever the CPU's top-2 margin is at least MARGIN
+FP32_BOUND, MARGIN = 1e-4, 1e-3
+# float32 at full width (24-54 layers, another summation order): ten times
+# the tiny pair's bound
+FP32_FULL_BOUND = 1e-3
+# a full-width bf16 decode step, kernel against the plain backend (PERF.md
+# section 2: the step rule of the full-width serving phase)
+STEP_BOUND = 5e-2
+_BITS = {"float32": 32, "bfloat16": 16, "float16": 16, "int8": 8, "int4": 4}
+
+
+def state_wire_bytes(states, state_select, wire):
+    """Analytic wire bytes of the selected layers of every state leaf at a
+    uniform wire: the values at the wire's width, plus one float32 scale
+    per layer and leaf for int8 / int4."""
+    m = int(state_select.sum())
+    scale = 4 * m if wire in ("int8", "int4") else 0
+    return sum(m * x[0].numel() * _BITS[wire] // 8 + scale
+               for x in states.values())
+
+
+def rel_and_agree(got, want):
+    """(max |got - want| / max |want|, argmax agreement share)."""
+    got, want = got.float(), want.float()
+    rel = float((got - want).abs().max() / want.abs().max())
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    return rel, agree
+
+
+def skyline_gate(cfg, params, tok, ctx, qry, share_all):
+    """The receiver with every layer's KV and every state shared
+    (``share_all(kv, states)``) against the skyline run of [C; Q], at the
+    model's bf16 and at float32 (the same weights upcast, TF32 off).
+    Returns (rel, argmax agreement) for: bf16 shared vs bf16 skyline,
+    float32 shared vs float32 skyline, and each bf16 run against the
+    float32 skyline (the bf16 noise floor)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.comm import Agent
+    from repro_torch.models import transformer as tfm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    logits = {}
+    for dt in ("bfloat16", "float32"):
+        c = dataclasses.replace(cfg, dtype=dt)
+        p = params if dt == cfg.dtype else to_device(params, torch.float32)
+        agent = Agent("receiver", c, p, tok)
+        kv, states, Sc = agent.export_kv(ctx)
+        got = agent.prefill(qry, share_all(kv, states), max_new=0).logits
+        sky = tfm.apply_model(p, c, agent.tokens(np.concatenate(
+            [agent.with_bos(ctx), qry], 1))).logits[:, Sc:]
+        logits[dt] = (got.float(), sky.float())
+        del p, agent, kv, states, got, sky
+    torch.cuda.empty_cache()
+    (g16, s16), (g32, s32) = logits["bfloat16"], logits["float32"]
+    return {"bf16": rel_and_agree(g16, s16),
+            "fp32": rel_and_agree(g32, s32),
+            "bf16_skyline_vs_fp32": rel_and_agree(s16, s32),
+            "bf16_shared_vs_fp32": rel_and_agree(g16, s32)}
+
+
+def greedy(agent, qry, shared, n, backend, force=None):
+    """Greedy tokens and each step's last-position logits: the prefill,
+    then n - 1 decode steps, teacher-forced on ``force`` (B, n) when given.
+    Returns (tokens (B, n), [logits (B, V) float32 on the CPU])."""
+    import torch
+    out = agent.prefill(qry, shared, max_new=n)
+    cache, lg = out.cache, out.logits[:, -1].float()
+    toks, logits = [], []
+    for i in range(n):
+        tok = lg.argmax(-1)
+        toks.append(tok.cpu())
+        logits.append(lg.cpu())
+        if i + 1 < n:
+            feed = tok if force is None else force[:, i].to(tok.device)
+            _, lg, cache = agent.decode_step(feed[:, None], cache, shared,
+                                             backend=backend)
+            lg = lg.float()
+    return torch.stack(toks, 1), logits
+
+
+def margin_rule(want_toks, want_logits, got_toks):
+    """Tokens equal at every step of a row until the reference's top-2
+    margin first falls below MARGIN there (a near tie may rightly flip,
+    and the rows part after it). Returns the steps compared."""
+    import torch
+    live = torch.ones(want_toks.shape[0], dtype=torch.bool)
+    compared = 0
+    for i, lg in enumerate(want_logits):
+        top2 = lg.topk(2, -1).values
+        live &= (top2[:, 0] - top2[:, 1]) >= MARGIN
+        check(bool((want_toks[live, i] == got_toks[live, i]).all()),
+              f"tokens differ at step {i} where the margin is >= {MARGIN}")
+        compared += int(live.sum())
+    return compared
+
+
+def ssm_tiny_parity(dev, arch):
+    """The reduced float32 pair (one parameter draw on the CPU, its copy
+    on the card) through share, prefill and 4 greedy steps on the kernel
+    backend: bytes equal, prefill logits within FP32_BOUND, tokens under
+    the margin rule."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.comm import Agent, CommSession, SerializedTransport
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.types import KVCommConfig
+    from repro_torch.data.tokenizer import SymbolTokenizer
+    from repro_torch.models import transformer as tfm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tok = SymbolTokenizer(16, 8)
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32",
+                              vocab_size=tok.vocab_size)
+    params = tfm.init_params(cfg, 3, device="cpu")
+    rng = np.random.default_rng(5)
+    ctx = rng.integers(4, cfg.vocab_size, (4, 12)).astype(np.int32)
+    qry = rng.integers(4, cfg.vocab_size, (4, 5)).astype(np.int32)
+    out = {}
+    for d in ("cpu", dev):
+        p = to_device(params, d)
+        sess = CommSession(Agent("s", cfg, p, tok), Agent("r", cfg, p, tok),
+                           SerializedTransport("int8"))
+        shared, _ = sess.share(ctx, KVCommConfig(ratio=0.5,
+                                                 selector="prior_only"))
+        toks, logits = greedy(sess.receiver, qry, shared, 4, "kernel")
+        out[str(d)] = (sess.transport.total_bytes, toks, logits)
+    (nb, toks, logits), (nb_c, toks_c, logits_c) = out["cpu"], out[str(dev)]
+    rel = float((logits_c[0] - logits[0]).abs().max()
+                / logits[0].abs().max())
+    check(nb == nb_c and rel <= FP32_BOUND,
+          f"{arch} tiny fp32: bytes {nb_c} vs {nb}, logits rel {rel}")
+    compared = margin_rule(toks, logits, toks_c)
+    return {"logits_rel": rel, "bound": FP32_BOUND,
+            "tokens_compared": compared, "bytes": nb}
+
+
+def ss_run(sess, ctx, qry, kvcfg, n, backend, scores=None):
+    """One served round: share, then generate n tokens. Returns (shared,
+    select, tokens, share seconds, generate seconds)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    shared, select = sess.share(ctx, kvcfg, scores=scores)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    toks, _ = sess.receiver.generate(qry, shared, max_new=n,
+                                     backend=backend)
+    torch.cuda.synchronize()
+    return shared, select, toks.cpu(), t1 - t0, time.perf_counter() - t1
+
+
+def ss_line(model, name, tr, state_bytes, n_req, n_new, share_s, gen_s,
+            stages, smi, **extra):
+    rec = tr.last
+    return {"phase": "state_sharing", "model": model, "transport": name,
+            "requests": n_req, "new_tokens": n_new,
+            "bytes": rec.n_bytes, "state_bytes": state_bytes,
+            "share_ms": share_s * 1e3, "transfer_ms": rec.latency_s * 1e3,
+            "serialize_ms": rec.serialize_s * 1e3,
+            "channel_ms": rec.channel_s * 1e3,
+            "deserialize_ms": rec.deserialize_s * 1e3,
+            "generate_ms": gen_s * 1e3,
+            "tokens_per_s": n_req * n_new / gen_s, **stages, **extra,
+            "card": smi}
+
+
+def phase_rwkv6_state_sharing(dev, smi, flush, tok):
+    """rwkv6-1.6b as published (24 layers, d 2048, 32 heads of 64), bf16,
+    random weights from seed 0 for both roles: 4 requests of a 2,049-token
+    context (K4 at T 2049) and 16 new tokens, prior_only at ratio 0.5,
+    through in-memory, Serialized bf16 / int8 and a streamed bf16
+    RemoteTransport; K4 launched 24 times per forward call."""
+    import numpy as np
+    import torch
+    from repro_torch.comm import (Agent, CommSession, InMemoryTransport,
+                                  RemoteTransport, SerializedTransport)
+    from repro_torch.comm.transport import payload_bytes
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.types import KVCommConfig, SharedKV
+    from repro_torch.kernels.rwkv_scan import wkv6
+    from repro_torch.models import transformer as tfm
+    t_phase = time.perf_counter()
+    tiny = ssm_tiny_parity(dev, "rwkv6-1.6b")
+    cfg = get_config("rwkv6-1.6b")
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    L, B, C, Q, N = cfg.num_layers, 4, 2048, 16, 16
+    rng = np.random.default_rng(0)
+    ctx = rng.integers(4, cfg.vocab_size, (B, C)).astype(np.int32)
+    qry = rng.integers(4, cfg.vocab_size, (B, Q)).astype(np.int32)
+    sender = Agent("sender", cfg, params, tok)
+    receiver = Agent("receiver", cfg, params, tok)
+    kvcfg = KVCommConfig(ratio=0.5, selector="prior_only")
+    ss_run(CommSession(sender, receiver), ctx[:, :32], qry, kvcfg, 2,
+           "kernel")                           # warm-up, not counted
+
+    # every state shared equals the skyline over [C; Q] (bf16 under the
+    # F5 rule, float32 within FP32_FULL_BOUND); none shared does not
+    everything = lambda kv, states: SharedKV(             # noqa: E731
+        states=states, state_select=torch.ones(L, dtype=torch.bool))
+    sky = skyline_gate(cfg, params, tok, ctx, qry, everything)
+    rel, agree = sky["bf16"]
+    check(rel <= F5_BOUND and agree >= F5_ARGMAX,
+          f"rwkv6: all states shared vs skyline rel {rel}, agree {agree}")
+    check(sky["fp32"][0] <= FP32_FULL_BOUND,
+          f"rwkv6: float32 all states shared vs skyline {sky['fp32']}")
+    kv, states, Sc = sender.export_kv(ctx)
+    check(kv is None and Sc == C + 1, "rwkv6: the sender exports states")
+    got = receiver.prefill(qry, everything(None, states), max_new=0).logits
+    nothing = SharedKV(states=states, state_select=torch.zeros(
+        L, dtype=torch.bool))
+    rel_none, _ = rel_and_agree(receiver.prefill(qry, nothing,
+                                                 max_new=0).logits, got)
+    check(rel_none > 2 * rel, f"rwkv6: no state shared is as close to all "
+          f"shared ({rel_none}) as the skyline is ({rel})")
+    del got
+
+    # the main path: K4's counter at 0, then every transport's round
+    torch.cuda.synchronize()
+    wkv6.launches = 0
+    runs = {}
+    for name, tr, wire in (
+            ("inmemory", InMemoryTransport(), None),
+            ("serialized_bf16", SerializedTransport("bfloat16"), "bfloat16"),
+            ("serialized_int8", SerializedTransport("int8"), "int8"),
+            ("remote_bf16_stream", RemoteTransport("bfloat16"),
+             "bfloat16")):
+        sess = CommSession(sender, receiver, tr)
+        l0 = wkv6.launches
+        shared, _, toks, share_s, gen_s = ss_run(sess, ctx, qry, kvcfg, N,
+                                                 "kernel")
+        forwards = 1 + 1 + N       # sender prefill, prefill, N steps
+        check(wkv6.launches - l0 == L * forwards,
+              f"rwkv6 {name}: {wkv6.launches - l0} K4 launches for "
+              f"{forwards} forward calls of {L} layers")
+        ss = shared.state_select
+        want = (payload_bytes(None, None, states, ss) if wire is None
+                else state_wire_bytes(states, ss, wire))
+        check(tr.last.n_bytes == want, f"rwkv6 {name}: {tr.last.n_bytes} "
+              f"bytes, analytic {want}")
+        check(bool(torch.isfinite(shared.states["wkv"]).all()),
+              f"rwkv6 {name}: non-finite received state")
+        runs[name] = (tr, toks, share_s, gen_s, int(ss.sum()), shared)
+    launches = wkv6.launches
+    check(torch.equal(runs["remote_bf16_stream"][1],
+                      runs["serialized_bf16"][1]),
+          "rwkv6: remote bf16 tokens differ from Serialized bf16")
+
+    # each stage alone, and K4 at the served shapes (off the counter)
+    shared = runs["inmemory"][5]
+    cache = receiver.prefill(qry, shared, max_new=N).cache
+    tok1 = torch.zeros((B, 1), dtype=torch.long, device=dev)
+    stages = {
+        "sender_prefill_ms": wall_ms(lambda: sender.export_kv(ctx)),
+        "receiver_prefill_ms": wall_ms(
+            lambda: receiver.prefill(qry, shared, max_new=N)),
+        "decode_step_ms": wall_ms(
+            lambda: receiver.decode_step(tok1, cache, shared)),
+    }
+    wkv6.launches = launches
+    cases = [compare_case(wkv_case(dev, "rwkv6_served_prefill", B, C + 1,
+                                   32, 64, seed=20), flush),
+             compare_case(wkv_case(dev, "rwkv6_served_decode", B, 1, 32, 64,
+                                   seed=21, plain_iters=20), flush)]
+    for c in cases:
+        emit({"phase": "state_sharing_kernel_vs_plain", **c, "card": smi})
+    for name, (tr, toks, share_s, gen_s, m, _) in runs.items():
+        emit(ss_line("rwkv6-1.6b", name, tr, tr.last.n_bytes, B, N, share_s,
+                     gen_s, stages, smi, states_selected=m,
+                     k4_launches_per_forward=L))
+    out = {"phase": "state_sharing_rwkv6", "params": param_count(params),
+           "init_s": init_s, "context": Sc, "skyline": sky,
+           "no_state_vs_all_rel": rel_none, "bound": F5_BOUND,
+           "fp32_bound": FP32_FULL_BOUND, "k4_launches": launches,
+           "k4_device_ms_T2049": cases[0]["device_ms"],
+           "k4_device_ms_T1": cases[1]["device_ms"],
+           "state_bytes_per_row_fp32": sum(
+               x[:, :1].numel() * 4 for x in states.values()),
+           "tiny_fp32_card_vs_cpu": tiny,
+           "seconds": time.perf_counter() - t_phase, "card": smi}
+    emit(out)
+    del params, sender, receiver, runs, states, shared, cache
+    torch.cuda.empty_cache()
+    return launches, cases
+
+
+def phase_zamba2_state_sharing(dev, smi, flush, tok):
+    """zamba2-2.7b as published (54 Mamba2 layers, d 2560, one shared
+    attention block invoked 9 times, 32/32 heads of 80), bf16, random
+    weights from seed 0 for both roles: 4 requests of a 257-token context
+    and 8 new tokens, kvcomm calibrated on one sample (ratio 0.5, alpha
+    0.7), through in-memory, Serialized int8, a PageStore(page_len=16)
+    and bf16 remote / Serialized; K1 launched 9 times per decode step."""
+    import numpy as np
+    import torch
+    from repro_torch.comm import (Agent, CommSession, InMemoryTransport,
+                                  RemoteTransport, SerializedTransport)
+    from repro_torch.comm.transport import payload_bytes
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import protocol
+    from repro_torch.core.channel import kv_wire_bytes_paged
+    from repro_torch.core.types import KVCommConfig
+    from repro_torch.kernels.ragged_decode import ragged_decode
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as tfm
+    from repro_torch.store import PageStore
+    t_phase = time.perf_counter()
+    tiny = ssm_tiny_parity(dev, "zamba2-2.7b")
+    cfg = get_config("zamba2-2.7b")
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    L_attn, B, C, Q, N = cfg.attn_layer_count, 4, 256, 16, 8
+    rng = np.random.default_rng(1)
+    ctx = rng.integers(4, cfg.vocab_size, (B, C)).astype(np.int32)
+    qry = rng.integers(4, cfg.vocab_size, (B, Q)).astype(np.int32)
+    sender = Agent("sender", cfg, params, tok)
+    receiver = Agent("receiver", cfg, params, tok)
+    kvcfg = KVCommConfig(ratio=0.5, alpha=0.7)
+    calib = CommSession(sender, receiver)
+    ss_run(calib, ctx[:, :16], qry, KVCommConfig(ratio=0.5,
+                                                 selector="prior_only"),
+           2, "kernel")                        # warm-up, not counted
+    t0 = time.perf_counter()
+    scores = calib.calibrate(ctx[:1], qry[:1])
+    calib_s = time.perf_counter() - t0
+
+    # every layer's KV and every state shared equals the skyline: float32
+    # within FP32_FULL_BOUND; at bf16 (54 layers) no further from the
+    # float32 skyline than twice the bf16 skyline is
+    n_ssm = protocol._n_ssm(cfg)
+    everything = lambda kv, states: protocol.pack_shared(   # noqa: E731
+        KVCommConfig(), kv, torch.ones(L_attn, dtype=torch.bool), states,
+        torch.ones(n_ssm, dtype=torch.bool))
+    sky = skyline_gate(cfg, params, tok, ctx, qry, everything)
+    check(sky["fp32"][0] <= FP32_FULL_BOUND,
+          f"zamba2: float32 all shared vs skyline {sky['fp32']}")
+    floor = sky["bf16_skyline_vs_fp32"][0]
+    check(sky["bf16_shared_vs_fp32"][0] <= 2 * floor,
+          f"zamba2: bf16 all shared is {sky['bf16_shared_vs_fp32']} from "
+          f"the float32 skyline, the bf16 skyline {floor}")
+    kv, states, Sc = sender.export_kv(ctx)
+
+    # the main path: K1's counter at 0, then every transport's round on
+    # the kernel backend
+    torch.cuda.synchronize()
+    ragged_decode.launches = 0
+    runs = {}
+    for name, tr in (
+            ("inmemory", InMemoryTransport()),
+            ("serialized_int8", SerializedTransport("int8")),
+            ("paged_inmemory", InMemoryTransport(
+                store=PageStore(page_len=16))),
+            ("remote_bf16_stream", RemoteTransport("bfloat16")),
+            ("serialized_bf16", SerializedTransport("bfloat16"))):
+        sess = CommSession(sender, receiver, tr)
+        l0 = ragged_decode.launches
+        shared, select, toks, share_s, gen_s = ss_run(
+            sess, ctx, qry, kvcfg, N, "kernel", scores=scores)
+        check(ragged_decode.launches - l0 == L_attn * N,
+              f"zamba2 {name}: {ragged_decode.launches - l0} K1 launches "
+              f"for {N} steps of {L_attn} attention invocations")
+        ss, M = shared.state_select, int(select.sum())
+        want = {
+            "inmemory": payload_bytes(kv, select, states, ss),
+            "serialized_int8": payload_bytes(kv, select, itemsize=1)
+            + 2 * 4 * M + state_wire_bytes(states, ss, "int8"),
+            "paged_inmemory": kv_wire_bytes_paged(
+                cfg, B, Sc, M, page_len=16, itemsize=2)
+            + payload_bytes(None, None, states, ss),
+        }.get(name, payload_bytes(kv, select, itemsize=2)
+              + state_wire_bytes(states, ss, "bfloat16"))
+        check(tr.last.n_bytes == want, f"zamba2 {name}: {tr.last.n_bytes} "
+              f"bytes, analytic {want}")
+        state_b = (payload_bytes(None, None, states, ss)
+                   if "inmemory" in name else state_wire_bytes(
+                       states, ss, "int8" if "int8" in name else "bfloat16"))
+        runs[name] = (tr, toks, share_s, gen_s, M, int(ss.sum()), shared,
+                      state_b)
+    launches = ragged_decode.launches
+    check(torch.equal(runs["paged_inmemory"][1], runs["inmemory"][1]),
+          "zamba2: paged tokens differ from unpaged")
+    check(torch.equal(runs["remote_bf16_stream"][1],
+                      runs["serialized_bf16"][1]),
+          "zamba2: remote bf16 tokens differ from Serialized bf16")
+
+    # K1 against the plain backend, teacher-forced on the plain tokens
+    shared = runs["inmemory"][6]
+    ref_toks, ref_logits = greedy(receiver, qry, shared, N, "reference")
+    _, k_logits = greedy(receiver, qry, shared, N, "kernel", force=ref_toks)
+    step_rel, step_agree = rel_and_agree(torch.stack(k_logits),
+                                         torch.stack(ref_logits))
+    check(step_rel <= STEP_BOUND, f"zamba2: kernel vs reference decode "
+          f"rel {step_rel} (argmax agreement {step_agree})")
+
+    # each stage alone, and the Mamba2 scan of one layer
+    cache = receiver.prefill(qry, shared, max_new=N).cache
+    tok1 = torch.zeros((B, 1), dtype=torch.long, device=dev)
+    layer = next(lp for lp in params["layers"] if "mamba" in lp)["mamba"]
+    x = torch.randn(B, Sc, cfg.d_model, device=dev, dtype=torch.bfloat16)
+    st = {k: v[0] for k, v in states.items()}
+    stages = {
+        "sender_prefill_ms": wall_ms(lambda: sender.export_kv(ctx)),
+        "receiver_prefill_ms": wall_ms(
+            lambda: receiver.prefill(qry, shared, max_new=N)),
+        "decode_step_ms": wall_ms(lambda: receiver.decode_step(
+            tok1, clone_cache(cache), shared, backend="kernel")),
+        "mamba_scan_ms_per_layer_S257": wall_ms(
+            lambda: ssm.apply_mamba(layer, cfg, x, st)),
+        "mamba_scan_ms_per_layer_S1": wall_ms(
+            lambda: ssm.apply_mamba(layer, cfg, x[:, :1], st)),
+    }
+    ragged_decode.launches = launches
+    for name, (tr, toks, share_s, gen_s, M, m, _, sb) in runs.items():
+        emit(ss_line("zamba2-2.7b", name, tr, sb, B, N, share_s, gen_s,
+                     stages, smi, kv_layers_selected=M, states_selected=m,
+                     k1_launches_per_step=L_attn))
+    out = {"phase": "state_sharing_zamba2", "params": param_count(params),
+           "init_s": init_s, "calibrate_s": calib_s, "context": Sc,
+           "selected_layers": protocol.selected_layer_ids(
+               runs["inmemory"][6].select),
+           "skyline": sky, "f5_bound": F5_BOUND,
+           "fp32_bound": FP32_FULL_BOUND,
+           "kernel_vs_reference_rel": step_rel,
+           "kernel_vs_reference_argmax_agree": step_agree,
+           "step_bound": STEP_BOUND, "k1_launches": launches,
+           "state_bytes_per_row_fp32": sum(
+               x[:, :1].numel() * 4 for x in states.values()),
+           "tiny_fp32_card_vs_cpu": tiny,
+           "seconds": time.perf_counter() - t_phase, "card": smi}
+    emit(out)
+    steps = N * len(runs)
+    del params, sender, receiver, runs, states, shared, cache, kv, x
+    torch.cuda.empty_cache()
+    return launches, steps
+
+
 def fa_case(dev, name, dtype, B, Sq, Sc, Hq, Hkv, D, *, causal=True,
             window=None, mass=False, seed):
     """A K2 case: inputs, the ops call, its plain version, the SDPA
@@ -2407,18 +2902,28 @@ def main() -> int:
               + pool_steps)
     del fw
     torch.cuda.empty_cache()
+    from repro_torch.launch import pairs
+    k4_state, k4_cases = phase_rwkv6_state_sharing(dev, smi, flush,
+                                                   pairs.pair_tokenizer())
+    k1_state, state_steps = phase_zamba2_state_sharing(
+        dev, smi, flush, pairs.pair_tokenizer())
+    k1_paths["state_sharing"] = k1_state
+    launches += k1_state
     ep_launches, ep_results = phase_entry_point(dev, flush, smi)
     sharded = phase_sharded_decode(dev, smi, flush)
-    results = cases + [main] + ep_results
+    results = cases + [main] + ep_results + k4_cases
     kernels = {"kernels": [
         {**kernel_entry(results, "ragged_decode",
                         "src/repro_torch/kernels/csrc/ragged_decode.cu",
                         "src/repro/kernels/ragged_decode.py:46", launches,
                         "main_path_selected_layer"),
          # the 28-layer served paths' launches per ragged step; the
-         # hetero stream decodes at the 42-layer receiver's depth
-         "launches_per_step": (launches - hetero_launches) // max(steps, 1),
+         # hetero stream decodes at the 42-layer receiver's depth, Zamba2
+         # at its 9 shared-attention invocations
+         "launches_per_step": (launches - hetero_launches - k1_state)
+         // max(steps, 1),
          "hetero_stream_launches_per_step": hetero_launches // 7,
+         "state_sharing_launches_per_step": k1_state // state_steps,
          "launches_by_path": k1_paths},
         kernel_entry(results, "flash_attention",
                      "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2429,10 +2934,15 @@ def main() -> int:
                      "src/repro/kernels/flash_decode.py:32",
                      ep_launches["flash_decode"] + sharded["launches"],
                      "long_cache_32k"),
-        kernel_entry(results, "wkv6",
-                     "src/repro_torch/kernels/csrc/rwkv_scan.cu",
-                     "src/repro/kernels/rwkv_scan.py:25",
-                     ep_launches["wkv6"], "rwkv6_1_6b_scan")]}
+        {**kernel_entry(results, "wkv6",
+                        "src/repro_torch/kernels/csrc/rwkv_scan.cu",
+                        "src/repro/kernels/rwkv_scan.py:25",
+                        ep_launches["wkv6"] + k4_state,
+                        "rwkv6_served_prefill"),
+         # RWKV6's 24 time mixes per forward call (prefills and decode
+         # steps) and the entry point's one scan
+         "launches_by_path": {"state_sharing": k4_state,
+                              "entry_point": ep_launches["wkv6"]}}]}
     emit(kernels)
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,8 @@
 """Agent: one LLM participant (parameters + config + tokenizer) with its
 sender and receiver roles.
 
-  sender side   : ``export_kv`` (one prefill over the context), ``message``
+  sender side   : ``export_kv`` (one prefill over the context: the KV and
+                  the SSM states), ``message``
                   (NLD greedy tokens and CIPHER expected embeddings),
                   ``export_hiddens`` (the AC baselines' payload).
   receiver side : ``prefill`` / ``decode`` / ``decode_step`` /
@@ -49,11 +50,14 @@ class Agent:
 
     # ---- sender role ------------------------------------------------------
     def export_kv(self, context: np.ndarray, *, add_bos: bool = True
-                  ) -> Tuple[Any, int]:
-        """One forward pass over [BOS? context]; returns (kv, Sc)."""
+                  ) -> Tuple[Any, Any, int]:
+        """One forward pass over [BOS? context]; returns (kv, states, Sc)
+        (kv None for an attention-free model, states None without SSM
+        layers)."""
         ctx = self.with_bos(context) if add_bos else np.asarray(context)
-        return (protocol.sender_prefill(self.params, self.cfg,
-                                        self.tokens(ctx)), ctx.shape[1])
+        kv, states = protocol.sender_prefill(self.params, self.cfg,
+                                             self.tokens(ctx))
+        return kv, states, ctx.shape[1]
 
     @torch.no_grad()
     def message(self, context: np.ndarray, n_tokens: int
@@ -121,17 +125,17 @@ class Agent:
         return protocol.generate(self.params, self.cfg, self.tokens(tokens),
                                  shared, max_new=max_new, backend=backend)
 
-    def calibrate(self, query, kv) -> torch.Tensor:
-        """Eq. (1): prefill ``query`` with every layer shared; returns the
-        normalized per-layer scores (CPU)."""
+    def calibrate(self, query, kv, states=None) -> torch.Tensor:
+        """Eq. (1): prefill ``query`` with every layer (and state) shared;
+        returns the normalized per-layer scores (CPU)."""
         return protocol.calibrate(self.params, self.cfg, self.tokens(query),
-                                  kv)
+                                  kv, states)
 
     def self_scores(self, context: np.ndarray, query) -> torch.Tensor:
         """Eq. (1) scores over this model's own layers: calibrate ``query``
-        against the agent's own KV of ``context``."""
-        kv, _ = self.export_kv(context)
-        return self.calibrate(query, kv)
+        against the agent's own KV (and states) of ``context``."""
+        kv, states, _ = self.export_kv(context)
+        return self.calibrate(query, kv, states)
 
     @staticmethod
     def predict_last(logits: torch.Tensor) -> np.ndarray:

@@ -36,8 +36,11 @@ The receiver-side view is the packed receiver-keyed ``SharedKV`` (with a
 ``LayerAssignment``'s slots and ``src_layers``), decoded onto the
 receiver's device. ``RemoteTransport`` retries a failed exchange under a
 ``RetryPolicy`` and short-circuits under a ``CircuitBreaker``
-(``repro_torch.comm.resilience``). Not ported yet: SSM state leaves on the
-wire (ROADMAP queue 1, item 4).
+(``repro_torch.comm.resilience``). SSM states ride every transfer as
+``s{i}`` arrays (the selected layers of each leaf, at ``state_wire_dtype``)
+described by a ``states`` meta block: the ``shared_kv`` frame's, the
+stream's end frame's (a states-only stream is begin and end with no chunk)
+and ``page_data``'s (``repro_torch.store.wire``).
 """
 from __future__ import annotations
 
@@ -55,11 +58,13 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.comm.transport import (_SCALED_WIRES, _WIRE_BITS,
-                                        Transport, _encode_uniform,
-                                        _mapped_or_selected, _wire_groups,
-                                        as_wire_plan, decode_wire,
-                                        encode_wire, np_decode_wire,
-                                        resolve_wire_dtype, wire_array_count,
+                                        Transport, _device_of,
+                                        _encode_uniform,
+                                        _mapped_or_selected, _take,
+                                        _wire_groups, as_wire_plan,
+                                        decode_wire, encode_wire,
+                                        np_decode_wire, resolve_wire_dtype,
+                                        state_wire_dtype, wire_array_count,
                                         wire_has_scales, wire_spec)
 from repro_torch.core.channel import TransferRecord
 from repro_torch.core.layermap import LayerAssignment
@@ -72,8 +77,6 @@ MAGIC = b"KVCM"
 _PREFIX = struct.Struct(">4sHIQI")        # magic, version, hdr len, body len, crc
 MAX_HEADER_BYTES = 1 << 26                # 64 MiB of JSON is never legitimate
 MAX_BODY_BYTES = 1 << 32                  # reject a corrupt length up front
-_STATES_NOT_PORTED = ("SSM state leaves on the wire are not ported yet "
-                      "(ROADMAP queue 1, item 4)")
 
 
 # ---------------------------------------------------------------------------
@@ -607,6 +610,93 @@ def parse_health_meta(meta: Dict[str, Any]) -> Dict[str, Any]:
 
 
 # ---------------------------------------------------------------------------
+# state pytrees on the wire (nested dict / list / tuple of arrays)
+# ---------------------------------------------------------------------------
+def _tree_parts(tree):
+    """(JSON skeleton with {"__leaf__": i} markers, [leaves])."""
+    leaves = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            node = [walk(v) for v in t]
+            return node if isinstance(t, list) else {"__tuple__": node}
+        leaves.append(t)
+        return {"__leaf__": len(leaves) - 1}
+
+    return walk(tree), leaves
+
+
+def _tree_build(skel, leaves):
+    if isinstance(skel, dict):
+        if set(skel) == {"__leaf__"}:
+            try:
+                return leaves[skel["__leaf__"]]
+            except (IndexError, TypeError):
+                raise PayloadMismatchError(
+                    f"state skeleton names leaf {skel['__leaf__']!r} of "
+                    f"{len(leaves)}") from None
+        if set(skel) == {"__tuple__"}:
+            return tuple(_tree_build(v, leaves) for v in skel["__tuple__"])
+        return {k: _tree_build(v, leaves) for k, v in skel.items()}
+    if isinstance(skel, list):
+        return [_tree_build(v, leaves) for v in skel]
+    raise PayloadMismatchError(f"malformed state skeleton node {skel!r}")
+
+
+def _put_states(arrays: Dict[str, Any], states, state_select,
+                wire_dtype) -> Tuple[Optional[Dict[str, Any]], int]:
+    """Encode the selected layers of every state leaf as ``s{i}`` arrays
+    at ``state_wire_dtype``; returns (the frame's states meta, or None for
+    a transfer without states; the counted bytes)."""
+    if states is None or state_select is None:
+        return None, 0
+    skel, leaves = _tree_parts(states)
+    sel = selected_layer_ids(state_select)
+    wd = state_wire_dtype(wire_dtype)
+    n = 0
+    for i, leaf in enumerate(leaves):
+        n += _put_wire(arrays, f"s{i}", _take(leaf, sel), wd)
+    return {"skeleton": skel, "shapes": [list(x.shape) for x in leaves],
+            "dtypes": [_dtype_name(x.dtype) for x in leaves],
+            "select": [bool(b) for b in state_select.tolist()]}, n
+
+
+def _decode_states(state_meta, arrays: Dict[str, torch.Tensor], wire_dtype,
+                   device) -> Tuple[Any, Optional[torch.Tensor], int]:
+    """The dense state tree, its mask (CPU) and the states' wire bytes from
+    a frame's ``s{i}`` arrays; (None, None, 0) for a transfer without
+    states. The one states decoder the monolithic, streamed and paged
+    receive paths share."""
+    if state_meta is None:
+        return None, None, 0
+    try:
+        sel = torch.tensor(state_meta["select"], dtype=torch.bool)
+        shapes, dtypes = state_meta["shapes"], state_meta["dtypes"]
+        skel = state_meta["skeleton"]
+        wd = state_wire_dtype(wire_dtype)
+    except (KeyError, TypeError, ValueError) as e:
+        raise PayloadMismatchError(f"state meta lacks {e}") from None
+    idx = selected_layer_ids(sel)
+    leaves, n_bytes = [], 0
+    for i, (shape, dname) in enumerate(zip(shapes, dtypes)):
+        part = _take_wire(arrays, f"s{i}", wd, _frame_dtype(dname), device)
+        n_bytes += sum(a.numel() * a.element_size() for name, a in
+                       arrays.items() if name.split("@")[0] == f"s{i}")
+        want = (len(idx),) + tuple(shape[1:])
+        if tuple(part.shape) != want:
+            raise PayloadMismatchError(
+                f"state leaf {i} shape {tuple(part.shape)} != "
+                f"expected {want}")
+        dense = torch.zeros(tuple(shape), dtype=part.dtype, device=device)
+        for j, m in enumerate(idx):
+            dense[m] = part[j]
+        leaves.append(dense)
+    return _tree_build(skel, leaves), sel, n_bytes
+
+
+# ---------------------------------------------------------------------------
 # SharedKV transfers: the sender and receiver halves
 # ---------------------------------------------------------------------------
 def _put_wire(arrays: Dict[str, Any], name: str, x, wire_dtype) -> int:
@@ -683,8 +773,6 @@ def encode_kv_transfer(kvcfg: KVCommConfig, kv, select=None, states=None,
     encode them and frame the result. Returns ``(frame, payload wire
     bytes, layer count, prefix_len)``; the payload bytes are what
     ``SerializedTransport`` counts for the same transfer."""
-    if states is not None:
-        raise NotImplementedError(_STATES_NOT_PORTED)
     wire_dtype = resolve_wire_dtype(wire_dtype)
     count, sel_mask, layers, src_layers = _transfer_layout(select,
                                                            assignment)
@@ -698,22 +786,28 @@ def encode_kv_transfer(kvcfg: KVCommConfig, kv, select=None, states=None,
             n_bytes += _put_wire(arrays, part, payload[part], wire_dtype)
         kv_meta = _kv_meta(kvcfg, prefix_len, packed, layers, src_layers,
                            sel_mask, kv["k"].dtype)
+    state_meta, state_bytes = _put_states(arrays, states, state_select,
+                                          wire_dtype)
+    n_bytes += state_bytes
     meta = {"wire_dtype": wire_spec(wire_dtype), "kv": kv_meta,
-            "states": None, "pos_mode": kvcfg.pos_mode,
+            "states": state_meta, "pos_mode": kvcfg.pos_mode,
             "sel_mask": sel_mask if kv is None else None}
     return encode_frame("shared_kv", meta, arrays), n_bytes, count, \
         prefix_len
 
 
-def _view_from_wire(kv_meta, payload, pos_mode, sel_mask) -> SharedKV:
+def _view_from_wire(kv_meta, payload, pos_mode, sel_mask, states=None,
+                    state_select=None) -> SharedKV:
     """The receiver-side view of a transfer (a KV-less one keeps only its
-    mask)."""
+    mask and its states)."""
     if kv_meta is None:
         return SharedKV(kv=None, select=None if sel_mask is None
                         else torch.tensor(sel_mask, dtype=torch.bool),
+                        states=states, state_select=state_select,
                         prefix_len=0, pos_mode=pos_mode)
     try:
-        return SharedKV.from_wire(kv_meta, payload)
+        return SharedKV.from_wire(kv_meta, payload, states=states,
+                                  state_select=state_select)
     except (KeyError, TypeError, ValueError, RuntimeError) as e:
         raise PayloadMismatchError(f"cannot rebuild SharedKV: {e}") \
             from None
@@ -733,8 +827,6 @@ def decode_kv_transfer(meta: Dict[str, Any],
     except (KeyError, TypeError) as e:
         raise PayloadMismatchError(f"shared_kv frame meta lacks {e}") \
             from None
-    if state_meta is not None:
-        raise NotImplementedError(_STATES_NOT_PORTED)
     try:
         wire_dtype = resolve_wire_dtype(wire_dtype)
     except ValueError:
@@ -767,8 +859,11 @@ def decode_kv_transfer(meta: Dict[str, Any],
             raise PayloadMismatchError(
                 f"header prefix_len {prefix_len} != payload Sc "
                 f"{k.shape[2]}")
+    states, state_select, _ = _decode_states(state_meta, arrays,
+                                             wire_dtype, dev)
     return _view_from_wire(kv_meta, payload, meta.get("pos_mode", "shift"),
-                           meta.get("sel_mask")), n_bytes
+                           meta.get("sel_mask"), states,
+                           state_select), n_bytes
 
 
 # ---------------------------------------------------------------------------
@@ -796,12 +891,11 @@ class KVStreamSender:
                  wire_dtype="float16", packed: bool = True,
                  chunk_bytes: int = DEFAULT_CHUNK_BYTES,
                  sid: int = 0) -> None:
-        if states is not None:
-            raise NotImplementedError(_STATES_NOT_PORTED)
         self.wire_dtype = resolve_wire_dtype(wire_dtype)
         self.chunk_bytes = max(int(chunk_bytes), 1)
         self.sid = int(sid)
         self.kvcfg = kvcfg
+        self.states, self.state_select = states, state_select
         self.layer_count, self._sel_mask, layers, src_layers = \
             _transfer_layout(select, assignment)
         self.prefix_len = 0
@@ -875,9 +969,12 @@ class KVStreamSender:
                     "start": start, "length": length}
             yield encode_frame("kv_stream_chunk", meta, arrays), nb
             seq += 1
+        arrays = {}
+        state_meta, nb = _put_states(arrays, self.states, self.state_select,
+                                     self.wire_dtype)
         meta = {"sid": self.sid, "seq": seq, "chunks": len(self._chunks),
-                "states": None}
-        yield encode_frame("kv_stream_end", meta, {}), 0
+                "states": state_meta}
+        yield encode_frame("kv_stream_end", meta, arrays), nb
 
 
 class KVStreamAssembler:
@@ -1038,8 +1135,6 @@ class KVStreamAssembler:
     def _end(self, meta: Dict[str, Any], arrays: Dict[str, torch.Tensor]
              ) -> Tuple[SharedKV, int]:
         st = self._s
-        if meta.get("states") is not None:
-            raise NotImplementedError(_STATES_NOT_PORTED)
         if st["seq"] != st["chunks"] \
                 or meta.get("chunks", -1) != st["chunks"]:
             raise PayloadMismatchError(
@@ -1054,12 +1149,14 @@ class KVStreamAssembler:
                         "positions at end")
             payload = {part: buf.to(self.device, non_blocking=True)
                        for part, buf in st["bufs"].items()}
+        states, state_select, _ = _decode_states(
+            meta.get("states"), arrays, st["wire_dtype"], self.device)
         n_bytes = st["n_bytes"] + int(sum(a.numel() * a.element_size()
                                           for a in arrays.values()))
         begin = st["begin"]
         shared = _view_from_wire(st["kv_meta"], payload,
                                  begin.get("pos_mode", "shift"),
-                                 begin.get("sel_mask"))
+                                 begin.get("sel_mask"), states, state_select)
         self._s = None
         return shared, n_bytes
 
@@ -1203,20 +1300,23 @@ class RemoteTransport(Transport):
         self.log[-1].attempts = used[0]
         return out
 
-    def _ship(self, kvcfg: KVCommConfig, kv, select,
+    def _ship(self, kvcfg: KVCommConfig, kv, select, states, state_select,
               assignment: Optional[LayerAssignment]) -> SharedKV:
         return self._attempt(
-            lambda: self._ship_once(kvcfg, kv, select, assignment),
+            lambda: self._ship_once(kvcfg, kv, select, states, state_select,
+                                    assignment),
             describe="remote shared_kv exchange")
 
-    def _ship_once(self, kvcfg: KVCommConfig, kv, select,
+    def _ship_once(self, kvcfg: KVCommConfig, kv, select, states,
+                   state_select,
                    assignment: Optional[LayerAssignment]) -> SharedKV:
         if self.chunk_bytes is not None:
-            return self._ship_streamed(kvcfg, kv, select, assignment)
-        dev = kv["k"].device
+            return self._ship_streamed(kvcfg, kv, select, states,
+                                       state_select, assignment)
+        dev = _device_of(kv, states)
         t0 = time.perf_counter()
         frame, _, layer_count, prefix_len = encode_kv_transfer(
-            kvcfg, kv, select, assignment=assignment,
+            kvcfg, kv, select, states, state_select, assignment=assignment,
             wire_dtype=self.wire_dtype, packed=self.packed)
         t1 = time.perf_counter()
         self.channel.write(frame)
@@ -1234,17 +1334,19 @@ class RemoteTransport(Transport):
             frame_bytes=len(frame)))
         return shared
 
-    def _ship_streamed(self, kvcfg: KVCommConfig, kv, select,
+    def _ship_streamed(self, kvcfg: KVCommConfig, kv, select, states,
+                       state_select,
                        assignment: Optional[LayerAssignment]) -> SharedKV:
         """Each stream frame is encoded (serialize_s), written and read
         back (channel_s) and fed to the assembler (deserialize_s) before
         the next is encoded."""
         sid, self._sid = self._sid, self._sid + 1
-        sender = KVStreamSender(kvcfg, kv, select, assignment=assignment,
+        sender = KVStreamSender(kvcfg, kv, select, states, state_select,
+                                assignment=assignment,
                                 wire_dtype=self.wire_dtype,
                                 packed=self.packed,
                                 chunk_bytes=self.chunk_bytes, sid=sid)
-        asm = KVStreamAssembler(device=kv["k"].device)
+        asm = KVStreamAssembler(device=_device_of(kv, states))
         frames = sender.frames()
         ser_s = chan_s = deser_s = 0.0
         frame_bytes = 0
@@ -1276,27 +1378,32 @@ class RemoteTransport(Transport):
             frame_bytes=frame_bytes))
         return shared
 
-    def _send(self, cfg, kvcfg, kv, select) -> SharedKV:
-        return self._ship(kvcfg, kv, select, None)
+    def _send(self, cfg, kvcfg, kv, select, states=None,
+              state_select=None) -> SharedKV:
+        return self._ship(kvcfg, kv, select, states, state_select, None)
 
-    def _send_mapped(self, cfg, kvcfg, kv, assignment) -> SharedKV:
-        return self._ship(kvcfg, kv, None, assignment)
+    def _send_mapped(self, cfg, kvcfg, kv, assignment, states=None,
+                     state_select=None) -> SharedKV:
+        return self._ship(kvcfg, kv, None, states, state_select, assignment)
 
     # -- the paged (content-addressed) wire --------------------------------
-    def _send_paged(self, kvcfg: KVCommConfig, kv, select,
+    def _send_paged(self, kvcfg: KVCommConfig, kv, select, states=None,
+                    state_select=None,
                     assignment: Optional[LayerAssignment] = None
                     ) -> SharedKV:
         """The dedup-aware three-frame exchange: ``page_query`` carries the
         block table (and the scales), ``page_need`` answers with the pool's
-        missing IDs, ``page_data`` ships only those pages. The ingest is
-        eager: the exchange reads the pages' host bytes. A retry re-asks
+        missing IDs, ``page_data`` ships only those pages and the states.
+        The ingest is eager: the exchange reads the pages' host bytes. A retry re-asks
         ``page_query`` under a fresh xid: pages pooled before the failure
         answer as hits."""
         return self._attempt(
-            lambda: self._send_paged_once(kvcfg, kv, select, assignment),
+            lambda: self._send_paged_once(kvcfg, kv, select, states,
+                                          state_select, assignment),
             describe="paged page_query/need/data exchange")
 
     def _send_paged_once(self, kvcfg: KVCommConfig, kv, select,
+                         states=None, state_select=None,
                          assignment: Optional[LayerAssignment] = None
                          ) -> SharedKV:
         # deferred: the store package imports this module's codec
@@ -1333,7 +1440,9 @@ class RemoteTransport(Transport):
         _, need = decode_page_need(meta)
         t3 = time.perf_counter()
         dframe, _ = encode_page_data(xid, [by_id[pid] for pid in need],
-                                     wire_dtype=self.wire_dtype)
+                                     wire_dtype=self.wire_dtype,
+                                     states=states,
+                                     state_select=state_select)
         t4 = time.perf_counter()
         self.channel.write(dframe)
         kind, meta, arrays = read_frame(self.channel)

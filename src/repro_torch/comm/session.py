@@ -14,6 +14,13 @@ model over its own layers, and ``share_mapped`` aligns them with a
 ``LayerMap`` policy; the same-index ``calibrate`` and ``share`` refuse such
 a pair.
 
+State sharing: a model with SSM layers (RWKV6, Zamba2's Mamba2) ships its
+final recurrent states beside the KV. SSM layers have no attention mass,
+so ``_state_selection`` picks them by the Gaussian depth prior at the
+session's ratio. States are positional: ``share_mapped`` keeps them only
+when both sides have the same SSM depth, and ``is_hetero`` counts SSM depth
+too.
+
 Graceful degradation: with a ``Resilience`` (``repro_torch.comm.
 resilience``) a share whose transport exhausts its retries, or whose peer's
 breaker is open, walks the fallback ladder (serialized in process, then
@@ -22,6 +29,7 @@ text only) instead of raising; every downgrade is a ``DegradationEvent`` in
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional, Tuple
@@ -39,7 +47,8 @@ from repro_torch.comm.transport import (InMemoryTransport, Transport,
 from repro_torch.core import protocol
 from repro_torch.core.channel import TransferRecord, combine_senders
 from repro_torch.core.layermap import LayerAssignment, get_layer_map
-from repro_torch.core.selection import gaussian_prior, selection_scores
+from repro_torch.core.selection import (gaussian_prior, select_layers,
+                                        selection_scores)
 from repro_torch.core.types import KVCommConfig, SharedKV
 
 # what the degradation ladder catches: transport and protocol failures
@@ -62,13 +71,18 @@ class SenderHandle:
              scores: Optional[torch.Tensor] = None,
              calib_key: Optional[str] = None) -> SharedKV:
         sess = self.session
-        if self.agent.cfg.attn_layer_count != sess.cfg.attn_layer_count:
+        # the mailbox indexes this sender's KV with receiver-keyed
+        # selections and seeds SSM states by position
+        if (self.agent.cfg.attn_layer_count != sess.cfg.attn_layer_count
+                or protocol._n_ssm(self.agent.cfg)
+                != protocol._n_ssm(sess.cfg)):
             raise ValueError("the multi-sender mailbox needs sender depth "
                              "== receiver depth")
         if select is None:
             select = sess.selection(kvcfg, scores=scores, key=calib_key)
-        kv, _ = self.agent.export_kv(context)
-        shared = sess.transport.send(sess.cfg, kvcfg, kv, select)
+        kv, states, _ = self.agent.export_kv(context)
+        shared = sess.transport.send(sess.cfg, kvcfg, kv, select, states,
+                                     sess._state_selection(kvcfg, states))
         sess.mailbox.append((self.name, shared))
         return shared
 
@@ -80,7 +94,8 @@ class CommSession:
         scfg, rcfg = sender.cfg, receiver.cfg
         # depths may differ (a LayerMap aligns them); the per-layer KV
         # geometry must match for the receiver to read the sender's KV
-        if (scfg.num_kv_heads, scfg.resolved_head_dim) != \
+        if scfg.supports_kv_sharing and rcfg.supports_kv_sharing and \
+                (scfg.num_kv_heads, scfg.resolved_head_dim) != \
                 (rcfg.num_kv_heads, rcfg.resolved_head_dim):
             raise ValueError(
                 "sender/receiver must agree on KV geometry (Hkv, Dh): "
@@ -109,13 +124,13 @@ class CommSession:
 
     @property
     def is_hetero(self) -> bool:
-        """Sender and receiver differ in attention depth: the same-index
-        protocol (``share``, "kvcomm") no longer applies and a
+        """Sender and receiver differ in attention or SSM depth: the
+        same-index protocol (``share``, "kvcomm") no longer applies and a
         ``LayerMap`` must align the sides (``share_mapped``,
-        "hetero_kvcomm"). The port's models are attention-only, so
-        attention depth is the whole depth."""
-        return (self.sender.cfg.attn_layer_count
-                != self.receiver.cfg.attn_layer_count)
+        "hetero_kvcomm", where positional states are dropped)."""
+        scfg, rcfg = self.sender.cfg, self.receiver.cfg
+        return (scfg.attn_layer_count != rcfg.attn_layer_count
+                or protocol._n_ssm(scfg) != protocol._n_ssm(rcfg))
 
     def _agent(self, side: str) -> Agent:
         if side not in ("sender", "receiver"):
@@ -136,8 +151,8 @@ class CommSession:
                              "heterogeneous pair")
         if key is not None and key in self._score_cache:
             return self._score_cache[key]
-        kv, _ = self.sender.export_kv(context)
-        scores = self.receiver.calibrate(query, kv)
+        kv, states, _ = self.sender.export_kv(context)
+        scores = self.receiver.calibrate(query, kv, states)
         if key is not None:
             self._score_cache[key] = scores
         return scores
@@ -208,8 +223,18 @@ class CommSession:
                                     select=select.cpu().numpy(),
                                     top_frac=top_frac, low_frac=low_frac)
 
+    def _state_selection(self, kvcfg: KVCommConfig,
+                         states) -> Optional[torch.Tensor]:
+        """SSM layers have no attention mass: share them by depth prior."""
+        if states is None:
+            return None
+        n_ssm = next(iter(states.values())).shape[0]
+        return select_layers(None, n_ssm, dataclasses.replace(
+            kvcfg, selector="prior_only"))
+
     # ---- one communication round -----------------------------------------
-    def _resilient_send(self, kvcfg: KVCommConfig, kv, select, *,
+    def _resilient_send(self, kvcfg: KVCommConfig, kv, select, states=None,
+                        state_select=None, *,
                         assignment: Optional[LayerAssignment] = None,
                         sync: Optional[bool] = None,
                         rid: Optional[int] = None) -> Optional[SharedKV]:
@@ -223,12 +248,14 @@ class CommSession:
         self.last_degradation = None
         res = self.resilience
         if res is None:
-            return self.transport.send(self.cfg, kvcfg, kv, select,
-                                       assignment=assignment, sync=sync)
+            return self.transport.send(self.cfg, kvcfg, kv, select, states,
+                                       state_select, assignment=assignment,
+                                       sync=sync)
         failure: Optional[BaseException] = None
         if res.breaker is None or res.breaker.allow():
             try:
                 shared = self.transport.send(self.cfg, kvcfg, kv, select,
+                                             states, state_select,
                                              assignment=assignment,
                                              sync=sync)
                 if res.breaker is not None:
@@ -258,8 +285,9 @@ class CommSession:
             try:
                 # synced: the degraded rung leaves no deferred stamp on a
                 # log nobody flushes
-                shared = tr.send(self.cfg, kvcfg, kv, select,
-                                 assignment=assignment, sync=True)
+                shared = tr.send(self.cfg, kvcfg, kv, select, states,
+                                 state_select, assignment=assignment,
+                                 sync=True)
             except _LADDER_ERRORS as e:
                 reason = f"{reason}; then {stage}: {type(e).__name__}: {e}"
                 continue
@@ -289,8 +317,10 @@ class CommSession:
                              "share_mapped (or the 'hetero_kvcomm' method) "
                              "with a LayerMap policy")
         select = self.selection(kvcfg, scores=scores, key=key)
-        kv, _ = self.sender.export_kv(context)
-        shared = self._resilient_send(kvcfg, kv, select, sync=sync, rid=rid)
+        kv, states, _ = self.sender.export_kv(context)
+        shared = self._resilient_send(kvcfg, kv, select, states,
+                                      self._state_selection(kvcfg, states),
+                                      sync=sync, rid=rid)
         return shared, select
 
     def share_mapped(self, context: np.ndarray, kvcfg: KVCommConfig,
@@ -319,9 +349,14 @@ class CommSession:
             num_src_layers=self.sender.cfg.attn_layer_count,
             num_dst_layers=self.receiver.cfg.attn_layer_count,
             src_scores=host(src_scores), dst_scores=host(dst_scores))
-        kv, _ = self.sender.export_kv(context)
-        shared = self._resilient_send(kvcfg, kv, None, assignment=assignment,
-                                      sync=sync, rid=rid)
+        kv, states, _ = self.sender.export_kv(context)
+        if states is not None and protocol._n_ssm(self.sender.cfg) \
+                != protocol._n_ssm(self.receiver.cfg):
+            states = None       # positional states need equal SSM depth
+        shared = self._resilient_send(kvcfg, kv, None, states,
+                                      self._state_selection(kvcfg, states),
+                                      assignment=assignment, sync=sync,
+                                      rid=rid)
         return shared, assignment
 
     # ---- multi-sender (§J) ------------------------------------------------

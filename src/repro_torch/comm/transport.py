@@ -34,7 +34,14 @@ slot, and the record's ``layers`` and bytes track P. ``RemoteTransport``
 (``repro_torch.comm.remote``) frames the same payload through a byte
 channel.
 
-Not ported yet: SSM state leaves on the wire (``roundtrip_states``).
+SSM states (the state-sharing analogue for attention-free layers) ride
+beside the KV on every transport: the selected layers of each state leaf
+are encoded at ``state_wire_dtype`` (the wire dtype, or a plan's finest
+tier) and counted, and the receiver gets the dense stack with the
+unselected layers zeroed (``roundtrip_states``). The in-memory hand-over
+passes them through at their analytic bytes. Sequence-axis paging does not
+apply to a fixed-size state, so a paged send ships the states beside its
+pages.
 """
 from __future__ import annotations
 
@@ -194,6 +201,14 @@ def wire_has_scales(wire_dtype) -> bool:
     return wd in _SCALED_WIRES
 
 
+def state_wire_dtype(wire_dtype) -> str:
+    """The uniform dtype state leaves travel at on this wire: the wire
+    dtype itself, or a plan's finest tier (a per-slot plan does not index
+    the full-depth state stacks)."""
+    wd = resolve_wire_dtype(wire_dtype)
+    return wd.state_dtype if isinstance(wd, WirePlan) else wd
+
+
 def wire_array_count(wire_dtype) -> int:
     """How many arrays ``encode_wire`` emits for one stacked payload part."""
     wd = resolve_wire_dtype(wire_dtype)
@@ -211,9 +226,10 @@ def _nbytes(t: torch.Tensor) -> int:
 def _take(x: torch.Tensor, slots) -> torch.Tensor:
     """x[slots] along the leading axis by stacking views (indexing with a
     host list would copy the index to the card and wait for the stream)."""
-    if list(slots) == list(range(x.shape[0])):
+    slots = list(slots)
+    if slots == list(range(x.shape[0])):
         return x
-    return torch.stack([x[i] for i in slots])
+    return torch.stack([x[i] for i in slots]) if slots else x[:0]
 
 
 def _pack_int4(q: torch.Tensor) -> torch.Tensor:
@@ -394,6 +410,26 @@ def roundtrip_kv(payload, wire_dtype, dtype, device):
     return out, n
 
 
+def roundtrip_states(states, state_select, wire_dtype):
+    """Encode the selected SSM layers of every state leaf at
+    ``state_wire_dtype`` and decode them back; returns (the receiver's
+    dense states, unselected layers zeroed; the counted bytes)."""
+    if states is None or state_select is None:
+        return states, 0
+    wd = state_wire_dtype(wire_dtype)
+    sel = selected_layer_ids(state_select)
+    out, counted = {}, 0
+    for key, x in states.items():
+        wire, n = encode_wire(_take(x, sel), wd)
+        counted += n
+        part = decode_wire(wire, wd, x.dtype, x.device)
+        dense = torch.zeros_like(x)
+        for j, m in enumerate(sel):
+            dense[m] = part[j]
+        out[key] = dense
+    return out, counted
+
+
 @dataclass
 class HostWire:
     """The wire arrays of one packed {"k","v"} payload on the host, per
@@ -447,11 +483,31 @@ def selected_count(select) -> int:
     return 0 if select is None else int(select.sum())
 
 
-def payload_bytes(kv, select) -> int:
-    """Analytic bytes of the selected subset of a KV stack at its dtype."""
-    _, B, Sc, Hkv, Dh = kv["k"].shape
-    return (2 * selected_count(select) * B * Sc * Hkv * Dh
-            * kv["k"].element_size())
+def payload_bytes(kv, select, states=None, state_select=None,
+                  itemsize: Optional[int] = None) -> int:
+    """Analytic bytes of the selected subset of a KV stack at its dtype
+    (``itemsize`` overrides it), plus the selected share of the SSM
+    states."""
+    n = 0
+    if kv is not None:
+        _, B, Sc, Hkv, Dh = kv["k"].shape
+        isz = itemsize if itemsize is not None else kv["k"].element_size()
+        n += 2 * selected_count(select) * B * Sc * Hkv * Dh * isz
+    if states is not None and state_select is not None:
+        leaves = list(states.values())
+        total = sum(_nbytes(x) for x in leaves)
+        n += int(total * selected_count(state_select)
+                 / max(leaves[0].shape[0], 1))
+    return n
+
+
+def _device_of(kv, states) -> torch.device:
+    """The device a transfer's tensors live on."""
+    if kv is not None:
+        return kv["k"].device
+    if states:
+        return next(iter(states.values())).device
+    return torch.device("cpu")
 
 
 def assignment_bytes(kv, assignment: LayerAssignment,
@@ -574,10 +630,11 @@ class Transport(abc.ABC):
         return n
 
     def send(self, cfg: ModelConfig, kvcfg: KVCommConfig, kv, select,
+             states=None, state_select=None,
              assignment: Optional[LayerAssignment] = None,
              sync: Optional[bool] = None) -> SharedKV:
-        """Move the selected KV across; return the receiver-side view and
-        record a TransferRecord.
+        """Move the selected KV (and the selected SSM states) across;
+        return the receiver-side view and record a TransferRecord.
 
         ``assignment`` switches on the heterogeneous path: the wire carries
         the assignment's sender layers (``src``, possibly fewer than the
@@ -586,39 +643,45 @@ class Transport(abc.ABC):
         do_sync = self.sync if sync is None else sync
         if do_sync:
             self.flush_latency()
-        cuda = kv["k"].device.type == "cuda"
+        dev = _device_of(kv, states)
         t0 = time.perf_counter()
-        if self.store is not None:
+        if self.store is not None and kv is not None:
             # a transport whose own paged exchange reads host bytes
-            # (RemoteTransport's) keeps the eager ingest under sync=False
-            if do_sync or type(self)._send_paged is not Transport._send_paged:
-                shared = self._send_paged(kvcfg, kv, select, assignment)
+            # (RemoteTransport's), and a send with states, keep the eager
+            # ingest under sync=False
+            if do_sync or states is not None \
+                    or type(self)._send_paged is not Transport._send_paged:
+                shared = self._send_paged(kvcfg, kv, select, states,
+                                          state_select, assignment)
             else:
                 shared = self._send_paged_deferred(kvcfg, kv, select,
                                                    assignment)
         elif assignment is not None:
-            shared = self._send_mapped(cfg, kvcfg, kv, assignment)
+            shared = self._send_mapped(cfg, kvcfg, kv, assignment, states,
+                                       state_select)
         else:
-            shared = self._send(cfg, kvcfg, kv, select)
+            shared = self._send(cfg, kvcfg, kv, select, states,
+                                state_select)
         if do_sync:
-            if cuda:
-                torch.cuda.synchronize(kv["k"].device)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
             self.log[-1].latency_s = time.perf_counter() - t0
         else:
             ev = None
-            if cuda:
+            if dev.type == "cuda":
                 ev = torch.cuda.Event()
                 ev.record()
             self._pending.append((self.log[-1], t0, ev))
         return shared
 
     @abc.abstractmethod
-    def _send(self, cfg: ModelConfig, kvcfg: KVCommConfig, kv,
-              select) -> SharedKV:
+    def _send(self, cfg: ModelConfig, kvcfg: KVCommConfig, kv, select,
+              states=None, state_select=None) -> SharedKV:
         """Transport-specific transfer; must append a TransferRecord."""
 
     def _send_mapped(self, cfg: ModelConfig, kvcfg: KVCommConfig, kv,
-                     assignment: LayerAssignment) -> SharedKV:
+                     assignment: LayerAssignment, states=None,
+                     state_select=None) -> SharedKV:
         """Heterogeneous transfer under a ``LayerAssignment``; must append a
         TransferRecord whose ``layers`` is the mapped pair count. A
         subclass that only implements ``_send`` cannot serve it."""
@@ -637,6 +700,15 @@ class Transport(abc.ABC):
         name = str(kv["k"].dtype).replace("torch.", "")
         return name if name in _WIRE_DTYPES else "float32"
 
+    def _paged_states(self, states, state_select):
+        """States ride beside the paged KV: a wire-dtype transport
+        round-trips them through the codec, the in-memory hand-over passes
+        them through at their analytic bytes. Returns (states, bytes)."""
+        wd = getattr(self, "wire_dtype", None)
+        if wd is None:
+            return states, payload_bytes(None, None, states, state_select)
+        return roundtrip_states(states, state_select, wd)
+
     def _record_paged(self, rec: TransferRecord, table, novel,
                       novel_bytes: int) -> None:
         rec.n_bytes = novel_bytes + table.scale_nbytes
@@ -644,14 +716,15 @@ class Transport(abc.ABC):
         rec.pages_sent = len(novel)
         rec.pages_hit = table.num_pages - len(novel)
 
-    def _send_paged(self, kvcfg: KVCommConfig, kv, select,
+    def _send_paged(self, kvcfg: KVCommConfig, kv, select, states=None,
+                    state_select=None,
                     assignment: Optional[LayerAssignment] = None
                     ) -> SharedKV:
         """Gather the selected (or assignment-mapped) payload, ingest it
         into the attached store (dedup against the pool happens there) and
         materialize the receiver view back out of the pool, so the receiver
         consumes what the pages hold. Counted bytes are the novel pages
-        plus the scales."""
+        plus the scales and the states."""
         self._settle_ingests()      # older deferred ingests land first
         payload, layers, src_layers, sel_mask, count = _mapped_or_selected(
             kv, select, assignment)
@@ -662,7 +735,11 @@ class Transport(abc.ABC):
         # ingest pinned the table: release it if anything fails before the
         # swap, so an aborted send leaks no refcounts into the pool
         try:
-            shared = self.store.materialize(table, device=kv["k"].device)
+            rx_states, state_bytes = self._paged_states(states,
+                                                        state_select)
+            shared = self.store.materialize(table, device=kv["k"].device,
+                                            states=rx_states,
+                                            state_select=state_select)
             if not self.packed:
                 shared = shared.to_dense()
             self._swap_table(table)
@@ -673,6 +750,7 @@ class Transport(abc.ABC):
                              context_len=table.prefix_len,
                              wire_dtype=self._wire_spec())
         self._record_paged(rec, table, novel, novel_bytes)
+        rec.n_bytes += state_bytes
         self.log.append(rec)
         return shared
 
@@ -751,21 +829,25 @@ class InMemoryTransport(Transport):
     gathers the M selected layers). Bytes are the analytic payload size at
     the KV's own dtype."""
 
-    def _send(self, cfg, kvcfg, kv, select) -> SharedKV:
+    def _send(self, cfg, kvcfg, kv, select, states=None,
+              state_select=None) -> SharedKV:
         build = pack_shared if self.packed else build_shared
-        shared = build(kvcfg, kv, select)
-        self._record_kv(payload_bytes(kv, select), select, shared.prefix_len,
-                        wire_dtype="model")
+        shared = build(kvcfg, kv, select, states, state_select)
+        self._record_kv(payload_bytes(kv, select, states, state_select),
+                        select, shared.prefix_len, wire_dtype="model")
         return shared
 
-    def _send_mapped(self, cfg, kvcfg, kv, assignment) -> SharedKV:
-        if self.packed:
-            shared = pack_mapped(kvcfg, kv, assignment)
+    def _send_mapped(self, cfg, kvcfg, kv, assignment, states=None,
+                     state_select=None) -> SharedKV:
+        if kv is None or self.packed:
+            shared = pack_mapped(kvcfg, kv, assignment, states, state_select)
         else:
             shared = scatter_mapped(kvcfg, gather_mapped(kv, assignment),
-                                    assignment, int(kv["k"].shape[2]))
+                                    assignment, int(kv["k"].shape[2]),
+                                    states, state_select)
         self.log.append(TransferRecord(
-            kind="kv", n_bytes=assignment_bytes(kv, assignment),
+            kind="kv", n_bytes=assignment_bytes(kv, assignment)
+            + payload_bytes(None, None, states, state_select),
             layers=assignment.num_pairs, context_len=shared.prefix_len,
             wire_dtype="model"))
         return shared
@@ -785,33 +867,55 @@ class SerializedTransport(Transport):
         super().__init__(packed=packed, sync=sync, store=store)
         self.wire_dtype = resolve_wire_dtype(wire_dtype)
 
-    def _send(self, cfg, kvcfg, kv, select) -> SharedKV:
-        prefix_len = int(kv["k"].shape[2])
+    def _roundtrip(self, kv, payload, states, state_select):
+        """(decoded KV payload or None, decoded states, counted bytes) of a
+        gathered payload (None without KV)."""
+        rx, n_bytes = None, 0
+        if kv is not None:
+            rx, n_bytes = roundtrip_kv(payload, self.wire_dtype,
+                                       kv["k"].dtype, kv["k"].device)
+        rx_states, state_bytes = roundtrip_states(states, state_select,
+                                                  self.wire_dtype)
+        return rx, rx_states, n_bytes + state_bytes
+
+    def _send(self, cfg, kvcfg, kv, select, states=None,
+              state_select=None) -> SharedKV:
         layers = selected_layer_ids(select)
-        rx, n_bytes = roundtrip_kv(gather_selected(kv, select),
-                                   self.wire_dtype, kv["k"].dtype,
-                                   kv["k"].device)
-        if self.packed:
-            shared = build_packed(kvcfg, rx, layers, prefix_len,
-                                  select=select)
+        rx, rx_states, n_bytes = self._roundtrip(
+            kv, None if kv is None else gather_selected(kv, select), states,
+            state_select)
+        if kv is None:
+            shared = build_shared(kvcfg, None, select, rx_states,
+                                  state_select)
+        elif self.packed:
+            shared = build_packed(kvcfg, rx, layers, int(kv["k"].shape[2]),
+                                  select=select, states=rx_states,
+                                  state_select=state_select)
         else:
             dense = {}
             for part in ("k", "v"):
                 dense[part] = torch.zeros_like(kv[part])
                 for m, l in enumerate(layers):
                     dense[part][l] = rx[part][m]
-            shared = build_shared(kvcfg, dense, select)
-        self._record_kv(n_bytes, select, prefix_len,
+            shared = build_shared(kvcfg, dense, select, rx_states,
+                                  state_select)
+        self._record_kv(n_bytes, select, shared.prefix_len,
                         wire_dtype=self._wire_spec())
         return shared
 
-    def _send_mapped(self, cfg, kvcfg, kv, assignment) -> SharedKV:
-        prefix_len = int(kv["k"].shape[2])
-        rx, n_bytes = roundtrip_kv(gather_mapped(kv, assignment),
-                                   self.wire_dtype, kv["k"].dtype,
-                                   kv["k"].device)
-        build = build_mapped if self.packed else scatter_mapped
-        shared = build(kvcfg, rx, assignment, prefix_len)
+    def _send_mapped(self, cfg, kvcfg, kv, assignment, states=None,
+                     state_select=None) -> SharedKV:
+        rx, rx_states, n_bytes = self._roundtrip(
+            kv, None if kv is None else gather_mapped(kv, assignment),
+            states, state_select)
+        if kv is None:
+            shared = pack_mapped(kvcfg, None, assignment, rx_states,
+                                 state_select)
+        else:
+            build = build_mapped if self.packed else scatter_mapped
+            shared = build(kvcfg, rx, assignment, int(kv["k"].shape[2]),
+                           rx_states, state_select)
+        prefix_len = shared.prefix_len
         self.log.append(TransferRecord(
             kind="kv", n_bytes=n_bytes, layers=assignment.num_pairs,
             context_len=prefix_len, wire_dtype=self._wire_spec()))

@@ -9,6 +9,7 @@ that only the reference's XLA path reads (``attn_impl``, ``remat``,
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -105,8 +106,8 @@ class ModelConfig:
         return self.d_model // self.num_heads if self.num_heads else 0
 
     def layer_plan(self) -> Tuple[LayerSpec, ...]:
-        """Group layers into homogeneous runs (the port raises on every
-        run that is not dense full attention)."""
+        """Group layers into homogeneous runs (``check_supported`` in
+        ``models.transformer`` names the runs the port executes)."""
         if self.arch_type == "ssm":  # rwkv6
             return (LayerSpec(kind="rwkv", count=self.num_layers),)
         if self.arch_type == "hybrid":  # zamba2: k mamba layers then shared attn
@@ -137,6 +138,47 @@ class ModelConfig:
                           cross_attn=self.encoder_layers > 0),)
 
     @property
+    def supports_kv_sharing(self) -> bool:
+        """Does the paper's KV protocol apply (any attention layers)?"""
+        return any(s.kind in ("attn", "shared_attn")
+                   for s in self.layer_plan())
+
+    @property
     def attn_layer_count(self) -> int:
         return sum(s.count for s in self.layer_plan()
                    if s.kind in ("attn", "shared_attn"))
+
+    def reduced(self, **overrides) -> "ModelConfig":
+        """Tiny same-family variant for CPU tests (the reference's rule)."""
+        small = dict(
+            num_layers=2, d_model=min(self.d_model, 128),
+            d_ff=min(self.d_ff, 256), vocab_size=min(self.vocab_size, 512),
+            head_dim=32,
+        )
+        if self.num_heads:
+            small["num_heads"] = min(self.num_heads, 4)
+            small["num_kv_heads"] = min(self.num_kv_heads, 2)
+            if self.num_heads == self.num_kv_heads:  # MHA-style families
+                small["num_kv_heads"] = small["num_heads"]
+        if self.num_experts:
+            small["num_experts"] = min(self.num_experts, 4)
+            small["num_experts_per_tok"] = min(self.num_experts_per_tok, 2)
+        if self.encoder_layers:
+            small["encoder_layers"] = 2
+            small["encoder_seq"] = 16
+        if self.num_patches:
+            small["num_patches"] = 8
+        if self.hybrid_attn_every:
+            small["hybrid_attn_every"] = 1
+            small["num_layers"] = 2
+        if self.arch_type in ("ssm", "hybrid"):
+            small["ssm_head_dim"] = 32
+            small["ssm_state"] = min(self.ssm_state or 16, 16)
+        if self.sliding_window is not None:
+            small["sliding_window"] = 8
+        if self.local_global_ratio:
+            small["local_global_ratio"] = 1
+            small["local_window"] = 8
+            small["num_layers"] = 2
+        small.update(overrides)
+        return dataclasses.replace(self, **small)

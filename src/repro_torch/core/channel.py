@@ -54,7 +54,7 @@ def combine_senders(shareds: List[SharedKV]) -> SharedKV:
     along the context axis, in order. Packed views with one layer map stay
     packed (``src_layers`` kept only when every sender has the same one);
     otherwise the dense views concatenate and their selection masks are
-    OR-combined."""
+    OR-combined. The SSM states are the base (first) sender's."""
     if not shareds:
         raise ValueError("need at least one sender")
     base = shareds[0]
@@ -69,13 +69,15 @@ def combine_senders(shareds: List[SharedKV]) -> SharedKV:
                if len({s.src_layers for s in shareds}) == 1 else None)
         return SharedKV(packed_kv=packed, layers=base.layers,
                         src_layers=src, select=base.select,
+                        states=base.states, state_select=base.state_select,
                         prefix_len=prefix_len, pos_mode=base.pos_mode)
     dense = [s.to_dense() for s in shareds]
     kv = {p: torch.cat([s.kv[p] for s in dense], dim=2) for p in ("k", "v")}
     select = base.select
     for s in dense[1:]:
         select = select | s.select
-    return SharedKV(kv=kv, select=select, prefix_len=prefix_len,
+    return SharedKV(kv=kv, select=select, states=base.states,
+                    state_select=base.state_select, prefix_len=prefix_len,
                     pos_mode=base.pos_mode)
 
 

@@ -1,7 +1,8 @@
 """The KVComm protocol (paper §3.1), end to end, in PyTorch.
 
   sender_prefill    — M_s consumes the context C in one forward pass and
-                      exports its per-layer KV.
+                      exports its per-layer KV and its SSM layers' final
+                      states (the state-sharing analogue).
   calibrate         — M_r prefills the calibration query with every layer
                       shared and measures the Eq. (1) masses.
   make_selection    — masses + KVCommConfig -> the layer subset S.
@@ -18,7 +19,7 @@ jit specialization has no counterpart yet.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -41,33 +42,59 @@ def _check_backend(backend: str) -> None:
 # ---------------------------------------------------------------------------
 # sender side
 # ---------------------------------------------------------------------------
-def extract_kv(cfg: ModelConfig, cache) -> Dict[str, torch.Tensor]:
-    """{"k","v"} of (L_attn, B, Sc, Hkv, Dh) from a prefill cache."""
+def extract_kv(cfg: ModelConfig, cache) -> Optional[Dict[str, torch.Tensor]]:
+    """{"k","v"} of (L_attn, B, Sc, Hkv, Dh) from a prefill cache (None for
+    an attention-free model)."""
+    if not cache["layers"]:
+        return None
     return {p: torch.stack([e[p] for e in cache["layers"]])
             for p in ("k", "v")}
 
 
+def extract_states(cfg: ModelConfig, cache) -> Optional[Dict[str, Any]]:
+    """The SSM layers' final states stacked on a leading L_ssm axis (None
+    for a model without SSM layers)."""
+    sts = cache.get("states")
+    if not sts:
+        return None
+    return {key: torch.stack([st[key] for st in sts]) for key in sts[0]}
+
+
 @torch.no_grad()
 def sender_prefill(params, cfg: ModelConfig, context_tokens: torch.Tensor
-                   ) -> Dict[str, torch.Tensor]:
-    """One forward pass of M_s over C; returns its per-layer KV."""
+                   ) -> Tuple[Optional[Dict[str, torch.Tensor]],
+                              Optional[Dict[str, Any]]]:
+    """One forward pass of M_s over C. Returns (kv, states)."""
     B, Sc = context_tokens.shape
     cache = tfm.init_cache(cfg, B, Sc, device=context_tokens.device)
     out = tfm.apply_model(params, cfg, context_tokens, mode="cached",
                           cache=cache, logits_mode="last")
-    return extract_kv(cfg, out.cache)
+    return extract_kv(cfg, out.cache), extract_states(cfg, out.cache)
 
 
 # ---------------------------------------------------------------------------
 # calibration + selection
 # ---------------------------------------------------------------------------
+def _n_ssm(cfg: ModelConfig) -> int:
+    return sum(s.count for s in cfg.layer_plan()
+               if s.kind in ("mamba", "rwkv"))
+
+
+def _all_states(cfg: ModelConfig, states) -> Optional[torch.Tensor]:
+    """The state mask that shares every SSM layer (None without states)."""
+    return (None if states is None
+            else torch.ones((_n_ssm(cfg),), dtype=torch.bool))
+
+
 @torch.no_grad()
-def calibrate(receiver_params, cfg: ModelConfig, query_tokens, kv
-              ) -> torch.Tensor:
-    """Prefill Q with every layer shared, measuring Eq. (1) masses.
-    Returns the normalized scores S_a, (L_attn,) float32 on the CPU."""
+def calibrate(receiver_params, cfg: ModelConfig, query_tokens, kv,
+              states=None) -> torch.Tensor:
+    """Prefill Q with every layer (and every SSM state) shared, measuring
+    Eq. (1) masses. Returns the normalized scores S_a, (L_attn,) float32 on
+    the CPU."""
     L = cfg.attn_layer_count
     shared = SharedKV(kv=kv, select=torch.ones((L,), dtype=torch.bool),
+                      states=states, state_select=_all_states(cfg, states),
                       prefix_len=kv["k"].shape[2])
     out = receiver_prefill(receiver_params, cfg, query_tokens, shared,
                            max_new=0, collect_mass=True)
@@ -90,21 +117,30 @@ def selected_layer_ids(select) -> Tuple[int, ...]:
     return tuple(int(i) for i in torch.nonzero(select.cpu()).flatten())
 
 
-def build_shared(kvcfg: KVCommConfig, kv, select) -> SharedKV:
-    """The dense view: the full stack plus the selection mask."""
-    return SharedKV(kv=kv, select=select.cpu(),
+def _host(mask) -> Optional[torch.Tensor]:
+    return None if mask is None else torch.as_tensor(mask).cpu()
+
+
+def build_shared(kvcfg: KVCommConfig, kv, select, states=None,
+                 state_select=None) -> SharedKV:
+    """The dense view: the full stack plus the selection mask (and the
+    SSM states with their mask)."""
+    return SharedKV(kv=kv, select=_host(select), states=states,
+                    state_select=_host(state_select),
                     prefix_len=0 if kv is None else kv["k"].shape[2],
                     pos_mode=kvcfg.pos_mode)
 
 
 def build_packed(kvcfg: KVCommConfig, payload, layers: Sequence[int],
-                 prefix_len: int, select) -> SharedKV:
+                 prefix_len: int, select, states=None,
+                 state_select=None) -> SharedKV:
     """The packed view from an already-gathered (M, B, Sc, Hkv, Dh)
     payload and its layer map."""
     if select is None:
         raise ValueError("build_packed needs the (L,) selection mask")
     return SharedKV(packed_kv=payload, layers=tuple(int(i) for i in layers),
-                    select=select.cpu(), prefix_len=prefix_len,
+                    select=_host(select), states=states,
+                    state_select=_host(state_select), prefix_len=prefix_len,
                     pos_mode=kvcfg.pos_mode)
 
 
@@ -117,11 +153,16 @@ def gather_selected(kv, select) -> Dict[str, torch.Tensor]:
                 else kv[p][:0]) for p in ("k", "v")}
 
 
-def pack_shared(kvcfg: KVCommConfig, kv, select) -> SharedKV:
-    """Gather the selected layers into the packed view."""
+def pack_shared(kvcfg: KVCommConfig, kv, select, states=None,
+                state_select=None) -> SharedKV:
+    """Gather the selected layers into the packed view (a KV-less transfer
+    keeps the dense form)."""
+    if kv is None:
+        return build_shared(kvcfg, None, select, states, state_select)
     return build_packed(kvcfg, gather_selected(kv, select),
                         selected_layer_ids(select), int(kv["k"].shape[2]),
-                        select=select)
+                        select=select, states=states,
+                        state_select=state_select)
 
 
 # ---------------------------------------------------------------------------
@@ -137,25 +178,33 @@ def gather_mapped(kv, assignment) -> Dict[str, torch.Tensor]:
 
 
 def build_mapped(kvcfg: KVCommConfig, payload, assignment,
-                 prefix_len: int) -> SharedKV:
+                 prefix_len: int, states=None,
+                 state_select=None) -> SharedKV:
     """The packed receiver-side view of a gathered mapped payload:
     ``layers`` are the receiver slots (what the packed cache partitions
     on), ``src_layers`` the sender provenance."""
     return SharedKV(packed_kv=payload, layers=tuple(assignment.dst),
                     src_layers=tuple(assignment.src),
                     select=torch.from_numpy(assignment.dst_mask()),
+                    states=states, state_select=_host(state_select),
                     prefix_len=prefix_len, pos_mode=kvcfg.pos_mode)
 
 
-def pack_mapped(kvcfg: KVCommConfig, kv, assignment) -> SharedKV:
+def pack_mapped(kvcfg: KVCommConfig, kv, assignment, states=None,
+                state_select=None) -> SharedKV:
     """``pack_shared`` for a heterogeneous pair: gather the assignment's
     sender layers and key the packed view by receiver slot."""
+    if kv is None:
+        return build_shared(kvcfg, None,
+                            torch.from_numpy(assignment.dst_mask()),
+                            states, state_select)
     return build_mapped(kvcfg, gather_mapped(kv, assignment), assignment,
-                        int(kv["k"].shape[2]))
+                        int(kv["k"].shape[2]), states, state_select)
 
 
 def scatter_mapped(kvcfg: KVCommConfig, payload, assignment,
-                   prefix_len: int) -> SharedKV:
+                   prefix_len: int, states=None,
+                   state_select=None) -> SharedKV:
     """The dense receiver-side view of a mapped payload: a zero-padded
     (L_dst, ...) stack with each packed slice in its receiver slot
     (``select`` masks the zeros)."""
@@ -167,6 +216,7 @@ def scatter_mapped(kvcfg: KVCommConfig, payload, assignment,
             dense[j] = p[m]
         kv[part] = dense
     return SharedKV(kv=kv, select=torch.from_numpy(assignment.dst_mask()),
+                    states=states, state_select=_host(state_select),
                     prefix_len=prefix_len, pos_mode=kvcfg.pos_mode)
 
 
@@ -188,6 +238,7 @@ def pad_prefix(shared: SharedKV, prefix_len: int) -> SharedKV:
                 for p in ("k", "v")}
 
     return SharedKV(kv=pad_kv(shared.kv), select=shared.select,
+                    states=shared.states, state_select=shared.state_select,
                     prefix_len=prefix_len, pos_mode=shared.pos_mode,
                     packed_kv=pad_kv(shared.packed_kv), layers=shared.layers)
 

@@ -21,9 +21,16 @@ class SharedKV:
 
     ``select`` is an (L_attn,) bool tensor on the CPU: selections are frozen
     on the host, so building a cache from it never waits on the card.
+
+    ``states`` is the state-sharing analogue for SSM layers: a dict of
+    per-layer state leaves stacked on a leading L_ssm axis (float32), and
+    ``state_select`` the (L_ssm,) bool mask (CPU) of the layers whose
+    state the receiver starts from.
     """
     kv: Optional[dict] = None
     select: Optional[torch.Tensor] = None
+    states: Optional[dict] = None
+    state_select: Optional[torch.Tensor] = None
     prefix_len: int = 0
     pos_mode: str = "shift"          # "shift" (paper) | "zero_unselected"
     packed_kv: Optional[dict] = None
@@ -59,6 +66,7 @@ class SharedKV:
 
     @classmethod
     def from_wire(cls, meta: dict, payload: Optional[dict] = None,
+                  states=None, state_select=None,
                   num_layers: Optional[int] = None) -> "SharedKV":
         """Rebuild a receiver-side view from ``wire_meta()`` output and the
         decoded (M, B, Sc, Hkv, Dh) payload. The wire always carries the
@@ -71,7 +79,8 @@ class SharedKV:
         src_layers = (None if meta["src_layers"] is None
                       else tuple(int(i) for i in meta["src_layers"]))
         shared = cls(packed_kv=payload, layers=layers, src_layers=src_layers,
-                     select=select, prefix_len=int(meta["prefix_len"]),
+                     select=select, states=states, state_select=state_select,
+                     prefix_len=int(meta["prefix_len"]),
                      pos_mode=meta["pos_mode"])
         if payload is not None and not meta.get("packed", True):
             return shared.to_dense(num_layers)
@@ -91,8 +100,9 @@ class SharedKV:
                 for m, l in enumerate(self.layers):
                     dense[l] = pk[m]
                 kv[part] = dense
-        return SharedKV(kv=kv, select=self.select, prefix_len=self.prefix_len,
-                        pos_mode=self.pos_mode)
+        return SharedKV(kv=kv, select=self.select, states=self.states,
+                        state_select=self.state_select,
+                        prefix_len=self.prefix_len, pos_mode=self.pos_mode)
 
 
 @dataclass(frozen=True)

@@ -44,6 +44,7 @@ from repro_torch.comm.remote import (ChannelClosedError, KVStreamAssembler,
                                      SocketChannel, build_health_meta,
                                      decode_kv_transfer, encode_frame,
                                      read_frame, send_shared)
+from repro_torch.core import protocol
 from repro_torch.core.types import KVCommConfig, SharedKV
 
 # the resident page IDs a health_ack ships at most (the affinity signal)
@@ -320,16 +321,18 @@ class KVServer:
 def export_pages(sender: Agent, context: np.ndarray, kvcfg: KVCommConfig,
                  select, *, page_len: int = 16, wire_dtype="float16"):
     """The sender's KV over ``context``, its ``select``-ed layers split into
-    content-addressed pages, with no wire exchange: ``(table, pages)``.
-    The router splits once to score replicas by page overlap;
-    ``KVClient.share_pages`` ships the result."""
-    from repro_torch.core.protocol import gather_selected, selected_layer_ids
+    content-addressed pages, with no wire exchange: ``(table, pages,
+    states, state_select)`` (every SSM layer's state ships; both None
+    without SSM layers). The router splits once to score replicas by page
+    overlap; ``KVClient.share_pages`` ships the result."""
     from repro_torch.store.paging import split_payload
-    kv, _ = sender.export_kv(context)
-    return split_payload(
-        gather_selected(kv, select), layers=selected_layer_ids(select),
+    kv, states, _ = sender.export_kv(context)
+    table, pages = split_payload(
+        protocol.gather_selected(kv, select),
+        layers=protocol.selected_layer_ids(select),
         select=select, page_len=page_len, wire_dtype=wire_dtype,
         pos_mode=kvcfg.pos_mode)
+    return table, pages, states, protocol._all_states(sender.cfg, states)
 
 
 class KVClient:
@@ -392,9 +395,11 @@ class KVClient:
         stream restarts under a fresh sid. Returns (and accumulates) the
         payload wire bytes."""
         def once():
-            kv, _ = sender.export_kv(context)
+            kv, states, _ = sender.export_kv(context)
             sid, self._sid = self._sid, self._sid + 1
-            n = send_shared(self.channel, kvcfg, kv, select,
+            n = send_shared(self.channel, kvcfg, kv, select, states=states,
+                            state_select=protocol._all_states(sender.cfg,
+                                                              states),
                             wire_dtype=wire_dtype, packed=packed,
                             chunk_bytes=chunk_bytes, sid=sid)
             self.sent_bytes += n
@@ -411,27 +416,27 @@ class KVClient:
         (``page_data``). Returns ``(payload bytes, pages_total,
         pages_sent)``."""
         def once():
-            table, pages = export_pages(sender, context, kvcfg, select,
-                                        page_len=page_len,
-                                        wire_dtype=wire_dtype)
-            return self._share_pages_once(table, pages, wire_dtype)
+            return self._share_pages_once(*export_pages(
+                sender, context, kvcfg, select, page_len=page_len,
+                wire_dtype=wire_dtype), wire_dtype)
         out = self._with_retry(once, "paged remote share", replay=False)
         self._reshare = once
         return out
 
-    def share_pages(self, table, pages, *, wire_dtype="float16"
-                    ) -> Tuple[int, int, int]:
-        """Ship an already-split page set (``export_pages``) through the
-        dedup handshake: the fabric's entry point. Retries and replays as
-        ``share_paged``."""
+    def share_pages(self, table, pages, *, wire_dtype="float16",
+                    states=None, state_select=None) -> Tuple[int, int, int]:
+        """Ship an already-split page set (``export_pages``, with its
+        states) through the dedup handshake: the fabric's entry point.
+        Retries and replays as ``share_paged``."""
         def once():
-            return self._share_pages_once(table, pages, wire_dtype)
+            return self._share_pages_once(table, pages, states,
+                                          state_select, wire_dtype)
         out = self._with_retry(once, "paged remote share", replay=False)
         self._reshare = once
         return out
 
-    def _share_pages_once(self, table, pages, wire_dtype
-                          ) -> Tuple[int, int, int]:
+    def _share_pages_once(self, table, pages, states, state_select,
+                          wire_dtype) -> Tuple[int, int, int]:
         from repro_torch.store.wire import (decode_page_need,
                                             encode_page_data,
                                             encode_page_query)
@@ -444,7 +449,8 @@ class KVClient:
         _, need = decode_page_need(meta)
         by_id = {p.page_id: p for p in pages}
         frame, n = encode_page_data(xid, [by_id[pid] for pid in need],
-                                    wire_dtype=wire_dtype)
+                                    wire_dtype=wire_dtype, states=states,
+                                    state_select=state_select)
         self.channel.write(frame)
         n += table.scale_nbytes
         self.sent_bytes += n

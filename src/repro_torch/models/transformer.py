@@ -1,12 +1,20 @@
-"""The port's attention-only decoder: init, serving cache, forward.
+"""The port's decoder: init, serving cache, forward.
 
-Parameters are a plain dict of tensors with one entry per layer
-(``params["layers"][l]``), and the serving cache keeps one entry per layer;
-a Python loop over layers takes the place of the reference's ``lax.scan``
-over stacked runs.
+Parameters are a plain dict of tensors with one entry per executed layer
+in layer-plan order (``params["layers"][i]``): an attention layer holds
+``ln1``/``attn``/``ln2``/``mlp``, an RWKV6 layer ``ln1``/``ln2``/``rwkv``,
+a Mamba2 layer ``ln``/``mamba``. Zamba's shared attention block lives once
+in ``params["shared_attn"]`` and every invocation's entry is that same
+dict (the same tensors, not copies). A Python loop over layers takes the
+place of the reference's ``lax.scan`` over stacked runs.
+
+The serving cache keeps one entry per attention layer (``"layers"``,
+shared-attention invocations included, each with its own buffers) and,
+for a model with SSM layers, one state dict per SSM layer (``"states"``,
+float32 whatever the model dtype).
 
 KVComm enters through ``shared`` (a ``repro_torch.core.SharedKV``). Its two
-views map onto per-layer cache entries:
+KV views map onto per-layer cache entries:
 
   * packed — a selected layer gets a buffer of ``max_len + prefix_len``
     that holds its sender prefix; an unselected layer gets a prefix-free
@@ -16,10 +24,15 @@ views map onto per-layer cache entries:
   * dense — every layer holds the prefix and ``ctx_valid`` masks it on
     unselected layers.
 
+Its ``states`` seed the SSM layers (the state-sharing protocol): a layer
+flagged in ``state_select`` starts from the sender's final state, the rest
+from zeros.
+
 The comparison methods enter through three more arguments: ``extra``
-soft embeddings (CIPHER), ``capture_hidden`` (each layer's last-token
-input, the AC wire payload) and ``inject`` (AC, dense path only).
-SSM, MoE, cross-attention and encoders are not ported yet and raise.
+soft embeddings (CIPHER), ``capture_hidden`` (each attention layer's
+last-token input, the AC wire payload) and ``inject`` (AC, dense path
+only). MoE, sliding windows, cross-attention, encoders and patches are not
+ported yet and raise.
 """
 from __future__ import annotations
 
@@ -29,6 +42,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_mlp, dense_init, embed_init,
                                        init_mlp, rms_norm)
 
@@ -44,14 +58,19 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+SSM_KINDS = ("mamba", "rwkv")
+ATTN_KINDS = ("attn", "shared_attn")
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what this slice of the port does not cover yet."""
+    """Raise for what the port does not cover yet."""
     for spec in cfg.layer_plan():
-        if spec.kind != "attn" or spec.moe or spec.cross_attn \
+        if spec.kind not in ATTN_KINDS + SSM_KINDS or spec.moe \
+                or spec.cross_attn \
                 or any(w is not None for w in spec.layer_windows()):
             raise NotImplementedError(
-                f"{cfg.name}: only dense full-attention layers are ported "
-                f"(got {spec})")
+                f"{cfg.name}: only dense full-attention, shared-attention, "
+                f"RWKV6 and Mamba2 layers are ported (got {spec})")
     if cfg.encoder_layers or cfg.num_patches or cfg.arch_type == "audio" \
             or cfg.name.startswith("starcoder"):
         raise NotImplementedError(f"{cfg.name}: encoder / patch / gelu "
@@ -75,13 +94,27 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device) -> Dict[str, Any]:
         "final_norm": torch.zeros((d,), dtype=dt, device=device),
         "layers": [],
     }
-    for _ in range(cfg.num_layers):
-        params["layers"].append({
-            "ln1": torch.zeros((d,), dtype=dt, device=device),
-            "attn": attn_mod.init_attn(gen, cfg, dt, device),
-            "ln2": torch.zeros((d,), dtype=dt, device=device),
-            "mlp": init_mlp(gen, d, cfg.d_ff, dt, device),
-        })
+    zeros = lambda: torch.zeros((d,), dtype=dt, device=device)  # noqa: E731
+
+    def layer(kind):
+        if kind == "rwkv":
+            return {"ln1": zeros(), "ln2": zeros(),
+                    "rwkv": ssm_mod.init_rwkv(gen, cfg, dt, device)}
+        if kind == "mamba":
+            return {"ln": zeros(),
+                    "mamba": ssm_mod.init_mamba(gen, cfg, dt, device)}
+        return {"ln1": zeros(),
+                "attn": attn_mod.init_attn(gen, cfg, dt, device),
+                "ln2": zeros(),
+                "mlp": init_mlp(gen, d, cfg.d_ff, dt, device)}
+
+    for kind in layer_kinds(cfg):
+        if kind != "shared_attn":
+            params["layers"].append(layer(kind))
+            continue
+        if "shared_attn" not in params:   # one block, every invocation
+            params["shared_attn"] = layer("attn")
+        params["layers"].append(params["shared_attn"])
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (d, cfg.vocab_size), dt, device)
     return params
@@ -102,7 +135,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
     prefix_len = 0 if shared is None else shared.prefix_len
     Hkv, Dh = cfg.num_kv_heads, cfg.resolved_head_dim
     L = cfg.attn_layer_count
-    if shared is None:
+    if shared is None or shared.select is None:
         sel = [False] * L
     else:
         sel = [bool(b) for b in shared.select.tolist()]
@@ -123,7 +156,36 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
                 v[:, :prefix_len] = src["v"][i].to(dtype)
         layers.append({"k": k, "v": v, "prefix": has_prefix,
                        "ctx_valid": sel[l] if has_prefix else False})
-    return {"len": prefix_len, "layers": layers}
+    cache = {"len": prefix_len, "layers": layers}
+    kinds = [k for k in layer_kinds(cfg) if k in SSM_KINDS]
+    if kinds:
+        cache["states"] = [
+            _seed_state(_init_state(cfg, kind, batch, device), shared, j)
+            for j, kind in enumerate(kinds)]
+    return cache
+
+
+def layer_kinds(cfg: ModelConfig) -> List[str]:
+    """The kind of every executed layer, in layer-plan order."""
+    return [s.kind for s in cfg.layer_plan() for _ in range(s.count)]
+
+
+def _init_state(cfg, kind: str, batch: int, device) -> Dict[str, Any]:
+    init = (ssm_mod.init_mamba_state if kind == "mamba"
+            else ssm_mod.init_rwkv_state)
+    return init(cfg, batch, device=device)
+
+
+def _seed_state(st, shared, j: int):
+    """SSM layer ``j``'s initial state: the sender's where ``state_select``
+    flags the layer, zeros elsewhere, by the reference's blend
+    ``z * (1 - w) + s * w``."""
+    if shared is None or shared.states is None \
+            or shared.state_select is None:
+        return st
+    w = float(bool(shared.state_select[j]))
+    return {key: z * (1 - w) + shared.states[key][j].to(z) * w
+            for key, z in st.items()}
 
 
 def cache_insert_row(table: Dict[str, Any], row: Dict[str, Any], slot: int,
@@ -204,7 +266,7 @@ def apply_model(params, cfg: ModelConfig, tokens: torch.Tensor, *,
 
     ``extra={"soft_embeds": (B, n, D), "soft_start": i}`` replaces the
     embeddings of positions [i, i + n) (CIPHER's soft tokens).
-    ``capture_hidden`` returns each layer's last-token input in
+    ``capture_hidden`` returns each attention layer's last-token input in
     ``hiddens``, taken before any injection. ``inject={"vec": (L_attn, B,
     D), "mask": (L_attn,) bool, "mode": "replace" | "sum" | "mean"}``
     merges ``vec[l]`` into the last position's input of each flagged layer
@@ -231,7 +293,17 @@ def apply_model(params, cfg: ModelConfig, tokens: torch.Tensor, *,
         x[:, start:start + se.shape[1]] = se
     masses: List[torch.Tensor] = []
     hiddens: List[torch.Tensor] = []
-    for l, lp in enumerate(params["layers"]):
+    states = cache.get("states") if cache is not None else None
+    l = j = 0                       # attention and SSM layer indices
+    for kind, lp in zip(layer_kinds(cfg), params["layers"]):
+        if kind in SSM_KINDS:
+            st = (states[j] if states is not None
+                  else _init_state(cfg, kind, B, x.device))
+            x, new_st = _ssm_layer(lp, cfg, kind, x, st, mode)
+            if states is not None:
+                states[j] = new_st
+            j += 1
+            continue
         if capture_hidden:
             hiddens.append(x[:, -1, :])
         if flags[l]:
@@ -244,7 +316,8 @@ def apply_model(params, cfg: ModelConfig, tokens: torch.Tensor, *,
             has_prefix, sel = entry["prefix"], entry["ctx_valid"]
         else:
             entry, has_prefix = None, False
-            sel = bool(shared.select[l]) if shared is not None else False
+            sel = (shared is not None and shared.select is not None
+                   and bool(shared.select[l]))
         # positional shift: the real prefix length (paper default), or 0
         # on unselected layers under KVComm-S (zero_unselected)
         keep = sel or not zero_unsel
@@ -269,6 +342,7 @@ def apply_model(params, cfg: ModelConfig, tokens: torch.Tensor, *,
             masses.append(mass if mass is not None else
                           torch.zeros((B,), dtype=torch.float32,
                                       device=x.device))
+        l += 1
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if logits_mode == "last":
         x = x[:, -1:, :]
@@ -277,6 +351,25 @@ def apply_model(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     new_cache = None
     if mode == "cached":
         new_cache = {"len": cache_len + S, "layers": cache["layers"]}
+        if states is not None:
+            new_cache["states"] = states
     return ModelOut(logits=logits, cache=new_cache,
                     masses=torch.stack(masses) if masses else None,
                     hiddens=torch.stack(hiddens) if hiddens else None)
+
+
+def _ssm_layer(lp, cfg: ModelConfig, kind: str, x, st, mode: str):
+    """One Mamba2 or RWKV6 layer with its residuals; returns (x, new
+    state)."""
+    if kind == "mamba":
+        out, new_st = ssm_mod.apply_mamba(
+            lp["mamba"], cfg, rms_norm(x, lp["ln"], cfg.norm_eps), st,
+            mode=mode)
+        return x + out, new_st
+    r = lp["rwkv"]
+    tm_out, new_wkv, new_tmx = ssm_mod.rwkv_time_mix(
+        r, cfg, rms_norm(x, lp["ln1"], cfg.norm_eps), st)
+    x = x + tm_out
+    cm_out, new_cmx = ssm_mod.rwkv_channel_mix(
+        r, cfg, rms_norm(x, lp["ln2"], cfg.norm_eps), st)
+    return x + cm_out, {"cm_x": new_cmx, "tm_x": new_tmx, "wkv": new_wkv}

@@ -47,7 +47,7 @@ class CommEngine:
         return self.session.transport
 
     def sender_kv(self, context: np.ndarray):
-        """Sender prefill over [BOS context]; returns (kv, Sc)."""
+        """Sender prefill over [BOS context]; returns (kv, states, Sc)."""
         return self.session.sender.export_kv(context)
 
     def calibrate(self, context: np.ndarray, query: np.ndarray

@@ -208,7 +208,7 @@ class Router:
         on each replica until one answers.  Falls to the local session
         (or raises ``FleetExhaustedError``) when every replica fails."""
         select = self._select(calib_key)
-        table, pages = export_pages(
+        table, pages, states, state_select = export_pages(
             self.sender, request.context[None, :], self.kvcfg, select,
             page_len=self.config.page_len,
             wire_dtype=self.config.wire_dtype)
@@ -234,7 +234,8 @@ class Router:
                 self.degradations.append(event)
             try:
                 n, total, sent = replica.client.share_pages(
-                    table, pages, wire_dtype=self.config.wire_dtype)
+                    table, pages, wire_dtype=self.config.wire_dtype,
+                    states=states, state_select=state_select)
                 toks = replica.client.generate(request.query[None, :],
                                                max_new=request.max_new)
             except _FAILOVER_ERRORS as e:

@@ -132,6 +132,12 @@ class Scheduler:
                              "share_mapped, which its slot table does not "
                              "serve")
         tfm.check_supported(session.cfg)
+        for spec in session.cfg.layer_plan():
+            if spec.kind not in ("attn", "shared_attn"):
+                raise ValueError(
+                    "continuous batching covers attention-only models for "
+                    f"now ({session.cfg.name} has {spec.kind} layers: "
+                    "ragged SSM rows would need per-row state rewind)")
         self.session = session
         self.kvcfg = kvcfg
         self.calib_key = calib_key

@@ -389,11 +389,14 @@ def rebuild_decoded(table: BlockTable, pages: Dict[str, Page],
 
 
 def rebuild_shared(table: BlockTable, pages: Dict[str, Page], *,
-                   device=None) -> SharedKV:
+                   device=None, states=None,
+                   state_select=None) -> SharedKV:
     """The packed receiver-keyed ``SharedKV`` rebuilt from pages: the view
-    the unpaged transport would have produced for the same transfer."""
+    the unpaged transport would have produced for the same transfer (the
+    SSM states, which travel beside the pages, pass through)."""
     payload = rebuild_decoded(table, pages, device=device)
     return SharedKV(packed_kv=payload, layers=table.layers,
                     src_layers=table.src_layers,
                     select=torch.tensor(table.select, dtype=torch.bool),
+                    states=states, state_select=state_select,
                     prefix_len=table.prefix_len, pos_mode=table.pos_mode)

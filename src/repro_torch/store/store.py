@@ -114,10 +114,13 @@ class PageStore:
             raise
         return inserted
 
-    def materialize(self, table: BlockTable, *, device=None) -> SharedKV:
+    def materialize(self, table: BlockTable, *, device=None, states=None,
+                    state_select=None) -> SharedKV:
         """The packed receiver-keyed ``SharedKV`` rebuilt from resident
-        pages on ``device``: bit-equal to the unpaged wire's view."""
-        return rebuild_shared(table, self._resident(table), device=device)
+        pages on ``device``: bit-equal to the unpaged wire's view. The SSM
+        ``states`` (which ride beside the pages) pass through."""
+        return rebuild_shared(table, self._resident(table), device=device,
+                              states=states, state_select=state_select)
 
     def gather_prefix(self, table: BlockTable, bucket_len: int, *,
                       device=None) -> Dict[str, torch.Tensor]:

@@ -18,8 +18,10 @@ sides interoperate.
 
 ``PagedReceiver`` is the receiver-side state machine. It re-derives every
 shipped page's content hash before inserting it, so a tampered or
-mis-keyed page never enters the content-addressed pool. SSM state leaves
-on the wire are not ported yet (ROADMAP queue 1, item 4).
+mis-keyed page never enters the content-addressed pool. SSM states (a
+fixed-size recurrent state, which sequence-axis paging does not apply to)
+ride ``page_data`` beside the pages, as the ``s{i}`` arrays and ``states``
+meta block of ``repro_torch.comm.remote``.
 """
 from __future__ import annotations
 
@@ -28,8 +30,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.comm.remote import (_STATES_NOT_PORTED,
-                                     PayloadMismatchError, encode_frame)
+from repro_torch.comm.remote import (PayloadMismatchError, _decode_states,
+                                     _put_states, encode_frame)
 from repro_torch.comm.transport import wire_has_scales, wire_spec
 from repro_torch.core.types import SharedKV
 from repro_torch.store.paging import (BlockTable, Page, _raw,
@@ -105,11 +107,9 @@ def decode_page_need(meta: Dict[str, Any]) -> Tuple[int, List[str]]:
 
 def encode_page_data(xid: int, pages: Sequence[Page], *, wire_dtype,
                      states=None, state_select=None) -> Tuple[bytes, int]:
-    """Ship the missing pages. Returns ``(frame, payload wire bytes)``: the
-    pages' k and v bytes, what the analytics predict for ``pages_sent``
-    pages."""
-    if states is not None:
-        raise NotImplementedError(_STATES_NOT_PORTED)
+    """Ship the missing pages (and the states). Returns ``(frame, payload
+    wire bytes)``: the pages' k and v bytes plus the states' wire, what the
+    analytics predict for ``pages_sent`` pages."""
     arrays: Dict[str, torch.Tensor] = {}
     specs: List[Dict[str, Any]] = []
     n_bytes = 0
@@ -119,27 +119,31 @@ def encode_page_data(xid: int, pages: Sequence[Page], *, wire_dtype,
         n_bytes += pg.nbytes
         specs.append({"id": pg.page_id, "layer": int(pg.layer),
                       "start": int(pg.start), "length": int(pg.length)})
+    state_meta, state_bytes = _put_states(arrays, states, state_select,
+                                          wire_dtype)
+    n_bytes += state_bytes
     meta = {"xid": int(xid), "pages": specs,
-            "wire_dtype": wire_spec(wire_dtype), "states": None}
+            "wire_dtype": wire_spec(wire_dtype), "states": state_meta}
     return encode_frame("page_data", meta, arrays), n_bytes
 
 
-def decode_page_data(meta: Dict[str, Any], arrays: Dict[str, torch.Tensor]
-                     ) -> Tuple[int, List[Page]]:
-    """Returns ``(xid, pages)``. The pages' content hashes are verified by
-    ``PagedReceiver.handle_data``, which holds the table defining their
+def decode_page_data(meta: Dict[str, Any], arrays: Dict[str, torch.Tensor],
+                     device=None) -> Tuple[int, List[Page], Any, Any, int]:
+    """Returns ``(xid, pages, states, state_select, state_bytes)``, the
+    states decoded onto ``device`` (the card unless the caller asks for the
+    CPU) when the frame carries any. The pages' content hashes are verified
+    by ``PagedReceiver.handle_data``, which holds the table defining their
     geometry and salt."""
     try:
         xid = int(meta["xid"])
         specs = meta["pages"]
+        wire_dtype = meta["wire_dtype"]
         state_meta = meta["states"]
         if not isinstance(specs, list):
             raise TypeError("pages must be a list")
     except (KeyError, TypeError, ValueError) as e:
         raise PayloadMismatchError(
             f"page_data frame meta lacks {e}") from None
-    if state_meta is not None:
-        raise NotImplementedError(_STATES_NOT_PORTED)
     pages: List[Page] = []
     for i, spec in enumerate(specs):
         try:
@@ -156,7 +160,10 @@ def decode_page_data(meta: Dict[str, Any], arrays: Dict[str, torch.Tensor]
             raise PayloadMismatchError(
                 f"page {i} k/v must be (B, page_len, Hkv, Dh); got "
                 f"{tuple(k.shape)} vs {tuple(v.shape)}")
-    return xid, pages
+    states, state_select, state_bytes = _decode_states(
+        state_meta, arrays, wire_dtype,
+        None if state_meta is None else resolve_device(device))
+    return xid, pages, states, state_select, state_bytes
 
 
 # ---------------------------------------------------------------------------
@@ -223,7 +230,8 @@ class PagedReceiver:
         """Process a ``page_data``: insert the verified pages, pin the
         table, and return ``(shared, table, novel_bytes, state_bytes)``.
         The table stays pinned: the caller releases it."""
-        xid, pages = decode_page_data(meta, arrays)
+        xid, pages, states, state_select, state_bytes = decode_page_data(
+            meta, arrays, device=self.device)
         table = self._pending.pop(xid, None)
         if table is None:
             raise PayloadMismatchError(
@@ -232,8 +240,10 @@ class PagedReceiver:
         self._verify(table, pages)
         novel_bytes = self.store.insert_pages(table, pages)
         try:
-            shared = self.store.materialize(table, device=self.device)
+            shared = self.store.materialize(table, device=self.device,
+                                            states=states,
+                                            state_select=state_select)
         except BaseException:
             self.store.release(table)
             raise
-        return shared, table, novel_bytes, 0
+        return shared, table, novel_bytes, state_bytes

@@ -4,7 +4,10 @@
 the nested tree (``jax.tree.map(np.asarray, params)``) or the flat
 ``blocks/0/attn/wq`` keys of its checkpoint files, and returns the port's
 per-layer dict: each run's leading layer axis is unstacked, runs are
-concatenated in layer-plan order.
+concatenated in layer-plan order. Attention, RWKV6 (``ln1``, ``ln2``,
+``rwkv``) and Mamba2 (``ln``, ``mamba``) runs cross; a Zamba-style
+``shared_attn`` run (``None`` in the reference's ``blocks``) becomes
+entries that all point at the one top-level ``shared_attn`` dict.
 """
 from __future__ import annotations
 
@@ -18,7 +21,8 @@ from repro_torch import resolve_device
 
 def _nest(flat: Mapping[str, Any]) -> Dict[str, Any]:
     """Flat 'a/b/c' keys -> nested dicts; the 'blocks' level becomes a list
-    ordered by run index."""
+    ordered by run index, with None for a run that has no arrays (the
+    reference's shared-attention runs)."""
     tree: Dict[str, Any] = {}
     for key, arr in flat.items():
         node = tree
@@ -27,8 +31,9 @@ def _nest(flat: Mapping[str, Any]) -> Dict[str, Any]:
             node = node.setdefault(p, {})
         node[parts[-1]] = arr
     if "blocks" in tree:
-        tree["blocks"] = [tree["blocks"][k] for k in
-                          sorted(tree["blocks"], key=int)]
+        runs = tree["blocks"]
+        tree["blocks"] = [runs.get(str(i)) for i in
+                          range(max(int(k) for k in runs) + 1)]
     return tree
 
 
@@ -43,15 +48,21 @@ def _tensor(a, device, dtype) -> torch.Tensor:
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
-def params_from_jax(tree: Mapping[str, Any], *, device=None,
+def params_from_jax(tree: Mapping[str, Any], *, cfg=None, device=None,
                     dtype: torch.dtype = None) -> Dict[str, Any]:
     """Reference parameters (nested numpy tree, or flat checkpoint keys) ->
     the port's parameters on ``device``, each in its array's own dtype
     (float32, float16 or bfloat16) unless ``dtype`` is given. The
     default device is the card: without one this raises unless the caller
-    passes ``device="cpu"``."""
+    passes ``device="cpu"``.
+
+    ``cfg`` (the model's ``ModelConfig``) places shared-attention runs by
+    the layer plan; without it each ``None`` run of a nested tree is one
+    invocation. A flat hybrid checkpoint holds no trace of its trailing
+    shared-attention run, so it needs ``cfg``."""
     device = resolve_device(device)
-    if any("/" in k for k in tree):
+    flat = any("/" in k for k in tree)
+    if flat:
         tree = _nest(tree)
     conv = lambda a: _tensor(a, device, dtype)                # noqa: E731
     out: Dict[str, Any] = {"embed": conv(tree["embed"]),
@@ -59,15 +70,41 @@ def params_from_jax(tree: Mapping[str, Any], *, device=None,
                            "layers": []}
     if "lm_head" in tree:
         out["lm_head"] = conv(tree["lm_head"])
-    for run in tree["blocks"]:
-        if run is None or "attn" not in run or "mlp" not in run:
-            raise NotImplementedError("only dense attention runs are ported")
-        n = np.asarray(run["ln1"]).shape[0]
+    blocks = list(tree["blocks"])
+    plan = None if cfg is None else cfg.layer_plan()
+    if "shared_attn" in tree:
+        if flat and plan is None:
+            raise ValueError("a flat checkpoint with shared attention needs "
+                             "cfg to place its invocations")
+        sa = tree["shared_attn"]
+        out["shared_attn"] = {
+            "ln1": conv(sa["ln1"]), "ln2": conv(sa["ln2"]),
+            "attn": {k: conv(v) for k, v in sa["attn"].items()},
+            "mlp": {k: conv(v) for k, v in sa["mlp"].items()}}
+    if plan is not None:
+        blocks += [None] * (len(plan) - len(blocks))
+    for ri, run in enumerate(blocks):
+        if run is None:
+            if "shared_attn" not in out:
+                raise ValueError(f"run {ri} holds no parameters and the tree "
+                                 "has no shared_attn block")
+            count = 1 if plan is None else plan[ri].count
+            out["layers"] += [out["shared_attn"]] * count
+            continue
+        if "rwkv" in run:
+            parts, nested = ("ln1", "ln2"), ("rwkv",)
+        elif "mamba" in run:
+            parts, nested = ("ln",), ("mamba",)
+        elif "attn" in run and "mlp" in run and "xattn" not in run:
+            parts, nested = ("ln1", "ln2"), ("attn", "mlp")
+        else:
+            raise NotImplementedError(
+                f"run {ri} ({sorted(run)}): only dense attention, RWKV6 and "
+                "Mamba2 runs are ported")
+        n = np.asarray(run[parts[0]]).shape[0]
         for i in range(n):
-            out["layers"].append({
-                "ln1": conv(run["ln1"][i]),
-                "ln2": conv(run["ln2"][i]),
-                "attn": {k: conv(v[i]) for k, v in run["attn"].items()},
-                "mlp": {k: conv(v[i]) for k, v in run["mlp"].items()},
-            })
+            layer = {k: conv(run[k][i]) for k in parts}
+            for k in nested:
+                layer[k] = {name: conv(v[i]) for name, v in run[k].items()}
+            out["layers"].append(layer)
     return out

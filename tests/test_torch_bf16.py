@@ -55,8 +55,8 @@ def test_bridged_bf16_params_stay_bf16_and_cached_path_runs(bf16_pair,
     np.testing.assert_array_equal(
         params["embed"].view(torch.int16).numpy(),
         np.asarray(jparams["embed"]).view(np.int16))
-    kv = protocol.sender_prefill(params, cfg,
-                                 torch.from_numpy(tokens[0]).long())
+    kv, _ = protocol.sender_prefill(params, cfg,
+                                    torch.from_numpy(tokens[0]).long())
     assert kv["k"].dtype == torch.bfloat16
     assert kv["k"].shape == (cfg.attn_layer_count, 2, 33,
                              cfg.num_kv_heads, cfg.resolved_head_dim)
@@ -66,7 +66,8 @@ def test_bf16_sender_and_receiver_match_reference(bf16_pair, tokens):
     jcfg, jparams, cfg, params = bf16_pair
     ctx, qry = tokens
     jkv, _ = jcore.sender_prefill(jparams, jcfg, jnp.asarray(ctx))
-    kv = protocol.sender_prefill(params, cfg, torch.from_numpy(ctx).long())
+    kv, _ = protocol.sender_prefill(params, cfg,
+                                    torch.from_numpy(ctx).long())
     for p in ("k", "v"):
         np.testing.assert_array_equal(
             kv[p][0].view(torch.int16).numpy(),

@@ -24,7 +24,8 @@ def test_configs_round_trip():
     assert dataclasses.asdict(get_config("llama3.2-3b-pair")) \
         == dataclasses.asdict(ref)
     assert port_cfg(ref) == get_config("llama3.2-3b-pair")
-    assert list_archs() == ["llama3.2-3b-pair"]
+    assert list_archs() == ["llama3.2-3b-pair", "rwkv6-1.6b",
+                            "zamba2-2.7b"]
     assert dataclasses.asdict(pairs.pair_config()) \
         == dataclasses.asdict(jpairs.pair_config())
     full = pairs.full_width_config()

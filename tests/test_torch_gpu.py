@@ -761,7 +761,7 @@ def test_two_sender_mailbox_on_card_matches_cpu(cuda):
                                             max_new=0).logits.cpu())
     dense = combine_senders([
         SharedKV(kv=kv, select=select, prefix_len=p)
-        for kv, p in (card.sender.export_kv(c) for c in ctxs)])
+        for kv, _, p in (card.sender.export_kv(c) for c in ctxs)])
     idx = np.nonzero(select.numpy())[0].tolist()
     for p in ("k", "v"):
         assert torch.equal(views[1].packed_kv[p], dense.kv[p][idx])
@@ -1049,3 +1049,133 @@ def test_degraded_admissions_on_card_match_cpu(cuda):
     assert out["cpu"] == out[str(cuda)]
     assert [e and e[0] for e in out["cpu"][1][1]] == \
         [None, None, "baseline", "baseline", "baseline", "baseline"]
+
+
+# ---------------------------------------------------------------------------
+# state sharing: K4 and K1 at the served shapes, the state codec, the tiny
+# SSM pairs
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("T", [2049, 1])
+def test_wkv6_at_served_rwkv6_shapes(cuda, T):
+    """K4 at rwkv6-1.6b's served shapes (4 rows, 32 heads of 64): the
+    prefill of a 2,049-token context and one decode step."""
+    from repro_torch.kernels.rwkv_scan import wkv6, wkv6_reference
+    B, H, hd = 4, 32, 64
+    r, k, v = (_randn(cuda, torch.float32, B, T, H, hd, seed=s)
+               for s in (34, 35, 36))
+    w = torch.sigmoid(_randn(cuda, torch.float32, B, T, H, hd, seed=37))
+    u = _randn(cuda, torch.float32, H, hd, seed=38)
+    s0 = 0.1 * _randn(cuda, torch.float32, B, H, hd, hd, seed=39)
+    y, s = wkv6(r, k, v, w, u, s0)
+    ry, rs = wkv6_reference(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    for out, want in ((y, ry), (s, rs)):
+        allow = 1e-4 * want.square().mean().sqrt() + 1e-4 * want.abs()
+        assert bool(((out - want).abs() <= allow).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ragged_decode_at_zamba2_shape(cuda, dtype):
+    """K1 at zamba2-2.7b's shared attention: MHA (G 1) at head dim 80, a
+    257-position prefix and a short self region."""
+    q, k, v, kv_len, pfx = _case(cuda, 4, 281, 257, 32, 32, 80, dtype,
+                                 seed=5)
+    out = ragged_decode(q, k, v, kv_len, pfx, prefix_len=257)
+    want = ragged_decode_reference(q.float(), k.float(), v.float(), kv_len,
+                                   pfx, prefix_len=257)
+    torch.cuda.synchronize()
+    _close(out, want, dtype)
+
+
+@pytest.mark.parametrize("wire", ["float32", "float16", "bfloat16", "int8",
+                                  "int4", "plan:float16,int4,int8"])
+def test_state_codec_on_card_is_byte_identical_to_cpu(cuda, wire):
+    """roundtrip_states on card tensors: the wire arrays, the counted
+    bytes and the received states equal the CPU's bit for bit (the
+    device-tensor divisor of F3 holds for state leaves too)."""
+    from repro_torch.comm.transport import (encode_wire, roundtrip_states,
+                                            state_wire_dtype)
+    g = torch.Generator().manual_seed(9)
+    host = {"conv": 3 * torch.randn(4, 2, 3, 24, generator=g),
+            "ssm": 3 * torch.randn(4, 2, 4, 8, 16, generator=g)}
+    host["ssm"][2] = 0.0
+    sel = torch.tensor([True, False, True, True])
+    card = {key: x.to(cuda) for key, x in host.items()}
+    wd = state_wire_dtype(wire)
+    for key in host:
+        got, n = encode_wire(card[key][sel.to(cuda)], wd)
+        want, n_cpu = encode_wire(host[key][sel], wd)
+        assert n == n_cpu
+        assert [_wire_bytes(a) for a in got] == [_wire_bytes(b)
+                                                 for b in want]
+    rx, n = roundtrip_states(card, sel, wire)
+    rx_cpu, n_cpu = roundtrip_states(host, sel, wire)
+    assert n == n_cpu > 0
+    for key in host:
+        assert rx[key].device.type == "cuda"
+        assert torch.equal(rx[key].cpu(), rx_cpu[key])
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-2.7b"])
+def test_ssm_pair_on_card_matches_cpu(cuda, arch):
+    """The reduced float32 RWKV6 / Zamba2 pair shares its states (and
+    KV) through a SerializedTransport("int8") on the card and on the CPU:
+    bytes identical, prefill logits within 1e-4 of the largest |logit|,
+    and the card's K4 (and K1) launched."""
+    import dataclasses
+    from repro_torch.comm import Agent, CommSession, SerializedTransport
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.types import KVCommConfig
+    from repro_torch.data.tokenizer import SymbolTokenizer
+    from repro_torch.kernels.rwkv_scan import wkv6
+    from repro_torch.models import transformer as tfm
+    tok = SymbolTokenizer(16, 8)
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32",
+                              vocab_size=tok.vocab_size)
+    params = tfm.init_params(cfg, 0, device="cpu")
+    rng = np.random.default_rng(1)
+    ctx = rng.integers(4, cfg.vocab_size, (2, 9)).astype(np.int32)
+    qry = rng.integers(4, cfg.vocab_size, (2, 5)).astype(np.int32)
+    kvcfg = KVCommConfig(ratio=0.5, selector="prior_only")
+    out = {}
+    for dev in ("cpu", cuda):
+        p = _to(params, dev)
+        sess = CommSession(Agent("s", cfg, p, tok), Agent("r", cfg, p, tok),
+                           SerializedTransport("int8"))
+        k4, k1 = wkv6.launches, ragged_decode.launches
+        shared, _ = sess.share(ctx, kvcfg)
+        lg = sess.receiver.prefill(qry, shared, max_new=2).logits
+        toks, _ = sess.receiver.generate(qry, shared, max_new=2,
+                                         backend="kernel")
+        out[str(dev)] = (sess.transport.total_bytes, lg.float().cpu(),
+                         toks.cpu(), wkv6.launches - k4,
+                         ragged_decode.launches - k1)
+    (nb, lg, _, _, _), (nb_c, lg_c, _, k4, k1) = out["cpu"], out[str(cuda)]
+    assert nb == nb_c > 0
+    assert float((lg_c - lg).abs().max()) <= 1e-4 * float(lg.abs().max())
+    if arch == "rwkv6-1.6b":
+        # forwards: the share's sender prefill, the prefill, and
+        # generate's prefill and two decode steps
+        assert k4 == cfg.num_layers * 5 and k1 == 0
+    else:
+        assert k4 == 0 and k1 == cfg.attn_layer_count * 2
+
+
+def _to(tree, dev):
+    """A copy of a parameter tree on ``dev`` that keeps shared entries
+    shared (Zamba2's one attention block)."""
+    memo = {}
+
+    def move(x):
+        if id(x) in memo:
+            return memo[id(x)]
+        if isinstance(x, dict):
+            out = {k: move(v) for k, v in x.items()}
+        elif isinstance(x, list):
+            out = [move(v) for v in x]
+        else:
+            out = x.to(dev)
+        memo[id(x)] = out
+        return out
+
+    return move(tree)

@@ -117,7 +117,7 @@ def test_cached_prefill_and_decode_logits(tiny_cfg, tiny_params, pair,
     ctx = _tokens(2, (1, 9), tiny_cfg.vocab_size)
     qry = _tokens(3, (1, 5), tiny_cfg.vocab_size)
     jkv, _ = jcore.sender_prefill(tiny_params, tiny_cfg, jnp.asarray(ctx))
-    tkv = protocol.sender_prefill(params, cfg, t(ctx).long())
+    tkv, _ = protocol.sender_prefill(params, cfg, t(ctx).long())
     np.testing.assert_allclose(tkv["k"].numpy(), np.asarray(jkv["k"]),
                                **LOGIT_TOL)
     jsel = jcore.make_selection(tiny_cfg, jk)
@@ -169,7 +169,7 @@ def test_calibrate_scores(tiny_cfg, tiny_params, pair):
     js = jcore.calibrate(tiny_params, tiny_cfg, jnp.asarray(qry), jkv)
     ts = protocol.calibrate(params, cfg, t(qry).long(),
                             protocol.sender_prefill(params, cfg,
-                                                    t(ctx).long()))
+                                                    t(ctx).long())[0])
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), **LOGIT_TOL)
 
 

@@ -68,7 +68,8 @@ def test_two_sender_session_matches_combine_senders(pair, tok):
     combined = sess.combined()
 
     # the port's dense composition of the same sends
-    (kv1, p1), (kv2, p2) = (sess.sender.export_kv(c) for c in (c1, c2))
+    (kv1, _, p1), (kv2, _, p2) = (sess.sender.export_kv(c)
+                                  for c in (c1, c2))
     dense = combine_senders([
         SharedKV(kv=kv, select=select, prefix_len=p,
                  pos_mode=kvcfg.pos_mode) for kv, p in ((kv1, p1),

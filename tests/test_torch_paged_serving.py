@@ -64,7 +64,7 @@ def test_cache_insert_row_paged_equals_plain(bridged, tok):
     kvcfg = KVCommConfig(**KW)
     rng = np.random.default_rng(0)
     ctx = torch.from_numpy(rng.integers(4, tok.vocab_size, (1, 11)))
-    kv = protocol.sender_prefill(params, cfg, ctx)
+    kv, _ = protocol.sender_prefill(params, cfg, ctx)
     select = protocol.make_selection(cfg, kvcfg)
     tr = InMemoryTransport(store=PageStore(page_len=4))
     shared = tr.send(cfg, kvcfg, kv, select)

@@ -438,10 +438,29 @@ class TestPayloadFaults:
             recv_shared(ch, device="cpu")
 
     def test_states_are_refused_until_ported(self):
+        """States ride the frame once they have a mask (they are ported):
+        without ``state_select`` nothing ships, as in the reference, and
+        with one the frame is the reference's and decodes to them."""
         _, kv = _kv("float32", S=5)
-        with pytest.raises(NotImplementedError, match="item 4"):
-            encode_kv_transfer(KVCFG, kv, torch.from_numpy(SELECT),
-                               states={"ssm": torch.zeros(4, 2, 8)})
+        states = {"ssm": torch.arange(64.0).reshape(4, 2, 8)}
+        sel = torch.tensor([True, False, True, False])
+        bare, _, _, _ = encode_kv_transfer(KVCFG, kv, torch.from_numpy(SELECT))
+        frame, _, _, _ = encode_kv_transfer(KVCFG, kv,
+                                            torch.from_numpy(SELECT),
+                                            states=states)
+        assert frame == bare
+        frame, _, _, _ = encode_kv_transfer(KVCFG, kv,
+                                            torch.from_numpy(SELECT),
+                                            states=states, state_select=sel)
+        jframe, _, _, _ = jremote.encode_kv_transfer(
+            JKVCFG, {p: jnp.asarray(kv[p].numpy()) for p in kv},
+            jnp.asarray(SELECT), {"ssm": jnp.asarray(states["ssm"].numpy())},
+            jnp.asarray(sel.numpy()))
+        assert frame == jframe
+        shared, _ = decode_kv_transfer(*decode_frame(frame)[1:],
+                                       device="cpu")
+        assert torch.equal(shared.states["ssm"][::2], states["ssm"][::2])
+        assert not shared.states["ssm"][1::2].any()
 
 
 class TestMutationProperty:

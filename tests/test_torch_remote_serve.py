@@ -67,7 +67,7 @@ def _select(cfg):
 def _local(agents, ctx, qry, max_new):
     """The answer of an in-process receiver on the unpaged packed view."""
     sender, receiver = agents
-    kv, _ = sender.export_kv(ctx)
+    kv, _, _ = sender.export_kv(ctx)
     shared = protocol.pack_shared(KVCFG, kv, _select(sender.cfg))
     toks, _ = receiver.generate(qry, shared, max_new=max_new)
     return toks.numpy().astype(np.int32)
@@ -94,7 +94,7 @@ class TestServeChannel:
     def test_answers_queries_like_a_local_receiver(self, agents, chunk_bytes):
         sender, receiver = agents
         ctx, qry = _inputs(sender.cfg)
-        kv, _ = sender.export_kv(ctx)
+        kv, _, _ = sender.export_kv(ctx)
         ch = LoopbackChannel()
         send_shared(ch, KVCFG, kv, _select(sender.cfg), wire_dtype="float32",
                     chunk_bytes=chunk_bytes)
@@ -119,7 +119,7 @@ class TestServeChannel:
         from repro_torch.comm.remote import KVStreamSender
         sender, receiver = agents
         ctx, qry = _inputs(sender.cfg, seed=3)
-        kv, _ = sender.export_kv(ctx)
+        kv, _, _ = sender.export_kv(ctx)
         select = _select(sender.cfg)
         ch = LoopbackChannel()
         partial = KVStreamSender(KVCFG, kv, select, wire_dtype="float32",
@@ -388,7 +388,8 @@ class _FixedKV(Agent):
 
     def export_kv(self, context, *, add_bos=True):
         kv, _, sc = self.ref.export_kv(context)
-        return {p: torch.from_numpy(np.asarray(kv[p])) for p in kv}, sc
+        return ({p: torch.from_numpy(np.asarray(kv[p])) for p in kv}, None,
+                sc)
 
 
 def test_export_pages_matches_reference(agents, jagents, tiny_cfg):
@@ -397,9 +398,10 @@ def test_export_pages_matches_reference(agents, jagents, tiny_cfg):
                         ("name", "cfg", "params", "tok")))
     sender.ref = jagents[0]
     for wire in ("float32", "float16", "int8"):
-        table, pages = export_pages(sender, ctx, KVCFG,
-                                    _select(agents[0].cfg), page_len=4,
-                                    wire_dtype=wire)
+        table, pages, states, state_select = export_pages(
+            sender, ctx, KVCFG, _select(agents[0].cfg), page_len=4,
+            wire_dtype=wire)
+        assert states is None and state_select is None
         jtable, jpages, _, _ = jrs.export_pages(
             jagents[0], ctx, JKVCFG, jmake_selection(tiny_cfg, JKVCFG),
             page_len=4, wire_dtype=wire)

@@ -68,7 +68,7 @@ def test_kvcomm_selection_on_calibrated_scores(tiny_cfg, tiny_params, tok,
     js = jcore.calibrate(tiny_params, tiny_cfg, jnp.asarray(b["query"]), jkv)
     ts = protocol.calibrate(params, cfg, t(b["query"]).long(),
                             protocol.sender_prefill(params, cfg,
-                                                    t(ctx).long()))
+                                                    t(ctx).long())[0])
     for ratio in (0.3, 0.5, 0.75):
         kw = dict(ratio=ratio, alpha=alpha)
         np.testing.assert_array_equal(

@@ -154,7 +154,7 @@ def _setup(tiny_cfg, tiny_params, tok):
 def test_measured_bytes_match_analytic(tiny_cfg, tiny_params, tok, wire,
                                        packed):
     cfg, params, ctx, qry = _setup(tiny_cfg, tiny_params, tok)
-    kv = protocol.sender_prefill(params, cfg, t(ctx).long())
+    kv, _ = protocol.sender_prefill(params, cfg, t(ctx).long())
     select = protocol.make_selection(cfg, KVCommConfig(**KW))
     M = int(select.sum())
     tr = SerializedTransport(wire, packed=packed)
@@ -181,7 +181,7 @@ def test_int8_wire_logits_bounded(tiny_cfg, tiny_params, tok, packed):
     reference's int8 path within 1e-4."""
     cfg, params, ctx, qry = _setup(tiny_cfg, tiny_params, tok)
     kvcfg = KVCommConfig(**KW)
-    kv = protocol.sender_prefill(params, cfg, t(ctx).long())
+    kv, _ = protocol.sender_prefill(params, cfg, t(ctx).long())
     select = protocol.make_selection(cfg, kvcfg)
     logits = {}
     for wire in ("float32", "int8"):
@@ -204,7 +204,7 @@ def test_int8_wire_logits_bounded(tiny_cfg, tiny_params, tok, packed):
 
 def test_deferred_stamps_settle(tiny_cfg, tiny_params, tok):
     cfg, params, ctx, _ = _setup(tiny_cfg, tiny_params, tok)
-    kv = protocol.sender_prefill(params, cfg, t(ctx).long())
+    kv, _ = protocol.sender_prefill(params, cfg, t(ctx).long())
     select = protocol.make_selection(cfg, KVCommConfig(**KW))
     tr = InMemoryTransport(sync=False)
     tr.send(cfg, KVCommConfig(**KW), kv, select)
@@ -225,7 +225,7 @@ def test_int4_and_plan_bytes_and_logits(tiny_cfg, tiny_params, tok, wire,
     reference's through the same wire within 1e-4."""
     cfg, params, ctx, qry = _setup(tiny_cfg, tiny_params, tok)
     kvcfg = KVCommConfig(ratio=0.75, selector="prior_only")
-    kv = protocol.sender_prefill(params, cfg, t(ctx).long())
+    kv, _ = protocol.sender_prefill(params, cfg, t(ctx).long())
     select = protocol.make_selection(cfg, kvcfg)
     M = int(select.sum())
     plan = as_wire_plan(wire) or WirePlan(("int4",) * M)

@@ -137,6 +137,31 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
      plain versions on the CPU). Stage ms, tokens/s, state bytes per tier,
      K4 device ms at T 2049 and T 1, the Mamba2 scan's ms per layer. These
      are K4's served path and a K1 path.
+  4k. decoder_archs — K1 against its plain version at the decoder configs'
+     geometries (G 2 at D 256, MHA at D 128, G 9, G 4 at D 160, G 6, G 8;
+     bf16 at the served tables, float32 small), then each config as
+     published, bf16, random weights from seed 0 for both roles, one model
+     resident at a time: gemma3-4b, olmoe-1b-7b, starcoder2-7b,
+     pixtral-12b, internlm2-20b, and mixtral-8x22b and qwen1.5-110b at
+     their published widths cut to 4 layers. Each: kvcomm calibrated on
+     one sample (ratio 0.5, alpha 0.7), 4 requests (2,049-position
+     contexts for gemma3 and olmoe, 1,025 for the rest) and 8 new tokens
+     on the scheduler with K1 (gemma3 and olmoe in memory and through
+     Serialized int8), K1 exactly once per full-attention layer per step
+     (5 / 16 / 32 / 40 / 48 / 0 / 4: windowed layers decode masked-dense,
+     as in the reference), 8 greedy steps on K1 teacher-forced against
+     the plain backend within 5e-2 of the largest logit, sender and
+     receiver prefill ms, tokens/s, TTFT p50 and peak memory. gemma3 at
+     float32: all layers shared = the skyline over [C; Q] (1e-3), the
+     ring cache = the full cache over a 1,100-token prefill and 8 steps
+     past the 1,024 window (1e-3), the chunked core = the plain one on a
+     2,048-token prefill, logits and Eq. (1) masses (1e-4). olmoe: the
+     float32 skyline on dense_all; dropping = dense_all at capacity
+     E / k = 8 (float32 1e-4, bf16 3e-2 of the largest value), the drop
+     count at 1.25, each strategy's MoE layer ms. pixtral: a forward with
+     256 seeded patch embeddings beside a text-only one. mixtral: the
+     4,096 window bites on a 4,100-token context, ring = full cache at
+     bf16 within 5e-2. These are K1 paths.
   5. the kernel entry point — repro_torch.kernels.ops driven at full
      published widths with the K2/K3/K4 counters at 0 (llama3.2-3b-pair
      prefills with and without the Eq. (1) mass, a gemma3-4b local
@@ -152,8 +177,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   7. the kernels line — one JSON object listing every kernel (K1-K4),
      with each one's device ms over SDPA's at its main case; K1's launches
      by path (full-width, paged, wire tiers, remote serving, resilient
-     serving, the scheduler pool, the hetero stream, state sharing); K4's
-     (state sharing, entry point).
+     serving, the scheduler pool, the hetero stream, state sharing, the
+     decoder configs) and its times at the decoder configs' geometries;
+     K4's (state sharing, entry point).
 
 The second-to-last line is nvidia-smi's name and power limit; the last line
 is {"ok": true, "device": {...}}.
@@ -2520,6 +2546,442 @@ def phase_zamba2_state_sharing(dev, smi, flush, tok):
     return launches, steps
 
 
+# ---------------------------------------------------------------------------
+# decoder_archs: the decoder-only attention configs at published widths,
+# one model resident at a time (random weights from seed 0 shared by sender
+# and receiver), each through calibration, a share, the receiver prefill
+# and the scheduler on K1
+# ---------------------------------------------------------------------------
+# K1 launches per decode step: one per full-attention layer (windowed
+# layers decode masked-dense, as in the reference); mixtral and qwen1.5 at
+# their cut depth
+ARCH_K1_PER_STEP = {"gemma3-4b": 5, "olmoe-1b-7b": 16, "starcoder2-7b": 32,
+                    "pixtral-12b": 40, "internlm2-20b": 48,
+                    "qwen1.5-110b": 4, "mixtral-8x22b": 0}
+# published widths, depth cut to fit one 80 GB card at bf16 (mixtral ~141 B
+# and qwen1.5 ~111 B parameters in full)
+ARCH_DEPTH = {"mixtral-8x22b": 4, "qwen1.5-110b": 4}
+# K1 at the served geometries of these models: (name, dtype, B, Skv,
+# prefix bucket, Hq, Hkv, D). bf16 at the stream's table: 2,049-position
+# contexts in a 2,064 bucket (1,025 in 1,040), then the 16-position query
+# and 8 new tokens, every row 4 steps in (served_case); the G 8 yardstick
+# is starcoder2's rows with 32 query heads, the G 9 split's cost beside
+# it. float32 at a small size with random lengths and a dead row.
+ARCH_K1_CASES = [
+    ("gemma3_global_g2_d256", "bfloat16", 4, 2088, 2064, 8, 4, 256),
+    ("olmoe_mha_d128", "bfloat16", 4, 2088, 2064, 16, 16, 128),
+    ("starcoder2_g9", "bfloat16", 4, 1064, 1040, 36, 4, 128),
+    ("g8_yardstick_for_g9", "bfloat16", 4, 1064, 1040, 32, 4, 128),
+    ("pixtral_g4_d160", "bfloat16", 4, 1064, 1040, 32, 8, 160),
+    ("internlm2_g6", "bfloat16", 4, 1064, 1040, 48, 8, 128),
+    ("qwen1_5_g8", "bfloat16", 4, 1064, 1040, 64, 8, 128),
+    ("gemma3_global_g2_d256_fp32", "float32", 2, 300, 256, 8, 4, 256),
+    ("olmoe_mha_d128_fp32", "float32", 2, 300, 256, 16, 16, 128),
+    ("starcoder2_g9_fp32", "float32", 2, 300, 256, 36, 4, 128),
+    ("pixtral_g4_d160_fp32", "float32", 2, 300, 256, 32, 8, 160),
+    ("internlm2_g6_fp32", "float32", 2, 300, 256, 48, 8, 128),
+    ("qwen1_5_g8_fp32", "float32", 2, 300, 256, 64, 8, 128),
+]
+ARCH_B, ARCH_Q, ARCH_NEW = 4, 16, 8
+
+
+def served_case(dev, dtype, B, Skv, P, Hq, Hkv, D, seed, n_dead=0):
+    """K1's inputs at a served slot table: every row's real prefix fills
+    the bucket to P - 15 (a context bucketed by 16) and its self region is
+    the 16-position query and 4 decode steps. Only the q draw depends on
+    Hq (a G 8 and a G 9 case of one Skv read the same rows)."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    k = torch.randn(B, Skv, Hkv, D, generator=g).to(dev, dtype)
+    v = torch.randn(B, Skv, Hkv, D, generator=g).to(dev, dtype)
+    q = torch.randn(B, Hq, D, generator=g).to(dev, dtype)
+    full = lambda n: torch.full((B,), n, dtype=torch.int32,   # noqa: E731
+                                device=dev)
+    kv_len, pfx = full(P + ARCH_Q + 4), full(P - 15)
+    return q, k, v, kv_len, pfx
+
+
+def arch_model(dev, name):
+    """The config (depth cut where ARCH_DEPTH says) and its random bf16
+    parameters from seed 0 on the card."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as tfm
+    cfg = get_config(name)
+    if name in ARCH_DEPTH:
+        cfg = dataclasses.replace(cfg, num_layers=ARCH_DEPTH[name])
+    n_full = sum(1 for s in tfm.layer_specs(cfg) if s.window is None)
+    check(n_full == ARCH_K1_PER_STEP[name],
+          f"{name}: {n_full} full-attention layers, expected "
+          f"{ARCH_K1_PER_STEP[name]}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    return cfg, params, time.perf_counter() - t0
+
+
+def arch_stream(sess, cfg, ctx, qry, transports):
+    """The calibrated session's requests (one per row of ctx / qry, 8 new
+    tokens each) served at capacity 4 on K1 through each transport; every
+    ragged step launches K1 once per full-attention layer."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.ragged_decode import ragged_decode
+    from repro_torch.serving.scheduler import (Request, Scheduler,
+                                               SchedulerConfig)
+    reqs = [Request(rid=i, context=ctx[i], query=qry[i], max_new=ARCH_NEW)
+            for i in range(len(ctx))]
+    per_step = ARCH_K1_PER_STEP[cfg.name]
+    rows, launches, steps = {}, 0, 0
+    for name, tr in transports:
+        sess.transport = tr
+        sched = Scheduler(sess, arch_kvcfg(), calib_key="arch",
+                          config=SchedulerConfig(capacity=4,
+                                                 decode_backend="kernel"))
+        torch.cuda.synchronize()
+        l0 = ragged_decode.launches
+        t0 = time.perf_counter()
+        comps, stats = sched.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = ragged_decode.launches - l0
+        check(stats["steps"] > 0 and n == per_step * stats["steps"],
+              f"{cfg.name} {name}: {n} K1 launches for {stats['steps']} "
+              f"steps of {per_step} full-attention layers")
+        check(len(comps) == len(reqs) and all(
+            len(c.tokens) == ARCH_NEW for c in comps),
+            f"{cfg.name} {name}: incomplete completions")
+        launches += n
+        steps += stats["steps"]
+        rows[name] = {
+            "tokens": stats["tokens"], "steps": stats["steps"],
+            "k1_launches": n, "k1_launches_per_step": per_step,
+            "tokens_per_s": stats["tokens"] / wall,
+            "ttft_p50_ms": float(np.median([c.ttft_s for c in comps])) * 1e3,
+            "bytes_moved": tr.total_bytes,
+            "selected_layers": list(sched.layers)}
+    return rows, launches, steps
+
+
+def arch_kvcfg():
+    from repro_torch.core.types import KVCommConfig
+    return KVCommConfig(ratio=0.5, alpha=0.7)
+
+
+def arch_ring_vs_full(cfg, params, ids, n_steps):
+    """The plain cached path (no prefix) over ids[:, :S] then n_steps
+    tokens of ids one at a time, with the full cache and with the ring
+    (cfg.ring_cache): (max |ring - full| / max |full| over the steps'
+    last-position logits, each layer's ring buffer length)."""
+    import dataclasses
+    import torch
+    from repro_torch.models import transformer as tfm
+    B, S = ids.shape[0], ids.shape[1] - n_steps
+    out = {}
+    for ring in (False, True):
+        c = dataclasses.replace(cfg, ring_cache=ring)
+        cache = tfm.init_cache(c, B, S + n_steps, device=ids.device)
+        o = tfm.apply_model(params, c, ids[:, :S], mode="cached",
+                            cache=cache, logits_mode="last")
+        lg = [o.logits[:, -1].float()]
+        for i in range(n_steps):
+            o = tfm.apply_model(params, c, ids[:, S + i:S + i + 1],
+                                mode="cached", cache=o.cache)
+            lg.append(o.logits[:, -1].float())
+        out[ring] = (torch.stack(lg), [e["k"].shape[1]
+                                       for e in cache["layers"]])
+        del cache, o
+    rel, _ = rel_and_agree(out[True][0], out[False][0])
+    return rel, out[True][1]
+
+
+def gemma3_gates(dev, cfg, params, tok, ctx, qry):
+    """float32 (the weights upcast, TF32 off): every layer shared equals
+    the skyline over [C; Q] within FP32_FULL_BOUND (the local windows see
+    only the prefix's tail); the ring cache equals the full cache over a
+    1,100-token prefill and 8 steps past the 1,024 window; the chunked
+    core (query blocks of 256) equals the plain one on a 2,048-token
+    prefill over a shared 257-position prefix, logits and Eq. (1)
+    masses within 1e-4."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.comm import Agent
+    from repro_torch.core import protocol
+    from repro_torch.core.types import KVCommConfig
+    from repro_torch.models import transformer as tfm
+    L = cfg.attn_layer_count
+    everything = lambda kv, states: protocol.pack_shared(   # noqa: E731
+        KVCommConfig(), kv, torch.ones(L, dtype=torch.bool))
+    sky = skyline_gate(cfg, params, tok, ctx[:1], qry[:1], everything)
+    check(sky["fp32"][0] <= FP32_FULL_BOUND,
+          f"gemma3: float32 all shared vs skyline {sky['fp32']}")
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = to_device(params, torch.float32)
+    rng = np.random.default_rng(7)
+    ids = torch.as_tensor(rng.integers(4, cfg.vocab_size, (1, 1108)),
+                          device=dev)
+    ring_rel, bufs = arch_ring_vs_full(c32, p32, ids, 8)
+    check(ring_rel <= FP32_FULL_BOUND,
+          f"gemma3: ring vs full cache rel {ring_rel}")
+    local = [b for b, s in zip(bufs, tfm.layer_specs(cfg)) if s.window]
+    check(set(local) == {cfg.local_window} and max(bufs) == 1108,
+          f"gemma3: ring buffers {sorted(set(bufs))}")
+    agent = Agent("receiver", c32, p32, tok)
+    kv, _, _ = agent.export_kv(ctx[:1, :256])
+    shared = everything(kv, None)
+    q = agent.tokens(rng.integers(4, cfg.vocab_size, (1, 2048)))
+    res = {}
+    for impl in ("xla", "chunked"):
+        out = protocol.receiver_prefill(
+            p32, dataclasses.replace(c32, attn_impl=impl), q, shared,
+            max_new=0, collect_mass=True)
+        res[impl] = (out.logits, out.masses.float())
+        del out
+    chunk_rel, _ = rel_and_agree(res["chunked"][0], res["xla"][0])
+    mass_rel = float((res["chunked"][1] - res["xla"][1]).abs().max()
+                     / res["xla"][1].abs().max())
+    check(chunk_rel <= 1e-4 and mass_rel <= 1e-4,
+          f"gemma3: chunked vs xla logits {chunk_rel}, masses {mass_rel}")
+    del p32, agent, kv, shared, res
+    torch.cuda.empty_cache()
+    return {"skyline": sky, "fp32_bound": FP32_FULL_BOUND,
+            "ring_vs_full_rel_fp32": ring_rel,
+            "ring_buffer_positions": sorted(set(bufs)),
+            "chunked_vs_xla_logits_rel": chunk_rel,
+            "chunked_vs_xla_mass_rel": mass_rel, "chunked_bound": 1e-4}
+
+
+def olmoe_gates(dev, cfg, params, tok, ctx, qry):
+    """The float32 skyline (dense_all); dropping against dense_all on one
+    layer's experts at capacity E / k (nothing drops): float32 within
+    1e-4 and bf16 within the F5 rule of the largest value; the drop count
+    at the default 1.25; each strategy's MoE layer ms at the stream's
+    prefill (4 x 2,049 tokens) and decode (4 x 1)."""
+    import dataclasses
+    import torch
+    from repro_torch.core import protocol
+    from repro_torch.core.types import KVCommConfig
+    from repro_torch.models import layers
+    L = cfg.attn_layer_count
+    everything = lambda kv, states: protocol.pack_shared(   # noqa: E731
+        KVCommConfig(), kv, torch.ones(L, dtype=torch.bool))
+    sky = skyline_gate(cfg, params, tok, ctx[:1], qry[:1], everything)
+    check(sky["fp32"][0] <= FP32_FULL_BOUND,
+          f"olmoe: float32 all shared vs skyline {sky['fp32']}")
+    E, k = cfg.num_experts, cfg.num_experts_per_tok
+    full = dataclasses.replace(cfg, moe_impl="dropping",
+                               moe_capacity_factor=E / k)
+    drop = dataclasses.replace(cfg, moe_impl="dropping")
+    p = params["layers"][0]["moe"]
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((ARCH_B, ctx.shape[1] + 1, cfg.d_model), generator=g,
+                    device=dev).to(torch.bfloat16)
+    rels = {}
+    for dt in (torch.float32, torch.bfloat16):
+        pd = {n: (w if n == "router" else w.to(dt)) for n, w in p.items()}
+        xd = x.to(dt)
+        check(layers.moe_dropped(pd, xd, full) == 0,
+              f"olmoe: capacity E/k drops at {dt}")
+        want, _ = layers.apply_moe(pd, xd, cfg)
+        got, _ = layers.apply_moe(pd, xd, full)
+        rels[str(dt).replace("torch.", "")], _ = rel_and_agree(got, want)
+        del pd, xd, want, got
+    check(rels["float32"] <= 1e-4 and rels["bfloat16"] <= F5_BOUND,
+          f"olmoe: dropping at capacity E/k vs dense_all {rels}")
+    dropped = layers.moe_dropped(p, x, drop)
+    ms = {}
+    for impl, c in (("dense_all", cfg), ("dropping", drop)):
+        ms[f"moe_{impl}_prefill_ms"] = wall_ms(
+            lambda: layers.apply_moe(p, x, c))
+        ms[f"moe_{impl}_decode_ms"] = wall_ms(
+            lambda: layers.apply_moe(p, x[:, :1], c))
+    del x
+    torch.cuda.empty_cache()
+    return {"skyline": sky, "fp32_bound": FP32_FULL_BOUND,
+            "dropping_vs_dense_all_rel_at_capacity_E_over_k": rels,
+            "dropped_assignments_at_1_25": dropped,
+            "assignments": ARCH_B * (ctx.shape[1] + 1) * k, **ms}
+
+
+def pixtral_gates(dev, cfg, params, tok, ctx, qry):
+    """One forward with 256 seeded patch embeddings in the first 256
+    positions beside the text-only one: finite logits of the same shape,
+    moved by the patches at every position (causal attention carries
+    them forward)."""
+    import torch
+    from repro_torch.models import transformer as tfm
+    ids = torch.as_tensor(ctx[:1, :512], dtype=torch.long, device=dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    pe = torch.randn((1, cfg.num_patches, cfg.d_model), generator=g,
+                     device=dev).to(torch.bfloat16)
+    text = tfm.apply_model(params, cfg, ids).logits
+    img = tfm.apply_model(params, cfg, ids, extra={"patches": pe}).logits
+    check(img.shape == text.shape == (1, 512, cfg.vocab_size)
+          and bool(torch.isfinite(img).all()),
+          "pixtral: bad logits with patches")
+    moved = (img - text).abs().amax(-1)[0]
+    check(bool((moved > 0).all()), "pixtral: patches left a position "
+          "unchanged")
+    return {"patches": cfg.num_patches,
+            "patch_vs_text_rel": rel_and_agree(img, text)[0],
+            "last_position_moved": float(moved[-1])}
+
+
+def mixtral_gates(dev, cfg, params, tok, ctx, qry):
+    """The 4,096 window bites: one 4,100-token context at B 1 on the plain
+    cached path, 8 decode steps, the ring cache against the full cache at
+    bf16 within the full-width step rule."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(8)
+    ids = torch.as_tensor(rng.integers(4, cfg.vocab_size, (1, 4108)),
+                          device=dev)
+    rel, bufs = arch_ring_vs_full(cfg, params, ids, 8)
+    check(rel <= STEP_BOUND and set(bufs) == {cfg.sliding_window},
+          f"mixtral: ring vs full cache rel {rel}, buffers {set(bufs)}")
+    return {"ring_vs_full_rel_bf16": rel, "step_bound": STEP_BOUND,
+            "ring_buffer_positions": sorted(set(bufs)),
+            "ring_context": 4100}
+
+
+# model, context tokens per request (before BOS), transports, extra gates
+ARCH_PLAN = [
+    ("gemma3-4b", 2048, ("inmemory", "serialized_int8"), gemma3_gates),
+    ("olmoe-1b-7b", 2048, ("inmemory", "serialized_int8"), olmoe_gates),
+    ("starcoder2-7b", 1024, ("inmemory",), None),
+    ("pixtral-12b", 1024, ("inmemory",), pixtral_gates),
+    ("internlm2-20b", 1024, ("inmemory",), None),
+    ("mixtral-8x22b", 1024, ("inmemory",), mixtral_gates),
+    ("qwen1.5-110b", 1024, ("inmemory",), None),
+]
+
+
+def k1_vs_plain_steps(agent, qry, shared):
+    """ARCH_NEW greedy steps of ``agent`` on K1, teacher-forced on the
+    plain backend's tokens: (rel, argmax agreement over every step, each
+    step's rel); TF32 off."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref_toks, ref_logits = greedy(agent, qry, shared, ARCH_NEW, "reference")
+    _, k_logits = greedy(agent, qry, shared, ARCH_NEW, "kernel",
+                         force=ref_toks)
+    rel, agree = rel_and_agree(torch.stack(k_logits), torch.stack(ref_logits))
+    return rel, agree, [rel_and_agree(a, b)[0]
+                        for a, b in zip(k_logits, ref_logits)]
+
+
+def arch_run(dev, smi, tok, name, C, transports, gates):
+    """One model: calibration on one sample, the served stream(s) on K1,
+    a share and 8 greedy steps on K1 teacher-forced against the plain
+    backend (within STEP_BOUND; a MoE model's within FP32_FULL_BOUND on
+    its weights upcast), stage times, the model's own gates. Returns (K1
+    launches, steps, the emitted row)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.comm import (Agent, CommSession, InMemoryTransport,
+                                  SerializedTransport)
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg, params, init_s = arch_model(dev, name)
+    rng = np.random.default_rng(11)
+    ctx = rng.integers(4, cfg.vocab_size, (ARCH_B, C)).astype(np.int32)
+    qry = rng.integers(4, cfg.vocab_size, (ARCH_B, ARCH_Q)).astype(np.int32)
+    sender = Agent("sender", cfg, params, tok)
+    receiver = Agent("receiver", cfg, params, tok)
+    sess = CommSession(sender, receiver)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sess.calibrate(ctx[:1], qry[:1], key="arch")
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t1
+    make = {"inmemory": InMemoryTransport,
+            "serialized_int8": lambda: SerializedTransport("int8")}
+    rows, launches, steps = arch_stream(
+        sess, cfg, ctx, qry, [(n, make[n]()) for n in transports])
+    sess.transport = InMemoryTransport()
+    shared, select = sess.share(ctx, arch_kvcfg(), key="arch")
+    steps_bf16 = k1_vs_plain_steps(receiver, qry, shared)
+    if cfg.num_experts and ARCH_K1_PER_STEP[name]:
+        # top-k routing is discontinuous: K1's float32 softmax against
+        # the plain path's bf16 probabilities flips near-tied experts and
+        # the rows part, so the gate runs on the weights upcast (ungated
+        # at bf16, reported)
+        steps_fp32 = k1_vs_plain_steps(Agent(
+            "receiver", dataclasses.replace(cfg, dtype="float32"),
+            to_device(params, torch.float32), tok), qry, shared)
+        step_rel, step_agree, bound = (*steps_fp32[:2], FP32_FULL_BOUND)
+    else:
+        steps_fp32 = None
+        step_rel, step_agree, bound = (*steps_bf16[:2], STEP_BOUND)
+    check(step_rel <= bound, f"{name}: kernel vs reference decode rel "
+          f"{step_rel} > {bound} (argmax agreement {step_agree})")
+    stages = {
+        "sender_prefill_ms": wall_ms(lambda: sender.export_kv(ctx)),
+        "receiver_prefill_ms": wall_ms(
+            lambda: receiver.prefill(qry, shared, max_new=ARCH_NEW))}
+    extra = gates(dev, cfg, params, tok, ctx, qry) if gates else {}
+    torch.cuda.synchronize()
+    row = {"phase": "decoder_archs", "model": name,
+           "layers": cfg.num_layers, "params": param_count(params),
+           "reduced": ({"num_layers": ARCH_DEPTH[name],
+                        "published_layers": get_config(name).num_layers}
+                       if name in ARCH_DEPTH else None),
+           "requests": ARCH_B, "context": C + 1, "query": ARCH_Q,
+           "new_tokens": ARCH_NEW, "init_s": init_s, "calibrate_s": calib_s,
+           "selected_layers": [int(i) for i in
+                               np.flatnonzero(select.cpu().numpy())],
+           "streams": rows, **stages,
+           "kernel_vs_reference_rel": step_rel,
+           "kernel_vs_reference_argmax_agree": step_agree,
+           "kernel_vs_reference_bound": bound,
+           "kernel_vs_reference_bf16": steps_bf16,
+           "kernel_vs_reference_fp32": steps_fp32, **extra,
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "seconds": time.perf_counter() - t0, "card": smi}
+    emit(row)
+    return launches, steps, row
+
+
+def phase_decoder_archs(dev, smi, flush, tok):
+    """K1 against its plain version at the new geometries, then every
+    model of ARCH_PLAN in turn (each freed before the next). Returns (K1
+    launches on the served streams, their steps, the K1 cases)."""
+    import gc
+    import torch
+    t_phase = time.perf_counter()
+    cases = []
+    for cname, dt, B, S, P, Hq, Hkv, D in ARCH_K1_CASES:
+        make = served_case if dt == "bfloat16" else random_case
+        # the seed follows the rows' geometry, not Hq: the G 8 yardstick
+        # reads starcoder2's rows
+        q, k, v, kl, pf = make(dev, getattr(torch, dt), B, S, P, Hq, Hkv, D,
+                               S + Hkv + D, n_dead=1)
+        cases.append(compare_case(rd_case(cname, q, k, v, kl, pf, P),
+                                  flush))
+        emit({"phase": "decoder_archs_kernel_vs_plain", **cases[-1],
+              "card": smi})
+        del q, k, v
+    launches, steps, per_model = 0, 0, {}
+    for name, C, transports, gates in ARCH_PLAN:
+        n, s, row = arch_run(dev, smi, tok, name, C, transports, gates)
+        launches += n
+        steps += s
+        per_model[name] = n
+        gc.collect()                   # the model's last references
+        torch.cuda.empty_cache()
+    emit({"phase": "decoder_archs_checks", "k1_launches": launches,
+          "k1_launches_by_model": per_model,
+          "k1_launches_per_step": ARCH_K1_PER_STEP, "steps": steps,
+          "seconds": time.perf_counter() - t_phase, "card": smi})
+    return launches, steps, cases
+
+
 def fa_case(dev, name, dtype, B, Sq, Sc, Hq, Hkv, D, *, causal=True,
             window=None, mass=False, seed):
     """A K2 case: inputs, the ops call, its plain version, the SDPA
@@ -2909,9 +3371,13 @@ def main() -> int:
         dev, smi, flush, pairs.pair_tokenizer())
     k1_paths["state_sharing"] = k1_state
     launches += k1_state
+    k1_arch, arch_steps, arch_cases = phase_decoder_archs(
+        dev, smi, flush, pairs.pair_tokenizer())
+    k1_paths["decoder_archs"] = k1_arch
+    launches += k1_arch
     ep_launches, ep_results = phase_entry_point(dev, flush, smi)
     sharded = phase_sharded_decode(dev, smi, flush)
-    results = cases + [main] + ep_results + k4_cases
+    results = cases + [main] + ep_results + k4_cases + arch_cases
     kernels = {"kernels": [
         {**kernel_entry(results, "ragged_decode",
                         "src/repro_torch/kernels/csrc/ragged_decode.cu",
@@ -2919,11 +3385,20 @@ def main() -> int:
                         "main_path_selected_layer"),
          # the 28-layer served paths' launches per ragged step; the
          # hetero stream decodes at the 42-layer receiver's depth, Zamba2
-         # at its 9 shared-attention invocations
-         "launches_per_step": (launches - hetero_launches - k1_state)
-         // max(steps, 1),
+         # at its 9 shared-attention invocations, each decoder config at
+         # its full-attention layers
+         "launches_per_step": (launches - hetero_launches - k1_state
+                               - k1_arch) // max(steps, 1),
          "hetero_stream_launches_per_step": hetero_launches // 7,
          "state_sharing_launches_per_step": k1_state // state_steps,
+         "decoder_archs_launches_per_step": ARCH_K1_PER_STEP,
+         "decoder_archs_steps": arch_steps,
+         "new_geometries": {c["case"]: {
+             k: c[k] for k in ("dtype", "B", "Hq", "Hkv", "D", "Skv",
+                               "device_ms", "bound_ms", "library_device_ms",
+                               "ms", "plain_ms", "library_ms",
+                               "max_abs_err", "tol_ratio")}
+             for c in arch_cases},
          "launches_by_path": k1_paths},
         kernel_entry(results, "flash_attention",
                      "src/repro_torch/kernels/csrc/flash_attention.cu",

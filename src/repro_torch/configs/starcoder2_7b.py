@@ -1,0 +1,17 @@
+"""StarCoder2-7B — dense, GQA kv=4, RoPE.  [arXiv:2402.19173]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="starcoder2-7b",
+    arch_type="dense",
+    source="arXiv:2402.19173",
+    num_layers=32,
+    d_model=4608,
+    num_heads=36,
+    num_kv_heads=4,
+    head_dim=128,
+    d_ff=18432,
+    vocab_size=49152,
+    rope_theta=100_000.0,
+    tie_embeddings=False,
+)

@@ -44,9 +44,18 @@ def _check_backend(backend: str) -> None:
 # ---------------------------------------------------------------------------
 def extract_kv(cfg: ModelConfig, cache) -> Optional[Dict[str, torch.Tensor]]:
     """{"k","v"} of (L_attn, B, Sc, Hkv, Dh) from a prefill cache (None for
-    an attention-free model)."""
+    an attention-free model). A ring buffer (``cfg.ring_cache`` with a
+    context longer than a layer's window) holds only that window, in ring
+    slot order, so it is no prefix to share: this raises."""
     if not cache["layers"]:
         return None
+    rings = [l for l, e in enumerate(cache["layers"]) if e.get("ring")]
+    if rings:
+        raise ValueError(
+            f"{cfg.name}: attention layers {rings} keep a ring buffer of "
+            "their window (ring_cache=True with a context longer than the "
+            "window); a ring holds the last window positions in slot "
+            "order and cannot be shared as a prefix")
     return {p: torch.stack([e[p] for e in cache["layers"]])
             for p in ("k", "v")}
 
@@ -61,14 +70,15 @@ def extract_states(cfg: ModelConfig, cache) -> Optional[Dict[str, Any]]:
 
 
 @torch.no_grad()
-def sender_prefill(params, cfg: ModelConfig, context_tokens: torch.Tensor
-                   ) -> Tuple[Optional[Dict[str, torch.Tensor]],
-                              Optional[Dict[str, Any]]]:
-    """One forward pass of M_s over C. Returns (kv, states)."""
+def sender_prefill(params, cfg: ModelConfig, context_tokens: torch.Tensor,
+                   extra=None) -> Tuple[Optional[Dict[str, torch.Tensor]],
+                                        Optional[Dict[str, Any]]]:
+    """One forward pass of M_s over C (``extra``: a VLM's ``patches``).
+    Returns (kv, states)."""
     B, Sc = context_tokens.shape
     cache = tfm.init_cache(cfg, B, Sc, device=context_tokens.device)
     out = tfm.apply_model(params, cfg, context_tokens, mode="cached",
-                          cache=cache, logits_mode="last")
+                          cache=cache, extra=extra, logits_mode="last")
     return extract_kv(cfg, out.cache), extract_states(cfg, out.cache)
 
 

@@ -20,12 +20,22 @@
 //    cache position t < pfx ? t : prefix_len + (t - pfx), so the dead gap
 //    [pfx, prefix_len) of the bucket and everything past kv_len are never
 //    visited or loaded.
-//  * Split-KV. The grid is (Hkv, B, nsplit) with nsplit = ceil(Skv / chunk),
-//    sized on the host from Skv alone (the lengths stay on the device: no
-//    host sync). Block sp takes indices [sp*chunk, (sp+1)*chunk) of its
-//    row's attended positions and exits at once if that starts at or past
-//    n_b. A block covers all G query heads of its KV head, so each K/V row
-//    is read once for the whole group.
+//  * Split-KV. The grid is (Hkv * ngrp, B, nsplit) with nsplit =
+//    ceil(Skv / chunk), sized on the host from Skv alone (the lengths stay
+//    on the device: no host sync). Block sp takes indices [sp*chunk,
+//    (sp+1)*chunk) of its row's attended positions and exits at once if
+//    that starts at or past n_b. A block covers all G query heads of its KV
+//    head when G <= 8, so each K/V row is read once for the whole group.
+//  * Wider groups (starcoder2's G 9, any G up to a Hq/Hkv of 64 and more)
+//    split into ngrp = ceil(G / 8) head groups of gs = ceil(G / ngrp) <= 8
+//    heads, one block each, so every block runs the G <= 8 code: q,
+//    scores and accumulators stay in registers at MAXG 8 (a MAXG 16
+//    instance would double them, ~2x the registers, and its warp-merge
+//    scratch would pass 48 KB of static shared memory). The cost is that
+//    each K/V row is read once per head group (twice at G 9 to 16; the
+//    second read of a tile mostly hits L2, since both blocks run at once).
+//    G <= 8 takes one group, g0 = 0: the instances and their work are
+//    those of the kernel before the split.
 //  * cp.async staging. A sub-tile is 2 KB of K and 2 KB of V per position
 //    a lane takes (4 KB for float32 rows over 512 bytes): TPP lanes share
 //    a position, each copying VPT 16-byte vectors of its K row and of its V
@@ -56,7 +66,7 @@
 //    shares), one block per (row, q head) with the splits spread over its
 //    threads, into the output; a row that attends nothing (n_b == 0) gives
 //    exact zeros.
-// One template serves float32, bf16 and fp16 (G <= 8, D <= 256).
+// One template serves float32, bf16 and fp16 (any G, D <= 256).
 #include <cstdint>
 
 #include "common.cuh"
@@ -91,6 +101,7 @@ struct Args {
   float* pl;  // (B, Hkv, nsplit, G)
   void* out;
   int B, Hkv, G, D, Skv, prefix_len, nsplit, chunk, tpp, aligned;
+  int gs, ngrp;  // query heads per block (<= 8) and head groups per KV head
   long long q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_sh;
   float scale;
 };
@@ -99,6 +110,12 @@ struct Args {
 // (VPR), vectors per lane (VPT), lanes per position (TPP, a power of two).
 __host__ __device__ inline int max_g(int G) {
   return G <= 1 ? 1 : G <= 2 ? 2 : G <= 4 ? 4 : 8;
+}
+// Head groups of at most 8 heads per KV head, as even as they go.
+__host__ __device__ inline int head_groups(int G) { return (G + 7) / 8; }
+__host__ __device__ inline int heads_per_group(int G) {
+  const int n = head_groups(G);
+  return (G + n - 1) / n;
 }
 // One vector a lane keeps q, K, V and the accumulator of every head to
 // ~100 registers (at G <= 4), so 4-5 blocks fit an SM; two only for float32
@@ -162,13 +179,14 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ float red_l[kWarps][MAXG];
   uint4* ring = reinterpret_cast<uint4*>(smem);
 
-  const int h = blockIdx.x;
+  const int h = blockIdx.x / a.ngrp;
+  const int g0 = (blockIdx.x % a.ngrp) * a.gs;  // first head of the group
   const int b = blockIdx.y;
   const int sp = blockIdx.z;
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
-  const int G = a.G;
+  const int G = min(a.gs, a.G - g0);  // heads of this block
   const int D = a.D;
   const int TPP = a.tpp;
   const int P = kThreads / TPP;
@@ -231,7 +249,8 @@ __global__ void __launch_bounds__(kThreads)
       for (int e = 0; e < VE; ++e) {
         const int d = (c + j * TPP) * VE + e;
         qr[g][j][e] = (g < G && d < D)
-                          ? to_f(q[(h * G + g) * a.q_sh + d]) * a.scale
+                          ? to_f(q[(h * a.G + g0 + g) * a.q_sh + d]) *
+                                a.scale
                           : 0.f;
         acc[g][j][e] = 0.f;
       }
@@ -356,7 +375,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
   const long long row0 =
-      (static_cast<long long>(b * a.Hkv + h) * a.nsplit + sp) * G;
+      (static_cast<long long>(b * a.Hkv + h) * a.nsplit + sp) * a.G + g0;
   for (int idx = tid; idx < G * D; idx += kThreads) {
     const int g = idx / D;
     const int d = idx % D;
@@ -391,7 +410,7 @@ __global__ void __launch_bounds__(kMergeThreads)
 
 template <typename T, int MAXG>
 cudaError_t launch_g(const Args& a, cudaStream_t s) {
-  const dim3 grid(a.Hkv, a.B, a.nsplit);
+  const dim3 grid(a.Hkv * a.ngrp, a.B, a.nsplit);
   if (vectors_per_lane(a.G, a.D, sizeof(T)) == 2)
     ragged_split_kernel<T, MAXG, 2><<<grid, kThreads, 0, s>>>(a);
   else
@@ -404,7 +423,7 @@ cudaError_t launch_g(const Args& a, cudaStream_t s) {
 
 template <typename T>
 cudaError_t launch(const Args& a, cudaStream_t s) {
-  switch (max_g(a.G)) {
+  switch (max_g(a.gs)) {
     case 1: return launch_g<T, 1>(a, s);
     case 2: return launch_g<T, 2>(a, s);
     case 4: return launch_g<T, 4>(a, s);
@@ -436,7 +455,7 @@ extern "C" int ragged_decode_launch(
     long long q_sb, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_sh, float scale, int dtype, void* stream) {
-  if (G < 1 || G > 8 || D < 1 || D > kMaxD || B < 1 || B > 65535 ||
+  if (G < 1 || D < 1 || D > kMaxD || B < 1 || B > 65535 ||
       Hkv < 1 || Skv < 0 || dtype < 0 || dtype > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const int es = esize_of(dtype);
@@ -453,7 +472,8 @@ extern "C" int ragged_decode_launch(
                       al(v, v_sb, v_ss, v_sh);
   Args a{q,    k,    v,    kv_len, pfx,  po,   pm,   pl,   out,
          B,    Hkv,  G,    D,      Skv,  prefix_len, nsplit, chunk,
-         lanes_per_position(G, D, es), aligned,
+         lanes_per_position(G, D, es), aligned, heads_per_group(G),
+         head_groups(G),
          q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_sh, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {

@@ -15,7 +15,9 @@ per byte), so the CUDA kernel (``csrc/ragged_decode.cu``) visits only the
 attended positions of each row, splits them over blocks of ``chunk``
 positions (split-KV), stages each block's K/V rows through shared memory
 with ``cp.async`` straight from the cache's own (B, Skv, Hkv, D) layout,
-reads each row once for all G query heads of its KV-head group, and merges
+reads each row once for all G query heads of its KV-head group (G <= 8;
+a wider group is split into head groups of at most 8, one block each,
+which read the row once per group), and merges
 the float32 partials with the log-sum-exp rule in a second kernel of the
 same launch. The grid is sized from Skv alone, so a launch never reads the
 lengths back to the host. ``ragged_decode_split_reference`` is that
@@ -23,7 +25,8 @@ decomposition in plain PyTorch, for the tests. See the source for the
 design.
 
 ``ragged_decode`` takes its plain PyTorch version only for tensors on the
-CPU; for CUDA tensors it launches the kernel or raises.
+CPU; for CUDA tensors it launches the kernel or raises. ``supports`` is
+the kernel's geometry rule.
 """
 from __future__ import annotations
 
@@ -41,6 +44,14 @@ _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 10 + [ctypes.c_float, ctypes.c_int,
                                            ctypes.c_void_p])
 _CHUNKS = {}
+MAX_D = 256
+
+
+def supports(G: int, D: int, dtype) -> bool:
+    """Does the CUDA kernel take ``G = Hq / Hkv`` query heads per KV head,
+    head dim ``D`` and ``dtype``? Any G >= 1 (groups wider than 8 are
+    split over blocks), D up to 256, float32 / bfloat16 / float16."""
+    return dtype in _DTYPE_CODE and G >= 1 and 1 <= D <= MAX_D
 
 
 def per_row(x, B: int, device) -> torch.Tensor:
@@ -152,9 +163,9 @@ def _launch(q, k, v, kv_len, pfx, prefix_len: int) -> torch.Tensor:
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"ragged_decode takes one of {list(_DTYPE_CODE)} for "
                         f"q, k and v; got {q.dtype}, {k.dtype}, {v.dtype}")
-    if Hq % Hkv or not 1 <= Hq // Hkv <= 8 or not 1 <= D <= 256:
+    if Hq % Hkv or not supports(Hq // Hkv, D, q.dtype):
         raise ValueError(f"unsupported geometry Hq={Hq} Hkv={Hkv} D={D} "
-                         "(needs G = Hq/Hkv in 1..8 and D <= 256)")
+                         f"(needs Hkv | Hq and D <= {MAX_D})")
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"shape mismatch q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")

@@ -9,21 +9,40 @@ tokens written into a per-layer cache buffer laid out
 each row's real prefix length inside the bucket. ``ctx_valid`` is the
 layer's selection flag (a Python bool: selections are frozen on the host).
 The cache buffers are updated in place (the reference donated them); the
-caller must treat the passed buffers as consumed. Sliding windows and the
-ring cache are not ported yet.
+caller must treat the passed buffers as consumed.
 
-``backend="kernel"`` sends one-token decode (S == 1, no mass) to the
-ragged decode kernel, the counterpart of the reference's ``"pallas"``.
+``window`` (a layer's sliding window) masks keys ``window`` or more
+positions behind the query, in every mode. With ``cfg.ring_cache`` a
+windowed layer whose buffer is exactly the window and holds no prefix is
+a vLLM-style ring: absolute index i lives in slot i % window.
+``cfg.attn_impl == "chunked"`` runs the attention core over query blocks
+of ``cfg.attn_block_q``.
+
+``backend="kernel"`` sends one-token decode (S == 1, no window, no mass)
+to the ragged decode kernel, the counterpart of the reference's
+``"pallas"``; windowed layers decode masked-dense, as there.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels.ragged_decode import per_row as _rows
 from repro_torch.kernels.ragged_decode import ragged_decode
-from repro_torch.models.layers import attention_core, dense_init, rope
+from repro_torch.models.layers import (attention_core,
+                                       attention_core_chunked, dense_init,
+                                       rope)
+
+
+def _core(cfg):
+    """The attention core: "xla" (the plain core) materialises the (Sq,
+    Skv) probabilities, "chunked" takes query blocks of attn_block_q."""
+    if cfg.attn_impl == "chunked":
+        return functools.partial(attention_core_chunked,
+                                 blk_q=cfg.attn_block_q)
+    return attention_core
 
 
 def init_attn(gen, cfg, dtype, device):
@@ -54,8 +73,6 @@ def self_attention(p, cfg, x, *, mode: str, causal: bool = True,
                    cache_v=None, cache_len=None, prefix_lens=None,
                    collect_mass: bool = False, backend: str = "reference"):
     """Returns (out, (cache_k, cache_v) or (k, v), mass)."""
-    if window is not None:
-        raise NotImplementedError("sliding-window layers are not ported yet")
     B, S, _ = x.shape
     dev = x.device
     Hq, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -70,8 +87,8 @@ def self_attention(p, cfg, x, *, mode: str, causal: bool = True,
             pb = pos[None].expand(B, S)
             q = rope(q, pb, cfg.rope_theta)
             k = rope(k, pb, cfg.rope_theta)
-        out, mass = attention_core(q, k, v, q_pos=pos, kv_pos=pos,
-                                   causal=causal)
+        out, mass = _core(cfg)(q, k, v, q_pos=pos, kv_pos=pos,
+                               causal=causal, window=window)
         return out.reshape(B, S, -1) @ p["wo"], (k, v), mass
 
     ragged = (isinstance(cache_len, torch.Tensor)
@@ -88,10 +105,15 @@ def self_attention(p, cfg, x, *, mode: str, causal: bool = True,
         q = rope(q, pb, cfg.rope_theta)
         k = rope(k, pb, cfg.rope_theta)
 
+    Smax = cache_k.shape[1]
+    if (cfg.ring_cache and window is not None and Smax == window
+            and prefix_len == 0 and not ragged):
+        return _ring_attention(p, cfg, q, k, v, q_pos, cache_k, cache_v,
+                               cache_len, pos_shift, causal, window)
+
     # write the new entries in place; like the reference's
     # dynamic_update_slice, the start is clamped to [0, Smax - S]
     # (torch indexing neither clamps nor rejects negative starts)
-    Smax = cache_k.shape[1]
     if ragged:
         start = clen.clamp(min=0, max=Smax - S)
         rows = torch.arange(B, device=dev)[:, None]
@@ -103,7 +125,8 @@ def self_attention(p, cfg, x, *, mode: str, causal: bool = True,
         cache_k[:, start:start + S] = k.to(cache_k.dtype)
         cache_v[:, start:start + S] = v.to(cache_v.dtype)
 
-    if backend == "kernel" and S == 1 and not collect_mass:
+    if backend == "kernel" and S == 1 and window is None \
+            and not collect_mass:
         # positions are baked into q and the cache (RoPE above), so only
         # the validity geometry ships: kv_len = valid entries, pfx = real
         # prefix entries (0 where ctx_valid masks an unselected layer)
@@ -139,7 +162,36 @@ def self_attention(p, cfg, x, *, mode: str, causal: bool = True,
     mass_mask = (idx < prefix_len) if (collect_mass and prefix_len) else None
     # decode (S == 1): every valid slot precedes the query by construction,
     # so the causal comparison is dead work there
-    out, mass = attention_core(q, cache_k, cache_v, q_pos=q_pos,
-                               kv_pos=kv_pos, kv_valid=valid,
-                               causal=causal and S > 1, mass_mask=mass_mask)
+    out, mass = _core(cfg)(q, cache_k, cache_v, q_pos=q_pos, kv_pos=kv_pos,
+                           kv_valid=valid, causal=causal and S > 1,
+                           window=window, mass_mask=mass_mask)
     return out.reshape(B, S, -1) @ p["wo"], (cache_k, cache_v), mass
+
+
+def _ring_attention(p, cfg, q, k, v, q_pos, cache_k, cache_v, cache_len,
+                    pos_shift, causal, window):
+    """The ring buffer of a windowed layer (uniform rows, no prefix):
+    absolute index i lives in slot i % W. A prefill attends over the
+    whole incoming sequence (its early rows need positions the ring
+    evicts), then keeps the last W entries; a decode step writes its slot
+    and attends over the slots' absolute positions (a slot not yet
+    written maps below 0 and is masked). No mass is collected."""
+    B, S = q.shape[:2]
+    W, dev = cache_k.shape[1], q.device
+    if S > 1:
+        out, _ = _core(cfg)(q, k, v, q_pos=q_pos, kv_pos=q_pos,
+                            causal=causal, window=window)
+        n_w = min(S, W)
+        slots = (cache_len + torch.arange(S - n_w, S, device=dev)) % W
+        cache_k[:, slots] = k[:, S - n_w:].to(cache_k.dtype)
+        cache_v[:, slots] = v[:, S - n_w:].to(cache_v.dtype)
+        return out.reshape(B, S, -1) @ p["wo"], (cache_k, cache_v), None
+    slot = cache_len % W
+    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+    idx = torch.arange(W, device=dev)
+    kv_pos = cache_len - torch.remainder(cache_len - idx, W)
+    out, _ = _core(cfg)(q, cache_k, cache_v, q_pos=q_pos,
+                        kv_pos=pos_shift + kv_pos, kv_valid=kv_pos >= 0,
+                        causal=causal, window=window)
+    return out.reshape(B, S, -1) @ p["wo"], (cache_k, cache_v), None

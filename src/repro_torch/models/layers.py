@@ -1,5 +1,7 @@
 """Core primitives of the port: init, RMSNorm, RoPE, masked GQA attention
-with the Eq. (1) context mass, and the swiglu MLP.
+(causal, sliding window) with the Eq. (1) context mass, its query-blocked
+form, the swiglu and gelu MLPs and the top-k MoE in both of the
+reference's strategies (``dense_all`` and capacity-based ``dropping``).
 
 Each function mirrors the reference's dtype steps: norms and rotary run in
 float32 and cast back, attention scores are computed in the input dtype and
@@ -69,6 +71,7 @@ def attention_core(
     kv_pos: torch.Tensor,                 # (Skv,) or (B, Skv)
     kv_valid: Optional[torch.Tensor] = None,   # (Skv,) or (B, Skv) bool
     causal: bool = True,
+    window: Optional[int] = None,              # sliding window
     mass_mask: Optional[torch.Tensor] = None,  # (Skv,) bool
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Masked GQA attention; returns (out, context_mass (B,) or None).
@@ -91,6 +94,8 @@ def attention_core(
                        dtype=torch.bool, device=q.device)
     if causal:
         allow = allow & (kp <= qp)
+    if window is not None:
+        allow = allow & ((qp - kp) < window)
     if kv_valid is not None:
         if kv_valid.dim() == 1:
             kv_valid = kv_valid[None]
@@ -105,17 +110,169 @@ def attention_core(
     return out.reshape(B, Sq, Hq, Dh), mass
 
 
-# ---------------------------------------------------------------------------
-# MLP
-# ---------------------------------------------------------------------------
-def init_mlp(gen, d_model, d_ff, dtype, device):
-    return {
-        "w_gate": dense_init(gen, (d_model, d_ff), dtype, device),
-        "w_up": dense_init(gen, (d_model, d_ff), dtype, device),
-        "w_down": dense_init(gen, (d_ff, d_model), dtype, device),
-    }
+def attention_core_chunked(q, k, v, *, q_pos, kv_pos, kv_valid=None,
+                           causal: bool = True, window=None, mass_mask=None,
+                           blk_q: int = 512):
+    """``attention_core`` over query blocks of ``blk_q`` rows, so the
+    float32 probabilities held at once are (B, H, blk_q, Skv). It takes the
+    plain core unless Sq is a multiple of ``blk_q`` larger than it, as the
+    reference does; the mass is the mean of the blocks' masses."""
+    B, Sq = q.shape[:2]
+    kw = dict(kv_pos=kv_pos, kv_valid=kv_valid, causal=causal,
+              window=window, mass_mask=mass_mask)
+    if Sq % blk_q or Sq <= blk_q:
+        return attention_core(q, k, v, q_pos=q_pos, **kw)
+    if q_pos.dim() == 1:
+        q_pos = q_pos[None].expand(B, Sq)
+    outs, masses = [], []
+    for i in range(0, Sq, blk_q):
+        out, mass = attention_core(q[:, i:i + blk_q], k, v,
+                                   q_pos=q_pos[:, i:i + blk_q], **kw)
+        outs.append(out)
+        masses.append(mass)
+    mass = (torch.stack(masses).mean(0) if mass_mask is not None
+            else None)
+    return torch.cat(outs, dim=1), mass
 
 
-def apply_mlp(p, x):
-    """swiglu: silu(x W_gate) * (x W_up), then W_down."""
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+# ---------------------------------------------------------------------------
+# MLPs (swiglu; gelu for starcoder-style models)
+# ---------------------------------------------------------------------------
+def init_mlp(gen, d_model, d_ff, dtype, device, mlp_type: str = "swiglu"):
+    if mlp_type == "swiglu":
+        return {
+            "w_gate": dense_init(gen, (d_model, d_ff), dtype, device),
+            "w_up": dense_init(gen, (d_model, d_ff), dtype, device),
+            "w_down": dense_init(gen, (d_ff, d_model), dtype, device),
+        }
+    return {"w_up": dense_init(gen, (d_model, d_ff), dtype, device),
+            "w_down": dense_init(gen, (d_ff, d_model), dtype, device)}
+
+
+def apply_mlp(p, x, mlp_type: str = "swiglu"):
+    """swiglu: silu(x W_gate) * (x W_up), then W_down; gelu: the tanh
+    approximation (``jax.nn.gelu``'s default) of x W_up, then W_down."""
+    if mlp_type == "swiglu":
+        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    else:
+        h = F.gelu(x @ p["w_up"], approximate="tanh")
+    return h @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# MoE: top-k routing, then either every expert on every token with zero
+# weight where unrouted (dense_all), or capacity-based dispatch of each
+# expert's first C assignments (dropping; the rest pass the residual only)
+# ---------------------------------------------------------------------------
+def init_moe(gen, d_model, d_ff, num_experts, dtype, device):
+    """The router is float32 whatever the model's dtype, as in the
+    reference."""
+    E = num_experts
+    return {"router": dense_init(gen, (d_model, E), torch.float32, device),
+            "w_gate": dense_init(gen, (E, d_model, d_ff), dtype, device),
+            "w_up": dense_init(gen, (E, d_model, d_ff), dtype, device),
+            "w_down": dense_init(gen, (E, d_ff, d_model), dtype, device)}
+
+
+def router_probs(p, x, k: int):
+    """Top-k routing: (gates (..., k) in x's dtype, idx (..., k), the
+    Switch load-balancing loss E * sum_e f_e * p_e as a float32 scalar).
+    Ties go to the lower expert, as ``jax.lax.top_k`` orders them (a
+    stable descending sort; ``torch.topk`` breaks ties otherwise)."""
+    logits = x.float() @ p["router"]
+    probs = torch.softmax(logits, dim=-1)
+    order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, idx = order.values[..., :k], order.indices[..., :k]
+    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    E = logits.shape[-1]
+    me = probs.reshape(-1, E).mean(0)
+    ce = F.one_hot(idx, E).sum(-2).reshape(-1, E).float().mean(0)
+    return gates.to(x.dtype), idx, E * torch.sum(me * ce)
+
+
+def apply_moe_dense_all(p, x, k: int):
+    """Every expert on every token, accumulated over the experts in order
+    in x's dtype with each token's gate (zero where not routed)."""
+    gates, idx, aux = router_probs(p, x, k)
+    E = p["w_gate"].shape[0]
+    comb = (F.one_hot(idx, E).to(x.dtype) * gates[..., None]).sum(-2)
+    acc = torch.zeros_like(x)
+    for e in range(E):
+        h = (F.silu(x @ p["w_gate"][e]) * (x @ p["w_up"][e])) @ p["w_down"][e]
+        acc = acc + h * comb[..., e, None]
+    return acc, aux
+
+
+def _dispatch(p, xf, k: int, C: int):
+    """One token group's capacity dispatch (the reference's sort-based
+    route): assignments sorted by expert (stably, so each expert's come
+    in token order), each expert's first C of them. Returns (tok_slot
+    (E, C), gate_slot (E, C) in xf's dtype, valid (E, C), aux)."""
+    n, E = xf.shape[0], p["w_gate"].shape[0]
+    gates, idx, aux = router_probs(p, xf, k)
+    dev = xf.device
+    eid = idx.reshape(n * k)
+    tok = torch.arange(n * k, device=dev) // k
+    order = torch.sort(eid, stable=True).indices
+    eid_s, tok_s = eid[order], tok[order]
+    gate_s = gates.reshape(n * k)[order]
+    starts = torch.searchsorted(eid_s, torch.arange(E, device=dev))
+    ends = torch.cat([starts[1:], starts.new_full((1,), n * k)])
+    gidx = starts[:, None] + torch.arange(C, device=dev)[None]
+    valid = gidx < ends[:, None]
+    gidx = gidx.clamp(0, n * k - 1)
+    gate_slot = torch.where(valid, gate_s[gidx],
+                            torch.zeros_like(gate_s[gidx])).to(xf.dtype)
+    return tok_s[gidx], gate_slot, valid, aux
+
+
+def _capacity(x, k: int, E: int, capacity_factor: float, groups: int):
+    """(groups, tokens per group n, capacity C): ``groups`` applies only
+    where it divides the token count."""
+    N = x.shape[0] * x.shape[1]
+    G = groups if (groups and N % groups == 0) else 1
+    n = N // G
+    return G, n, max(int(capacity_factor * n * k / E), 1)
+
+
+def apply_moe_dropping(p, x, k: int, capacity_factor: float = 1.25,
+                       groups: int = 1):
+    """Capacity-based dispatch: each group's assignments go to an (E, C, D)
+    buffer, batched expert products run on it, and the gated results are
+    added back to their tokens (``index_add_``); assignments past an
+    expert's capacity C are dropped."""
+    B, S, D = x.shape
+    E = p["w_gate"].shape[0]
+    G, n, C = _capacity(x, k, E, capacity_factor, groups)
+    xg = x.reshape(G, n, D)
+    routes = [_dispatch(p, xg[g], k, C) for g in range(G)]
+    buf = torch.stack([xg[g][r[0]] * r[2][..., None].to(x.dtype)
+                       for g, r in enumerate(routes)])       # (G, E, C, D)
+    h = F.silu(torch.einsum("gecd,edf->gecf", buf, p["w_gate"]))
+    h = h * torch.einsum("gecd,edf->gecf", buf, p["w_up"])
+    yb = torch.einsum("gecf,efd->gecd", h, p["w_down"])
+    out = torch.stack([
+        torch.zeros((n, D), dtype=x.dtype, device=x.device).index_add_(
+            0, tok_slot.reshape(-1),
+            (yb[g] * gate_slot[..., None]).reshape(E * C, D))
+        for g, (tok_slot, gate_slot, _, _) in enumerate(routes)])
+    aux = torch.stack([r[3] for r in routes]).mean()
+    return out.reshape(B, S, D), aux
+
+
+def moe_dropped(p, x, cfg) -> int:
+    """Assignments that ``dropping`` drops on ``x`` under ``cfg``'s
+    capacity factor and groups (past their expert's capacity)."""
+    k, E = cfg.num_experts_per_tok, p["w_gate"].shape[0]
+    G, n, C = _capacity(x, k, E, cfg.moe_capacity_factor, cfg.moe_groups)
+    xg = x.reshape(G, n, x.shape[-1])
+    kept = sum(int(_dispatch(p, xg[g], k, C)[2].sum()) for g in range(G))
+    return G * n * k - kept
+
+
+def apply_moe(p, x, cfg):
+    if cfg.moe_impl == "dropping":
+        return apply_moe_dropping(p, x, cfg.num_experts_per_tok,
+                                  cfg.moe_capacity_factor,
+                                  groups=cfg.moe_groups)
+    return apply_moe_dense_all(p, x, cfg.num_experts_per_tok)

@@ -2,16 +2,19 @@
 
 Parameters are a plain dict of tensors with one entry per executed layer
 in layer-plan order (``params["layers"][i]``): an attention layer holds
-``ln1``/``attn``/``ln2``/``mlp``, an RWKV6 layer ``ln1``/``ln2``/``rwkv``,
-a Mamba2 layer ``ln``/``mamba``. Zamba's shared attention block lives once
-in ``params["shared_attn"]`` and every invocation's entry is that same
-dict (the same tensors, not copies). A Python loop over layers takes the
-place of the reference's ``lax.scan`` over stacked runs.
+``ln1``/``attn``/``ln2`` and ``mlp`` (swiglu, or gelu for starcoder-style
+models) or ``moe`` (the router and stacked experts), an RWKV6 layer
+``ln1``/``ln2``/``rwkv``, a Mamba2 layer ``ln``/``mamba``. Zamba's shared
+attention block lives once in ``params["shared_attn"]`` and every
+invocation's entry is that same dict (the same tensors, not copies). A
+Python loop over layers takes the place of the reference's ``lax.scan``
+over stacked runs.
 
 The serving cache keeps one entry per attention layer (``"layers"``,
 shared-attention invocations included, each with its own buffers) and,
 for a model with SSM layers, one state dict per SSM layer (``"states"``,
-float32 whatever the model dtype).
+float32 whatever the model dtype). With ``cfg.ring_cache`` a windowed
+layer of a prefix-free dense cache keeps a ring of ``window`` entries.
 
 KVComm enters through ``shared`` (a ``repro_torch.core.SharedKV``). Its two
 KV views map onto per-layer cache entries:
@@ -31,8 +34,9 @@ from zeros.
 The comparison methods enter through three more arguments: ``extra``
 soft embeddings (CIPHER), ``capture_hidden`` (each attention layer's
 last-token input, the AC wire payload) and ``inject`` (AC, dense path
-only). MoE, sliding windows, cross-attention, encoders and patches are not
-ported yet and raise.
+only). ``extra={"patches": (B, P, D)}`` substitutes a VLM's stub patch
+embeddings for the first P positions. Encoders, cross-attention and
+audio models are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -40,17 +44,19 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import (apply_mlp, dense_init, embed_init,
-                                       init_mlp, rms_norm)
+from repro_torch.models.layers import (apply_mlp, apply_moe, dense_init,
+                                       embed_init, init_mlp, init_moe,
+                                       rms_norm)
 
 
 class ModelOut(NamedTuple):
     logits: torch.Tensor
     cache: Optional[Dict[str, Any]]
     masses: Optional[torch.Tensor]     # (L_attn, B) Eq. (1) raw mass
+    aux_loss: torch.Tensor             # MoE load-balance loss (0 if dense)
     hiddens: Optional[torch.Tensor] = None   # (L_attn, B, D) last token
 
 
@@ -62,19 +68,22 @@ SSM_KINDS = ("mamba", "rwkv")
 ATTN_KINDS = ("attn", "shared_attn")
 
 
+def mlp_type(cfg: ModelConfig) -> str:
+    return "gelu" if cfg.arch_type == "audio" or cfg.name.startswith(
+        "starcoder") else "swiglu"
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not cover yet."""
+    """Raise for what the port does not cover yet: encoders,
+    cross-attention and audio models."""
     for spec in cfg.layer_plan():
-        if spec.kind not in ATTN_KINDS + SSM_KINDS or spec.moe \
-                or spec.cross_attn \
-                or any(w is not None for w in spec.layer_windows()):
+        if spec.kind not in ATTN_KINDS + SSM_KINDS or spec.cross_attn:
             raise NotImplementedError(
-                f"{cfg.name}: only dense full-attention, shared-attention, "
-                f"RWKV6 and Mamba2 layers are ported (got {spec})")
-    if cfg.encoder_layers or cfg.num_patches or cfg.arch_type == "audio" \
-            or cfg.name.startswith("starcoder"):
-        raise NotImplementedError(f"{cfg.name}: encoder / patch / gelu "
-                                  "variants are not ported yet")
+                f"{cfg.name}: cross-attention layers are not ported yet "
+                f"(got {spec})")
+    if cfg.encoder_layers or cfg.arch_type == "audio":
+        raise NotImplementedError(f"{cfg.name}: encoder-decoder and audio "
+                                  "models are not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -96,24 +105,30 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device) -> Dict[str, Any]:
     }
     zeros = lambda: torch.zeros((d,), dtype=dt, device=device)  # noqa: E731
 
-    def layer(kind):
+    def layer(spec):
+        kind = spec.kind
         if kind == "rwkv":
             return {"ln1": zeros(), "ln2": zeros(),
                     "rwkv": ssm_mod.init_rwkv(gen, cfg, dt, device)}
         if kind == "mamba":
             return {"ln": zeros(),
                     "mamba": ssm_mod.init_mamba(gen, cfg, dt, device)}
-        return {"ln1": zeros(),
-                "attn": attn_mod.init_attn(gen, cfg, dt, device),
-                "ln2": zeros(),
-                "mlp": init_mlp(gen, d, cfg.d_ff, dt, device)}
+        p = {"ln1": zeros(),
+             "attn": attn_mod.init_attn(gen, cfg, dt, device),
+             "ln2": zeros()}
+        if spec.moe:
+            p["moe"] = init_moe(gen, d, cfg.d_ff, cfg.num_experts, dt,
+                                device)
+        else:
+            p["mlp"] = init_mlp(gen, d, cfg.d_ff, dt, device, mlp_type(cfg))
+        return p
 
-    for kind in layer_kinds(cfg):
-        if kind != "shared_attn":
-            params["layers"].append(layer(kind))
+    for spec in layer_specs(cfg):
+        if spec.kind != "shared_attn":
+            params["layers"].append(layer(spec))
             continue
         if "shared_attn" not in params:   # one block, every invocation
-            params["shared_attn"] = layer("attn")
+            params["shared_attn"] = layer(LayerSpec(kind="attn", count=1))
         params["layers"].append(params["shared_attn"])
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (d, cfg.vocab_size), dt, device)
@@ -129,7 +144,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
     entries including the prefix; the scheduler replaces it by a (B,)
     tensor for ragged rows. Each layer entry holds ``k``/``v`` of
     (B, S_buf, Hkv, Dh), ``prefix`` (does the buffer start with the
-    prefix bucket) and ``ctx_valid`` (is the prefix attended)."""
+    prefix bucket), ``ctx_valid`` (is the prefix attended) and ``ring``
+    (is the buffer a ring shorter than ``max_len``: with
+    ``cfg.ring_cache``, a windowed layer of a prefix-free dense cache holds
+    min(max_len, window) entries; the packed cache has no ring, as in the
+    reference)."""
     check_supported(cfg)
     dtype = dtype_of(cfg)
     prefix_len = 0 if shared is None else shared.prefix_len
@@ -139,13 +158,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
         sel = [False] * L
     else:
         sel = [bool(b) for b in shared.select.tolist()]
-    packed_i = {l: m for m, l in enumerate(shared.layers)} \
-        if shared is not None and shared.is_packed else {}
+    packed = shared is not None and shared.is_packed
+    packed_i = ({l: m for m, l in enumerate(shared.layers)} if packed
+                else {})
+    windows = [s.window for s in layer_specs(cfg) if s.kind in ATTN_KINDS]
     layers: List[Dict[str, Any]] = []
     for l in range(L):
-        has_prefix = shared is not None and (not shared.is_packed
-                                             or l in packed_i)
+        has_prefix = shared is not None and (not packed or l in packed_i)
         S_buf = max_len + (prefix_len if has_prefix else 0)
+        if cfg.ring_cache and windows[l] and prefix_len == 0 and not packed:
+            S_buf = min(S_buf, windows[l])
         k = torch.zeros((batch, S_buf, Hkv, Dh), dtype=dtype, device=device)
         v = torch.zeros_like(k)
         if has_prefix:
@@ -155,9 +177,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
                 k[:, :prefix_len] = src["k"][i].to(dtype)
                 v[:, :prefix_len] = src["v"][i].to(dtype)
         layers.append({"k": k, "v": v, "prefix": has_prefix,
-                       "ctx_valid": sel[l] if has_prefix else False})
+                       "ctx_valid": sel[l] if has_prefix else False,
+                       "ring": S_buf < max_len})
     cache = {"len": prefix_len, "layers": layers}
-    kinds = [k for k in layer_kinds(cfg) if k in SSM_KINDS]
+    kinds = [s.kind for s in layer_specs(cfg) if s.kind in SSM_KINDS]
     if kinds:
         cache["states"] = [
             _seed_state(_init_state(cfg, kind, batch, device), shared, j)
@@ -165,9 +188,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
     return cache
 
 
-def layer_kinds(cfg: ModelConfig) -> List[str]:
-    """The kind of every executed layer, in layer-plan order."""
-    return [s.kind for s in cfg.layer_plan() for _ in range(s.count)]
+def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
+    """The run spec of every executed layer, in layer-plan order (its
+    kind, window and MoE flag)."""
+    return [s for s in cfg.layer_plan() for _ in range(s.count)]
 
 
 def _init_state(cfg, kind: str, batch: int, device) -> Dict[str, Any]:
@@ -287,6 +311,9 @@ def apply_model(params, cfg: ModelConfig, tokens: torch.Tensor, *,
         prefix_lens = None
     cache_len = cache["len"] if cache is not None else 0
     x = params["embed"][tokens]
+    if cfg.num_patches and extra is not None and "patches" in extra:
+        pe = extra["patches"].to(x.dtype)
+        x[:, :pe.shape[1]] = pe
     if extra is not None and "soft_embeds" in extra:
         se = extra["soft_embeds"].to(x.dtype)
         start = extra.get("soft_start", 0)
@@ -294,8 +321,11 @@ def apply_model(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     masses: List[torch.Tensor] = []
     hiddens: List[torch.Tensor] = []
     states = cache.get("states") if cache is not None else None
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    mt = mlp_type(cfg)
     l = j = 0                       # attention and SSM layer indices
-    for kind, lp in zip(layer_kinds(cfg), params["layers"]):
+    for spec, lp in zip(layer_specs(cfg), params["layers"]):
+        kind = spec.kind
         if kind in SSM_KINDS:
             st = (states[j] if states is not None
                   else _init_state(cfg, kind, B, x.device))
@@ -328,7 +358,8 @@ def apply_model(params, cfg: ModelConfig, tokens: torch.Tensor, *,
         pfx = prefix_len if has_prefix else 0
         out, _, mass = attn_mod.self_attention(
             lp["attn"], cfg, rms_norm(x, lp["ln1"], cfg.norm_eps),
-            mode=mode, pos_shift=shift, prefix_len=pfx,
+            mode=mode, window=spec.window, pos_shift=shift,
+            prefix_len=pfx,
             ctx_valid=sel if has_prefix else None,
             cache_k=entry["k"] if entry else None,
             cache_v=entry["v"] if entry else None,
@@ -337,7 +368,13 @@ def apply_model(params, cfg: ModelConfig, tokens: torch.Tensor, *,
             prefix_lens=prefix_lens if has_prefix else None,
             collect_mass=collect_mass, backend=decode_backend)
         x = x + out
-        x = x + apply_mlp(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps))
+        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        if spec.moe:
+            ffn, layer_aux = apply_moe(lp["moe"], h, cfg)
+            aux = aux + layer_aux
+        else:
+            ffn = apply_mlp(lp["mlp"], h, mt)
+        x = x + ffn
         if collect_mass:
             masses.append(mass if mass is not None else
                           torch.zeros((B,), dtype=torch.float32,
@@ -355,6 +392,7 @@ def apply_model(params, cfg: ModelConfig, tokens: torch.Tensor, *,
             new_cache["states"] = states
     return ModelOut(logits=logits, cache=new_cache,
                     masses=torch.stack(masses) if masses else None,
+                    aux_loss=aux,
                     hiddens=torch.stack(hiddens) if hiddens else None)
 
 

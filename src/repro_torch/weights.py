@@ -4,8 +4,10 @@
 the nested tree (``jax.tree.map(np.asarray, params)``) or the flat
 ``blocks/0/attn/wq`` keys of its checkpoint files, and returns the port's
 per-layer dict: each run's leading layer axis is unstacked, runs are
-concatenated in layer-plan order. Attention, RWKV6 (``ln1``, ``ln2``,
-``rwkv``) and Mamba2 (``ln``, ``mamba``) runs cross; a Zamba-style
+concatenated in layer-plan order. Attention runs (``ln1``, ``ln2``,
+``attn`` and ``mlp``, or ``moe``: ``router`` (d, E), ``w_gate`` / ``w_up``
+(E, d, f), ``w_down`` (E, f, d)), RWKV6 (``ln1``, ``ln2``, ``rwkv``) and
+Mamba2 (``ln``, ``mamba``) runs cross; a Zamba-style
 ``shared_attn`` run (``None`` in the reference's ``blocks``) becomes
 entries that all point at the one top-level ``shared_attn`` dict.
 """
@@ -52,7 +54,9 @@ def params_from_jax(tree: Mapping[str, Any], *, cfg=None, device=None,
                     dtype: torch.dtype = None) -> Dict[str, Any]:
     """Reference parameters (nested numpy tree, or flat checkpoint keys) ->
     the port's parameters on ``device``, each in its array's own dtype
-    (float32, float16 or bfloat16) unless ``dtype`` is given. The
+    (float32, float16 or bfloat16) unless ``dtype`` is given; a MoE
+    router stays in its own dtype (float32, as the reference inits it)
+    either way. The
     default device is the card: without one this raises unless the caller
     passes ``device="cpu"``.
 
@@ -65,6 +69,7 @@ def params_from_jax(tree: Mapping[str, Any], *, cfg=None, device=None,
     if flat:
         tree = _nest(tree)
     conv = lambda a: _tensor(a, device, dtype)                # noqa: E731
+    keep = lambda a: _tensor(a, device, None)                 # noqa: E731
     out: Dict[str, Any] = {"embed": conv(tree["embed"]),
                            "final_norm": conv(tree["final_norm"]),
                            "layers": []}
@@ -95,16 +100,21 @@ def params_from_jax(tree: Mapping[str, Any], *, cfg=None, device=None,
             parts, nested = ("ln1", "ln2"), ("rwkv",)
         elif "mamba" in run:
             parts, nested = ("ln",), ("mamba",)
-        elif "attn" in run and "mlp" in run and "xattn" not in run:
-            parts, nested = ("ln1", "ln2"), ("attn", "mlp")
+        elif "attn" in run and "xattn" not in run and ("mlp" in run
+                                                       or "moe" in run):
+            parts = ("ln1", "ln2")
+            nested = ("attn", "mlp" if "mlp" in run else "moe")
         else:
             raise NotImplementedError(
-                f"run {ri} ({sorted(run)}): only dense attention, RWKV6 and "
-                "Mamba2 runs are ported")
+                f"run {ri} ({sorted(run)}): only attention (dense or MoE), "
+                "RWKV6 and Mamba2 runs are ported")
         n = np.asarray(run[parts[0]]).shape[0]
         for i in range(n):
             layer = {k: conv(run[k][i]) for k in parts}
             for k in nested:
-                layer[k] = {name: conv(v[i]) for name, v in run[k].items()}
+                layer[k] = {name: (keep(v[i]) if (k, name) == ("moe",
+                                                             "router")
+                                   else conv(v[i]))
+                            for name, v in run[k].items()}
             out["layers"].append(layer)
     return out

@@ -24,8 +24,10 @@ def test_configs_round_trip():
     assert dataclasses.asdict(get_config("llama3.2-3b-pair")) \
         == dataclasses.asdict(ref)
     assert port_cfg(ref) == get_config("llama3.2-3b-pair")
-    assert list_archs() == ["llama3.2-3b-pair", "rwkv6-1.6b",
-                            "zamba2-2.7b"]
+    assert list_archs() == ["gemma3-4b", "internlm2-20b",
+                            "llama3.2-3b-pair", "mixtral-8x22b",
+                            "olmoe-1b-7b", "pixtral-12b", "qwen1.5-110b",
+                            "rwkv6-1.6b", "starcoder2-7b", "zamba2-2.7b"]
     assert dataclasses.asdict(pairs.pair_config()) \
         == dataclasses.asdict(jpairs.pair_config())
     full = pairs.full_width_config()
@@ -33,8 +35,10 @@ def test_configs_round_trip():
             full.num_kv_heads, full.resolved_head_dim, full.d_ff,
             full.vocab_size, full.dtype, full.tie_embeddings) == \
         (28, 3072, 24, 8, 128, 8192, 128256, "bfloat16", True)
+    with pytest.raises(NotImplementedError):
+        get_config("whisper-medium")
     with pytest.raises(KeyError):
-        get_config("mixtral-8x22b")
+        get_config("mixtral-8x7b")
 
 
 def test_tokenizers_match():

@@ -121,6 +121,38 @@ def test_split_kernel_many_splits_strided(cuda, dtype, G, D):
     assert torch.all(out[0] == 0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv,D", [
+    (36, 4, 128),      # starcoder2-7b: G 9, two head groups of 5 and 4
+    (48, 8, 128),      # internlm2-20b: G 6 (the MAXG 8 instance)
+    (64, 8, 128),      # qwen1.5-110b: G 8
+    (32, 8, 160),      # pixtral-12b: D 160, 320-byte rows
+    (8, 4, 256),       # gemma3-4b's global layers: G 2 at D 256
+    (16, 16, 128),     # olmoe-1b-7b: MHA
+    (32, 2, 64),       # G 16: two full groups of 8
+    (33, 3, 32)])      # G 11: groups of 6 and 5
+def test_kernel_at_config_geometries(cuda, dtype, Hq, Hkv, D):
+    """K1 at the (G, D) of every registered attention config and at wider
+    groups than 8 (split over blocks), over a bucket with gaps, a dead row
+    and many splits, against the plain version on the same inputs in
+    float32; every call is one launch."""
+    g = torch.Generator().manual_seed(Hq * 100 + D)
+    B, S, P = 3, 1100, 400
+    q = torch.randn(B, Hq, D, generator=g).to(cuda, dtype)
+    k = torch.randn(B, S, Hkv, D, generator=g).to(cuda, dtype)
+    v = torch.randn(B, S, Hkv, D, generator=g).to(cuda, dtype)
+    kv_len = torch.tensor([0, 1100, 713], dtype=torch.int32, device=cuda)
+    pfx = torch.tensor([0, 400, 133], dtype=torch.int32, device=cuda)
+    before = ragged_decode.launches
+    out = ragged_decode(q, k, v, kv_len, pfx, prefix_len=P)
+    assert ragged_decode.launches == before + 1
+    want = ragged_decode_reference(q.float(), k.float(), v.float(), kv_len,
+                                   pfx, prefix_len=P)
+    torch.cuda.synchronize()
+    _close(out, want, dtype)
+    assert torch.all(out[0] == 0)
+
+
 def test_split_kernel_counts_once_and_zeroes_dead_rows(cuda):
     """One call is one launch (the split and merge kernels of one entry
     point); rows that attend nothing are exact zeros whatever the cache

@@ -136,8 +136,8 @@ def test_port_init_shares_one_attention_block():
     assert len(shared) == cfg.attn_layer_count == 2
     assert all(layer is p["shared_attn"] for layer in shared)
     with pytest.raises(NotImplementedError):
-        tfm.init_params(dataclasses.replace(cfg, arch_type="moe",
-                                            num_experts=4), 0, device="cpu")
+        tfm.init_params(dataclasses.replace(cfg, arch_type="audio"), 0,
+                        device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -2557,7 +2557,8 @@ def phase_zamba2_state_sharing(dev, smi, flush, tok):
 # their cut depth
 ARCH_K1_PER_STEP = {"gemma3-4b": 5, "olmoe-1b-7b": 16, "starcoder2-7b": 32,
                     "pixtral-12b": 40, "internlm2-20b": 48,
-                    "qwen1.5-110b": 4, "mixtral-8x22b": 0}
+                    "qwen1.5-110b": 4, "mixtral-8x22b": 0,
+                    "whisper-medium": 24}
 # published widths, depth cut to fit one 80 GB card at bf16 (mixtral ~141 B
 # and qwen1.5 ~111 B parameters in full)
 ARCH_DEPTH = {"mixtral-8x22b": 4, "qwen1.5-110b": 4}
@@ -2581,15 +2582,24 @@ ARCH_K1_CASES = [
     ("pixtral_g4_d160_fp32", "float32", 2, 300, 256, 32, 8, 160),
     ("internlm2_g6_fp32", "float32", 2, 300, 256, 48, 8, 128),
     ("qwen1_5_g8_fp32", "float32", 2, 300, 256, 64, 8, 128),
+    # whisper-medium's decoder self-attention: MHA at D 64 over its
+    # packed selected layer (384 context positions, no bucket: the audio
+    # model is served by decode_step, not the slot table) and the
+    # 16-position query with 8 decode steps
+    ("whisper_mha_d64", "bfloat16", 4, 408, 384, 16, 16, 64),
+    ("whisper_mha_d64_fp32", "float32", 2, 300, 256, 16, 16, 64),
 ]
 ARCH_B, ARCH_Q, ARCH_NEW = 4, 16, 8
+# cases whose prefix is not bucketed (whisper's decode_step cache)
+ARCH_K1_UNBUCKETED = {"whisper_mha_d64"}
 
 
-def served_case(dev, dtype, B, Skv, P, Hq, Hkv, D, seed, n_dead=0):
+def served_case(dev, dtype, B, Skv, P, Hq, Hkv, D, seed, n_dead=0, pad=15):
     """K1's inputs at a served slot table: every row's real prefix fills
-    the bucket to P - 15 (a context bucketed by 16) and its self region is
-    the 16-position query and 4 decode steps. Only the q draw depends on
-    Hq (a G 8 and a G 9 case of one Skv read the same rows)."""
+    the bucket to P - pad (a context bucketed by 16; pad 0 for whisper's
+    unbucketed cache) and its self region is the 16-position query and 4
+    decode steps. Only the q draw depends on Hq (a G 8 and a G 9 case of
+    one Skv read the same rows)."""
     import torch
     g = torch.Generator().manual_seed(seed)
     k = torch.randn(B, Skv, Hkv, D, generator=g).to(dev, dtype)
@@ -2597,7 +2607,7 @@ def served_case(dev, dtype, B, Skv, P, Hq, Hkv, D, seed, n_dead=0):
     q = torch.randn(B, Hq, D, generator=g).to(dev, dtype)
     full = lambda n: torch.full((B,), n, dtype=torch.int32,   # noqa: E731
                                 device=dev)
-    kv_len, pfx = full(P + ARCH_Q + 4), full(P - 15)
+    kv_len, pfx = full(P + ARCH_Q + 4), full(P - pad)
     return q, k, v, kv_len, pfx
 
 
@@ -2948,6 +2958,177 @@ def arch_run(dev, smi, tok, name, C, transports, gates):
     return launches, steps, row
 
 
+# whisper-medium: a 384-token context, a 16-token query and 8 new tokens
+# (408 of its 448 text positions, arXiv:2212.04356), frames of its 1,500
+# encoder positions
+WHISPER_C = 384
+
+
+def whisper_greedy(params, cfg, qry, shared, frames, n, backend, force=None):
+    """``greedy`` for whisper: the prefill reads the frames (each layer
+    keeps its cross KV), the n - 1 decode steps reuse it."""
+    import torch
+    from repro_torch.core import protocol
+    out = protocol.receiver_prefill(params, cfg, qry, shared, max_new=n,
+                                    extra={"frames": frames})
+    cache, lg = out.cache, out.logits[:, -1].float()
+    toks, logits = [], []
+    for i in range(n):
+        tok = lg.argmax(-1)
+        toks.append(tok.cpu())
+        logits.append(lg.cpu())
+        if i + 1 < n:
+            feed = tok if force is None else force[:, i].to(tok.device)
+            _, lg, cache = protocol.decode_step(params, cfg, feed[:, None],
+                                                cache, shared,
+                                                backend=backend)
+            lg = lg.float()
+    return torch.stack(toks, 1), logits
+
+
+def whisper_run(dev, smi, tok):
+    """whisper-medium as published (bf16, seed 0 for both roles, seeded
+    frames): sender_prefill over the frames, calibrate on one sample,
+    kvcomm 0.5 / 0.7, then per transport (in memory, Serialized int8) the
+    share, the receiver prefill and 7 decode steps with K1 exactly 24
+    times a step (every decoder layer; cross-attention stays on the plain
+    core), bytes at the analytic count of the self-attention KV; 8 steps
+    on K1 teacher-forced against the plain backend within STEP_BOUND; the
+    scheduler refusing the model; a float32 gate, every layer shared with
+    the same frames on both sides against the train-mode forward over
+    [C; Q] within FP32_FULL_BOUND. Returns (K1 launches, steps, row)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.comm import (Agent, CommSession, InMemoryTransport,
+                                  SerializedTransport)
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import protocol
+    from repro_torch.core.channel import kv_wire_bytes
+    from repro_torch.core.types import KVCommConfig
+    from repro_torch.kernels.ragged_decode import ragged_decode
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.scheduler import Scheduler
+    name = "whisper-medium"
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = get_config(name)
+    params = tfm.init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = param_count(params)
+    L, Hkv, Dh = cfg.attn_layer_count, cfg.num_kv_heads, cfg.resolved_head_dim
+    B, C, Q, NEW = ARCH_B, WHISPER_C, ARCH_Q, ARCH_NEW
+    rng = np.random.default_rng(12)
+    ctx = torch.as_tensor(rng.integers(4, cfg.vocab_size, (B, C)),
+                          device=dev)
+    qry = torch.as_tensor(rng.integers(4, cfg.vocab_size, (B, Q)),
+                          device=dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    frames = torch.randn((B, cfg.encoder_seq, cfg.d_model), generator=g,
+                         device=dev).to(torch.bfloat16)
+    extra = {"frames": frames}
+    kv, _ = protocol.sender_prefill(params, cfg, ctx, extra=extra)
+    check(set(kv) == {"k", "v"} and tuple(kv["k"].shape) == (L, B, C, Hkv,
+                                                             Dh),
+          f"whisper: sender KV {[tuple(x.shape) for x in kv.values()]}")
+    scores = protocol.calibrate(params, cfg, qry[:1],
+                                {p: x[:, :1] for p, x in kv.items()},
+                                extra={"frames": frames[:1]})
+    kvcfg = arch_kvcfg()
+    select = protocol.make_selection(cfg, kvcfg, scores)
+    M = int(select.sum())
+    per_step = ARCH_K1_PER_STEP[name]
+    streams, launches, steps = {}, 0, 0
+    for tname, tr, isz, scales in (
+            ("inmemory", InMemoryTransport(), 2, 0),
+            ("serialized_int8", SerializedTransport("int8"), 1, 2 * 4 * M)):
+        torch.cuda.synchronize()
+        l0 = ragged_decode.launches
+        t1 = time.perf_counter()
+        shared = tr.send(cfg, kvcfg, kv, select)
+        toks, _ = whisper_greedy(params, cfg, qry, shared, frames, NEW,
+                                 "kernel")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        n = ragged_decode.launches - l0
+        check(n == per_step * (NEW - 1),
+              f"whisper {tname}: {n} K1 launches for {NEW - 1} steps of "
+              f"{per_step} layers")
+        analytic = kv_wire_bytes(cfg, B, C, M, isz) + scales
+        check(tr.total_bytes == analytic,
+              f"whisper {tname}: {tr.total_bytes} B != {analytic}")
+        launches += n
+        steps += NEW - 1
+        streams[tname] = {"bytes_moved": tr.total_bytes,
+                          "bytes_analytic": analytic, "k1_launches": n,
+                          "k1_launches_per_step": per_step,
+                          "tokens": B * NEW, "tokens_per_s": B * NEW / wall,
+                          "share_prefill_decode_s": wall}
+    shared = InMemoryTransport().send(cfg, kvcfg, kv, select)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref_toks, ref_logits = whisper_greedy(params, cfg, qry, shared, frames,
+                                          NEW, "reference")
+    _, k_logits = whisper_greedy(params, cfg, qry, shared, frames, NEW,
+                                 "kernel", force=ref_toks)
+    step_rel, step_agree = rel_and_agree(torch.stack(k_logits),
+                                         torch.stack(ref_logits))
+    check(step_rel <= STEP_BOUND, f"whisper: kernel vs reference decode rel "
+          f"{step_rel} > {STEP_BOUND} (argmax agreement {step_agree})")
+    stages = {
+        "encoder_ms": wall_ms(lambda: tfm._encoder_forward(params, cfg,
+                                                           frames)),
+        "sender_prefill_ms": wall_ms(lambda: protocol.sender_prefill(
+            params, cfg, ctx, extra=extra)),
+        "receiver_prefill_ms": wall_ms(lambda: protocol.receiver_prefill(
+            params, cfg, qry, shared, max_new=NEW, extra=extra))}
+    sess = CommSession(Agent("sender", cfg, params, tok),
+                       Agent("receiver", cfg, params, tok))
+    refusal = None
+    try:
+        Scheduler(sess, kvcfg)
+    except ValueError as e:
+        refusal = str(e)
+    check(refusal is not None, "whisper: the scheduler took an audio model")
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    # float32: every layer shared, the same frames both sides, = skyline
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = to_device(params, torch.float32)
+    x32 = {"frames": frames[:1].float()}
+    kv32, _ = protocol.sender_prefill(p32, c32, ctx[:1], extra=x32)
+    got = protocol.receiver_prefill(
+        p32, c32, qry[:1], protocol.build_shared(
+            KVCommConfig(), kv32, torch.ones(L, dtype=torch.bool)),
+        max_new=0, extra=x32).logits
+    with torch.no_grad():
+        sky = tfm.apply_model(p32, c32, torch.cat([ctx[:1], qry[:1]], 1),
+                              extra=x32).logits[:, C:]
+    sky_rel, sky_agree = rel_and_agree(got, sky)
+    check(sky_rel <= FP32_FULL_BOUND,
+          f"whisper: float32 all shared vs skyline {sky_rel}")
+    del p32, kv32, got, sky, kv, shared, params, frames
+    torch.cuda.empty_cache()
+    row = {"phase": "decoder_archs", "model": name,
+           "layers": cfg.num_layers, "encoder_layers": cfg.encoder_layers,
+           "encoder_seq": cfg.encoder_seq,
+           "params": n_params, "reduced": None, "requests": B,
+           "context": C,
+           "query": Q, "new_tokens": NEW, "init_s": init_s,
+           "selected_layers": [int(i) for i in
+                               np.flatnonzero(select.cpu().numpy())],
+           "streams": streams, **stages,
+           "kernel_vs_reference_rel": step_rel,
+           "kernel_vs_reference_argmax_agree": step_agree,
+           "kernel_vs_reference_bound": STEP_BOUND,
+           "scheduler_refusal": refusal,
+           "skyline_fp32": [sky_rel, sky_agree],
+           "fp32_bound": FP32_FULL_BOUND, "peak_mem_gb": peak,
+           "seconds": time.perf_counter() - t0, "card": smi}
+    emit(row)
+    return launches, steps, row
+
+
 def phase_decoder_archs(dev, smi, flush, tok):
     """K1 against its plain version at the new geometries, then every
     model of ARCH_PLAN in turn (each freed before the next). Returns (K1
@@ -2957,11 +3138,14 @@ def phase_decoder_archs(dev, smi, flush, tok):
     t_phase = time.perf_counter()
     cases = []
     for cname, dt, B, S, P, Hq, Hkv, D in ARCH_K1_CASES:
-        make = served_case if dt == "bfloat16" else random_case
         # the seed follows the rows' geometry, not Hq: the G 8 yardstick
         # reads starcoder2's rows
-        q, k, v, kl, pf = make(dev, getattr(torch, dt), B, S, P, Hq, Hkv, D,
-                               S + Hkv + D, n_dead=1)
+        args = (dev, getattr(torch, dt), B, S, P, Hq, Hkv, D, S + Hkv + D)
+        if dt != "bfloat16":
+            q, k, v, kl, pf = random_case(*args, n_dead=1)
+        else:
+            q, k, v, kl, pf = served_case(
+                *args, pad=0 if cname in ARCH_K1_UNBUCKETED else 15)
         cases.append(compare_case(rd_case(cname, q, k, v, kl, pf, P),
                                   flush))
         emit({"phase": "decoder_archs_kernel_vs_plain", **cases[-1],
@@ -2975,6 +3159,12 @@ def phase_decoder_archs(dev, smi, flush, tok):
         per_model[name] = n
         gc.collect()                   # the model's last references
         torch.cuda.empty_cache()
+    n, s, _ = whisper_run(dev, smi, tok)
+    launches += n
+    steps += s
+    per_model["whisper-medium"] = n
+    gc.collect()
+    torch.cuda.empty_cache()
     emit({"phase": "decoder_archs_checks", "k1_launches": launches,
           "k1_launches_by_model": per_model,
           "k1_launches_per_step": ARCH_K1_PER_STEP, "steps": steps,
@@ -3018,13 +3208,16 @@ def fa_case(dev, name, dtype, B, Sq, Sc, Hq, Hkv, D, *, causal=True,
 
 
 def fd_case(dev, name, dtype, B, S, Hq, Hkv, D, kv_len, *, window=None,
-            seed):
-    """A K3 case (normalised decode) in the same form as ``fa_case``."""
+            seed, partials=False):
+    """A K3 case in the same form as ``fa_case``: the normalised decode, or
+    with ``partials`` the float32 (o, m, l) the sharded decode combines (no
+    single PyTorch call computes those: library null; every row attends
+    something, so m holds no -1e30 that would swamp its rms)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_decode import (
-        chunk_positions, decode_mask, flash_decode, flash_decode_reference,
-        uses_tma)
+        chunk_positions, decode_mask, decode_partial_reference, flash_decode,
+        flash_decode_reference, uses_tma)
     g = torch.Generator().manual_seed(seed)
     q = torch.randn(B, Hq, D, generator=g).to(dev, dtype)
     k = torch.randn(B, S, Hkv, D, generator=g).to(dev, dtype)
@@ -3034,6 +3227,25 @@ def fd_case(dev, name, dtype, B, S, Hq, Hkv, D, kv_len, *, window=None,
     n_att = int(allow.sum())
     isz = q.element_size()
     qs, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    if partials:
+        check(bool((allow.sum(1) > 0).all()), f"{name}: a dead row")
+        return {"name": name, "kernel": "flash_decode",
+                "counter": flash_decode, "dtype": dtype,
+                "tols": [(2e-5, 2e-5)] * 3,
+                "run": lambda: ops.decode_attention_partials(
+                    q, k, v, lens, window=window),
+                "plain": lambda: decode_partial_reference(q, k, v, lens,
+                                                          window=window),
+                "library": None,
+                # K/V rows once, q; float32 o (B, Hq, D), m and l (B, Hq)
+                "nbytes": (2 * n_att * Hkv * D * isz + q.numel() * isz
+                           + 4 * q.numel() + 8 * B * Hq + 4 * B),
+                "flops": 4 * n_att * Hq * D, "plain_iters": 10,
+                "shape": {"B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "D": D,
+                          "G": Hq // Hkv, "window": window,
+                          "partials": True, "attended": n_att,
+                          "route": "tma" if uses_tma(k, v) else "staged",
+                          "chunk": chunk_positions(D, dtype)}}
     return {"name": name, "kernel": "flash_decode", "counter": flash_decode,
             "dtype": dtype, "tols": [(2e-5, 2e-5) if dtype == torch.float32
                                      else BF16_TOLS],
@@ -3044,7 +3256,8 @@ def fd_case(dev, name, dtype, B, S, Hq, Hkv, D, kv_len, *, window=None,
             "nbytes": 2 * n_att * Hkv * D * isz + 2 * q.numel() * isz + 4 * B,
             "flops": 4 * n_att * Hq * D, "plain_iters": 10,
             "shape": {"B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "D": D,
-                      "window": window, "attended": n_att,
+                      "G": Hq // Hkv, "window": window, "partials": False,
+                      "attended": n_att,
                       # how the kernel reads K/V: a TMA ring, or rows staged
                       # by plain loads where a tensor map cannot describe them
                       "route": "tma" if uses_tma(k, v) else "staged",
@@ -3102,6 +3315,36 @@ def entry_point_cases(dev):
         wkv_case(dev, "wkv_tiny", 2, 40, 3, 16, seed=6,
                  plain_iters=5),
     ]
+    # F7: groups of more than 8 query heads per KV head split into head
+    # groups of at most 8 (G 9 -> 5 + 4, G 16 -> 8 + 8), normalised and
+    # partials, with a window and without, on the TMA ring and on staged
+    # rows (24-byte rows no tensor map describes)
+    wide_rng = np.random.default_rng(1)    # rng keeps the full cases' draws
+    lens = lambda S, B: wide_rng.integers(1, S + 1, B)     # noqa: E731
+    wide = [
+        fd_case(dev, "fd_g9", bf16, 4, 4096, 36, 4, 128, lens(4096, 4),
+                seed=14),
+        fd_case(dev, "fd_g9_window_partials", bf16, 4, 4096, 36, 4, 128,
+                lens(4096, 4), window=1024, seed=15, partials=True),
+        fd_case(dev, "fd_g16_partials", bf16, 2, 3000, 32, 2, 64,
+                lens(3000, 2), seed=16, partials=True),
+        fd_case(dev, "fd_g16_window", bf16, 2, 3000, 32, 2, 64,
+                lens(3000, 2), window=700, seed=17),
+        fd_case(dev, "fd_g9_fp32_window", f32, 3, 2000, 18, 2, 128,
+                [2000, 0, 1234], window=333, seed=18),
+        fd_case(dev, "fd_g16_fp32_partials", f32, 2, 1500, 16, 1, 64,
+                [1500, 701], seed=19, partials=True),
+        fd_case(dev, "fd_g9_staged_rows", bf16, 3, 700, 18, 2, 12,
+                [700, 0, 333], window=500, seed=20),
+        fd_case(dev, "fd_g16_fp32_staged_partials", f32, 2, 500, 32, 2, 6,
+                [500, 77], seed=21, partials=True),
+    ]
+    for case, route in zip(wide, ("tma",) * 6 + ("staged",) * 2):
+        check(case["shape"]["route"] == route,
+              f"{case['name']}: read by {case['shape']['route']}, "
+              f"expected {route}")
+    tiny += wide
+    lc_lens = rng.integers(16384, 32769, 4)
     full = [
         # llama3.2-3b-pair: a sender prefill of 2,049 tokens
         fa_case(dev, "sender_prefill_2049", bf16, 1, 2049, 0, 24, 8, 128,
@@ -3113,8 +3356,12 @@ def entry_point_cases(dev):
         fa_case(dev, "gemma3_local_window", bf16, 1, 4096, 0, 8, 4, 256,
                 window=1024, seed=9),
         # llama3.2-3b widths over a 32k cache, ragged lengths
-        fd_case(dev, "long_cache_32k", bf16, 4, 32768, 24, 8, 128,
-                rng.integers(16384, 32769, 4), seed=10),
+        fd_case(dev, "long_cache_32k", bf16, 4, 32768, 24, 8, 128, lc_lens,
+                seed=10),
+        # starcoder2-7b's G 9 (36 / 4 heads of 128) over the same lengths:
+        # two head groups per KV head
+        fd_case(dev, "long_cache_32k_g9", bf16, 4, 32768, 36, 4, 128,
+                lc_lens, seed=22),
         # gemma3-4b local layer decode: window 1024 over an 8k cache
         fd_case(dev, "gemma3_window_decode", bf16, 4, 8192, 8, 4, 256,
                 rng.integers(1024, 8193, 4), window=1024, seed=11),
@@ -3203,7 +3450,7 @@ def phase_entry_point(dev, flush, smi):
         for p in _pieces(out):
             check(bool(torch.isfinite(p.float()).all()),
                   f"{case['name']}: non-finite output on the main path")
-    want = {"flash_attention": 3, "flash_decode": 2, "wkv6": 1}
+    want = {"flash_attention": 3, "flash_decode": 3, "wkv6": 1}
     check(launches == want, f"entry point launches {launches} != {want}")
     del outs
     emit({"phase": "entry_point_main_path", "cases": [c["name"]
@@ -3275,6 +3522,221 @@ def phase_sharded_decode(dev, smi, flush, B=4, Hq=24, Hkv=8, D=128,
            **times, "wall_s_with_input_generation": wall, "card": smi}
     emit(out)
     return out
+
+
+# ---------------------------------------------------------------------------
+# training: autograd through the train-mode forward (the plain attention
+# core, as the reference's train mode runs the XLA core: no kernel), AdamW
+# with float32 moments, the quick-trained pair
+# ---------------------------------------------------------------------------
+TRAIN_PARITY_STEPS, TRAIN_FW_STEPS, QUICK_STEPS = 20, 4, 1200
+
+
+def train_losses(cfg, params, batches, device):
+    """The losses of one make_train_step step per batch from ``params`` on
+    ``device`` (the parameters are updated in place)."""
+    from repro_torch.training.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.training.train_loop import (TrainState, make_train_step,
+                                                 to_batch)
+    step = make_train_step(cfg, OptimizerConfig(
+        lr=2e-3, total_steps=len(batches), warmup_steps=2))
+    state = TrainState(params, init_opt_state(params))
+    out = []
+    for b in batches:
+        state, m = step(state, to_batch(b, device))
+        out.append(float(m["loss"]))
+    return out
+
+
+def probe_params(params):
+    """Copies of a few parameters, to show a step moved them."""
+    return [params["final_norm"].clone(),
+            params["layers"][0]["attn"]["wq"].clone(),
+            params["layers"][-1]["ln2"].clone()]
+
+
+def moved(before, params):
+    import torch
+    return any(not torch.equal(a, b)
+               for a, b in zip(before, probe_params(params)))
+
+
+def fw_train_steps(dev, cfg, batches):
+    """make_train_step steps of ``cfg`` at its published width (bf16
+    parameters, float32 moments) on the given host batches: each step's
+    wall ms, the losses, tokens/s, peak GB; gated finite, moved, counted."""
+    import numpy as np
+    import torch
+    from repro_torch.training.optimizer import OptimizerConfig, leaves
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_train_step, to_batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = param_count(state.params)
+    before = probe_params(state.params)
+    step = make_train_step(cfg, OptimizerConfig(
+        lr=3e-4, total_steps=len(batches), warmup_steps=1))
+    ms, losses = [], []
+    for b in batches:
+        b = to_batch(b, dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(m["loss"]))
+    check(all(np.isfinite(losses)), f"{cfg.name}: losses {losses}")
+    check(moved(before, state.params), f"{cfg.name}: parameters unchanged")
+    check(state.opt.step == len(batches), f"{cfg.name}: opt.step "
+          f"{state.opt.step}")
+    check(all(x.dtype == torch.float32 for x in leaves(state.opt.m)),
+          f"{cfg.name}: moments not float32")
+    tokens = int(np.prod(batches[0]["tokens"].shape))
+    steady = float(np.median(ms[1:] if len(ms) > 1 else ms))
+    out = {"model": cfg.name, "params": n_params, "dtype": cfg.dtype,
+           "batch": list(batches[0]["tokens"].shape), "steps": len(ms),
+           "losses": losses, "step_ms": ms, "steady_step_ms": steady,
+           "trained_tokens_per_s": tokens / steady * 1e3, "init_s": init_s,
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    del state, step, before
+    return out
+
+
+def phase_training(dev, smi, tok):
+    """(1) The 8-layer float32 pair: TRAIN_PARITY_STEPS steps on the card
+    against the same steps on the CPU, from the same weights and batches
+    (TF32 off), losses within 1e-4 relative. (2) llama3.2-3b-pair at
+    published width, bf16 parameters and float32 moments: 4 steps at B 4,
+    S 128 on the byte corpus. (3) whisper-medium: one step at B 2 with
+    seeded frames. (4) pairs._quick_train on the card (QUICK_STEPS steps,
+    batch 64, the reference's recipe): the mean loss of the last 100 steps
+    below the first 100's, then the retrieval task through the Scheduler
+    on K1 at kvcomm 0.5 with the trained weights (token-identical to
+    serve_serial on the plain backend, at float32) and with random ones;
+    accuracy is recorded, not gated. Returns the K1 launches of the
+    trained pair's scheduler run."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.comm import Agent, CommSession, InMemoryTransport
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.types import KVCommConfig
+    from repro_torch.data.pipeline import (mixed_lm_iter,
+                                           synthetic_byte_corpus,
+                                           token_stream_iter)
+    from repro_torch.data.synthetic import SyntheticTask, TaskConfig
+    from repro_torch.kernels.ragged_decode import ragged_decode
+    from repro_torch.launch import pairs
+    from repro_torch.launch.serve import build_requests
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.scheduler import (Scheduler, SchedulerConfig,
+                                               accuracy, serve_serial)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (1) card against CPU
+    pc, ptok = pairs.pair_config(), pairs.pair_tokenizer()
+    it = mixed_lm_iter(pairs.task_suite(ptok), 16, seed=0)
+    batches = [next(it) for _ in range(TRAIN_PARITY_STEPS)]
+    cpu_params = tfm.init_params(pc, 0, device="cpu")
+    card_params = to_device(tfm.init_params(pc, 0, device="cpu"), dev)
+    t0 = time.perf_counter()
+    cpu_losses = train_losses(pc, cpu_params, batches, "cpu")
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    card_losses = train_losses(pc, card_params, batches, dev)
+    card_s = time.perf_counter() - t0
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses))
+    check(rel <= 1e-4, f"training: card vs CPU losses rel {rel}")
+    check(card_losses[-1] < card_losses[0], "training: the tiny pair's "
+          f"loss did not fall ({card_losses[0]} -> {card_losses[-1]})")
+    emit({"phase": "training_card_vs_cpu", "model": "pair_config (8 "
+          "layers, float32)", "steps": TRAIN_PARITY_STEPS, "batch": 16,
+          "card_losses": card_losses, "cpu_losses": cpu_losses,
+          "max_rel": rel, "bound": 1e-4, "card_s": card_s, "cpu_s": cpu_s,
+          "card": smi})
+    del cpu_params, card_params
+
+    # (2) llama3.2-3b-pair at published width
+    fw = pairs.full_width_config()
+    corpus = synthetic_byte_corpus() % fw.vocab_size
+    it = token_stream_iter(corpus, 4, 128)
+    row = fw_train_steps(dev, fw, [next(it) for _ in range(TRAIN_FW_STEPS)])
+    emit({"phase": "training_full_width", **row, "card": smi})
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (3) whisper-medium, one step with seeded frames
+    wc = get_config("whisper-medium")
+    b = next(token_stream_iter(synthetic_byte_corpus() % wc.vocab_size, 2,
+                               64))
+    b["frames"] = np.random.default_rng(6).standard_normal(
+        (2, wc.encoder_seq, wc.d_model)).astype(np.float32)
+    row = fw_train_steps(dev, wc, [b])
+    emit({"phase": "training_whisper", **row, "card": smi})
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (4) the quick-trained pair
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trained = pairs._quick_train(
+        pc, ptok, steps=QUICK_STEPS, device=dev, log_every=1,
+        log_fn=lambda line: losses.append(float(line.split()[3])),
+        ckpt_dir=str(ROOT / "build" / "ckpt"))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    first, last = float(np.mean(losses[:100])), float(np.mean(losses[-100:]))
+    check(len(losses) == QUICK_STEPS and last < first,
+          f"quick-train: loss {first} -> {last}")
+    reqs = build_requests(ptok, "retrieval", 32, 4)
+    kvcfg = KVCommConfig(ratio=0.5, alpha=0.7)
+    calib = SyntheticTask(ptok, TaskConfig("retrieval", num_facts=6,
+                                           seed=42)).batch(1)
+    acc, k1 = {}, 0
+    for label, p in (("trained", trained),
+                     ("random", tfm.init_params(pc, 0, device=dev))):
+        sess = CommSession(Agent("sender", pc, p, ptok),
+                           Agent("receiver", pc, p, ptok),
+                           InMemoryTransport())
+        sess.calibrate(calib["context"], calib["query"], key="retrieval")
+        l0 = ragged_decode.launches
+        comps, stats = Scheduler(sess, kvcfg, calib_key="retrieval",
+                                 config=SchedulerConfig(
+                                     capacity=8, decode_backend="kernel")
+                                 ).run(reqs)
+        check(ragged_decode.launches - l0 == pc.num_layers * stats["steps"],
+              f"quick-train {label}: K1 launches")
+        acc[label] = accuracy(comps, reqs)
+        if label == "trained":
+            k1 = ragged_decode.launches - l0
+            ser, _ = serve_serial(sess, reqs, kvcfg, calib_key="retrieval",
+                                  backend="reference")
+            same = all(list(a.tokens) == list(b.tokens)
+                       for a, b in zip(ser, comps))
+            check(same and len(ser) == len(comps), "quick-trained pair: "
+                  "scheduler[kernel] differs from serve_serial[reference]")
+    emit({"phase": "training_quick_trained_pair", "steps": QUICK_STEPS,
+          "batch": 64, "train_s": train_s,
+          "step_ms": train_s / QUICK_STEPS * 1e3,
+          "loss_first_100": first, "loss_last_100": last,
+          "requests": len(reqs), "accuracy_trained": acc["trained"],
+          "accuracy_random": acc["random"],
+          "scheduler_token_identical_to_serve_serial": True,
+          "k1_launches": k1, "seconds": time.perf_counter() - t_phase,
+          "card": smi})
+    del trained
+    gc.collect()
+    torch.cuda.empty_cache()
+    return k1
 
 
 def kernel_entry(results, name, source, replaces, launches, main_case):
@@ -3377,6 +3839,11 @@ def main() -> int:
     launches += k1_arch
     ep_launches, ep_results = phase_entry_point(dev, flush, smi)
     sharded = phase_sharded_decode(dev, smi, flush)
+    # starcoder2-7b's G 9 over the same sharded cache (F7)
+    sharded_g9 = phase_sharded_decode(dev, smi, flush, Hq=36, Hkv=4)
+    k1_train = phase_training(dev, smi, pairs.pair_tokenizer())
+    k1_paths["quick_trained_pair"] = k1_train
+    launches += k1_train
     results = cases + [main] + ep_results + k4_cases + arch_cases
     kernels = {"kernels": [
         {**kernel_entry(results, "ragged_decode",
@@ -3388,7 +3855,7 @@ def main() -> int:
          # at its 9 shared-attention invocations, each decoder config at
          # its full-attention layers
          "launches_per_step": (launches - hetero_launches - k1_state
-                               - k1_arch) // max(steps, 1),
+                               - k1_arch - k1_train) // max(steps, 1),
          "hetero_stream_launches_per_step": hetero_launches // 7,
          "state_sharing_launches_per_step": k1_state // state_steps,
          "decoder_archs_launches_per_step": ARCH_K1_PER_STEP,
@@ -3404,11 +3871,23 @@ def main() -> int:
                      "src/repro_torch/kernels/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:31",
                      ep_launches["flash_attention"], "sender_prefill_2049"),
-        kernel_entry(results, "flash_decode",
-                     "src/repro_torch/kernels/csrc/flash_decode.cu",
-                     "src/repro/kernels/flash_decode.py:32",
-                     ep_launches["flash_decode"] + sharded["launches"],
-                     "long_cache_32k"),
+        {**kernel_entry(results, "flash_decode",
+                        "src/repro_torch/kernels/csrc/flash_decode.cu",
+                        "src/repro/kernels/flash_decode.py:32",
+                        ep_launches["flash_decode"] + sharded["launches"]
+                        + sharded_g9["launches"], "long_cache_32k"),
+         # F7: groups of more than 8 query heads, split into head groups
+         "wide_groups": {c["case"]: {
+             k: c[k] for k in ("dtype", "B", "S", "Hq", "Hkv", "D", "G",
+                               "window", "partials", "route", "device_ms",
+                               "bound_ms", "library_device_ms", "ms",
+                               "plain_ms", "library_ms", "max_abs_err",
+                               "tol_ratio")}
+             for c in ep_results
+             if c["kernel"] == "flash_decode" and c["G"] > 8},
+         "launches_by_path": {"entry_point": ep_launches["flash_decode"],
+                              "sharded_decode_g3": sharded["launches"],
+                              "sharded_decode_g9": sharded_g9["launches"]}},
         {**kernel_entry(results, "wkv6",
                         "src/repro_torch/kernels/csrc/rwkv_scan.cu",
                         "src/repro/kernels/rwkv_scan.py:25",

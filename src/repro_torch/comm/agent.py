@@ -95,10 +95,10 @@ class Agent:
 
     # ---- receiver role ----------------------------------------------------
     def prefill(self, tokens, shared: Optional[SharedKV] = None,
-                max_new: int = 1, prefix_lens=None):
+                max_new: int = 1, extra=None, prefix_lens=None):
         return protocol.receiver_prefill(self.params, self.cfg,
                                          self.tokens(tokens), shared,
-                                         max_new=max_new,
+                                         max_new=max_new, extra=extra,
                                          prefix_lens=prefix_lens)
 
     def decode(self, token, cache, shared: Optional[SharedKV] = None):
@@ -121,9 +121,10 @@ class Agent:
                                            active, backend=backend)
 
     def generate(self, tokens, shared: Optional[SharedKV] = None,
-                 max_new: int = 32, backend: str = "reference"):
+                 max_new: int = 32, extra=None, backend: str = "reference"):
         return protocol.generate(self.params, self.cfg, self.tokens(tokens),
-                                 shared, max_new=max_new, backend=backend)
+                                 shared, max_new=max_new, extra=extra,
+                                 backend=backend)
 
     def calibrate(self, query, kv, states=None) -> torch.Tensor:
         """Eq. (1): prefill ``query`` with every layer (and state) shared;

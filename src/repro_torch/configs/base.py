@@ -106,8 +106,7 @@ class ModelConfig:
         return self.d_model // self.num_heads if self.num_heads else 0
 
     def layer_plan(self) -> Tuple[LayerSpec, ...]:
-        """Group layers into homogeneous runs (``check_supported`` in
-        ``models.transformer`` names the runs the port executes)."""
+        """Group layers into homogeneous runs."""
         if self.arch_type == "ssm":  # rwkv6
             return (LayerSpec(kind="rwkv", count=self.num_layers),)
         if self.arch_type == "hybrid":  # zamba2: k mamba layers then shared attn

@@ -1,8 +1,9 @@
-"""Registry of the configs the port runs: the paper's pair, the
-decoder-only attention models (dense, MoE, sliding-window, the VLM with
-its stub patch embeddings), the attention-free RWKV6 and the hybrid
-Zamba2 (Mamba2 plus shared attention). The reference's encoder-decoder
-``whisper-medium`` is not ported yet."""
+"""Registry of the configs the port runs, the reference's eleven: the
+paper's pair, the decoder-only attention models (dense, MoE,
+sliding-window, the VLM with its stub patch embeddings), the
+encoder-decoder ``whisper-medium`` with its stub audio frames, the
+attention-free RWKV6 and the hybrid Zamba2 (Mamba2 plus shared
+attention)."""
 from __future__ import annotations
 
 from typing import Dict
@@ -17,23 +18,18 @@ from repro_torch.configs.pixtral_12b import CONFIG as _PIXTRAL
 from repro_torch.configs.qwen1_5_110b import CONFIG as _QWEN
 from repro_torch.configs.rwkv6_1_6b import CONFIG as _RWKV6
 from repro_torch.configs.starcoder2_7b import CONFIG as _STARCODER2
+from repro_torch.configs.whisper_medium import CONFIG as _WHISPER
 from repro_torch.configs.zamba2_2_7b import CONFIG as _ZAMBA2
 
 _REGISTRY: Dict[str, ModelConfig] = {
-    c.name: c for c in (_MIXTRAL, _STARCODER2, _INTERNLM2, _QWEN, _PIXTRAL,
-                        _GEMMA3, _RWKV6, _OLMOE, _ZAMBA2, _LLAMA_PAIR)}
-
-# configs of the reference that the port does not run yet, and why
-NOT_PORTED = {"whisper-medium": "its encoder stack, cross-attention and "
-                                "audio frames are not ported yet"}
+    c.name: c for c in (_MIXTRAL, _STARCODER2, _WHISPER, _INTERNLM2, _QWEN,
+                        _PIXTRAL, _GEMMA3, _RWKV6, _OLMOE, _ZAMBA2,
+                        _LLAMA_PAIR)}
 
 
 def get_config(name: str) -> ModelConfig:
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"{name}: {NOT_PORTED[name]}")
     if name not in _REGISTRY:
-        raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}"
-                       f" (not ported: {sorted(NOT_PORTED)})")
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
 
 

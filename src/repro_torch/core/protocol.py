@@ -73,8 +73,9 @@ def extract_states(cfg: ModelConfig, cache) -> Optional[Dict[str, Any]]:
 def sender_prefill(params, cfg: ModelConfig, context_tokens: torch.Tensor,
                    extra=None) -> Tuple[Optional[Dict[str, torch.Tensor]],
                                         Optional[Dict[str, Any]]]:
-    """One forward pass of M_s over C (``extra``: a VLM's ``patches``).
-    Returns (kv, states)."""
+    """One forward pass of M_s over C (``extra``: a VLM's ``patches``,
+    whisper's ``frames``). Returns (kv, states): the self-attention KV
+    only, never a cross-attention layer's ``xk`` / ``xv``."""
     B, Sc = context_tokens.shape
     cache = tfm.init_cache(cfg, B, Sc, device=context_tokens.device)
     out = tfm.apply_model(params, cfg, context_tokens, mode="cached",
@@ -98,16 +99,16 @@ def _all_states(cfg: ModelConfig, states) -> Optional[torch.Tensor]:
 
 @torch.no_grad()
 def calibrate(receiver_params, cfg: ModelConfig, query_tokens, kv,
-              states=None) -> torch.Tensor:
+              states=None, extra=None) -> torch.Tensor:
     """Prefill Q with every layer (and every SSM state) shared, measuring
-    Eq. (1) masses. Returns the normalized scores S_a, (L_attn,) float32 on
-    the CPU."""
+    Eq. (1) masses (``extra``: the receiver's ``patches`` / ``frames``).
+    Returns the normalized scores S_a, (L_attn,) float32 on the CPU."""
     L = cfg.attn_layer_count
     shared = SharedKV(kv=kv, select=torch.ones((L,), dtype=torch.bool),
                       states=states, state_select=_all_states(cfg, states),
                       prefix_len=kv["k"].shape[2])
     out = receiver_prefill(receiver_params, cfg, query_tokens, shared,
-                           max_new=0, collect_mass=True)
+                           max_new=0, extra=extra, collect_mass=True)
     return normalize_scores(out.masses.float().cpu())
 
 
@@ -259,15 +260,18 @@ def pad_prefix(shared: SharedKV, prefix_len: int) -> SharedKV:
 @torch.no_grad()
 def receiver_prefill(params, cfg: ModelConfig, query_tokens,
                      shared: Optional[SharedKV], max_new: int = 64,
-                     prefix_lens=None, collect_mass: bool = False):
+                     extra=None, prefix_lens=None,
+                     collect_mass: bool = False):
     """Prefill Q with the sender prefix integrated; the cache is sized for
-    ``max_new`` decode steps. ``prefix_lens`` (B,) marks each row's real
-    prefix length under a bucket-padded prefix (``pad_prefix``)."""
+    ``max_new`` decode steps. ``extra`` carries a VLM's ``patches`` or
+    whisper's ``frames`` (whose cross KV the cache keeps for the decode).
+    ``prefix_lens`` (B,) marks each row's real prefix length under a
+    bucket-padded prefix (``pad_prefix``)."""
     B, Sq = query_tokens.shape
     cache = tfm.init_cache(cfg, B, Sq + max_new, shared=shared,
                            device=query_tokens.device)
     return tfm.apply_model(params, cfg, query_tokens, mode="cached",
-                           cache=cache, shared=shared,
+                           cache=cache, shared=shared, extra=extra,
                            collect_mass=collect_mass, prefix_lens=prefix_lens)
 
 
@@ -319,10 +323,11 @@ def ragged_decode_step(params, cfg: ModelConfig, tokens, cache,
 
 @torch.no_grad()
 def generate(params, cfg: ModelConfig, query_tokens, shared=None,
-             max_new: int = 32, backend: str = "reference"):
-    """Greedy generation. Returns (tokens (B, max_new), final cache)."""
+             max_new: int = 32, extra=None, backend: str = "reference"):
+    """Greedy generation (``extra`` as in ``receiver_prefill``). Returns
+    (tokens (B, max_new), final cache)."""
     out = receiver_prefill(params, cfg, query_tokens, shared,
-                           max_new=max_new)
+                           max_new=max_new, extra=extra)
     cache = out.cache
     tok = torch.argmax(out.logits[:, -1, :], dim=-1)[:, None]
     toks = []

@@ -10,7 +10,7 @@
 // hi = min(kv_len, Skv), lo = window ? max(0, kv_len - window) : 0.
 //
 // Bound: a decode reads every attended K and V row once and does 4*G*D
-// flops per attended position and KV head (G <= 8), far below the card's
+// flops per attended position and KV head, far below the card's
 // flop/byte balance, so the kernel is bound by the bytes of K and V: at 32k
 // positions, B 4, 8 KV heads of 128 in bf16, 421 MB, 126 us at 3.35 TB/s.
 // Reaching that takes ~2 MB in flight across the card, blocks of equal
@@ -66,7 +66,16 @@
 //    CHUNK), one block per (row, q head), and writes the normalised output
 //    (exact zeros where hi <= lo) or the merged partials (m = -1e30, l = 0
 //    for an empty row).
-// Both kernels take G <= 8 and D <= 256; both write through the same merge.
+//  * Wider groups (starcoder2's G 9, any G = Hq / Hkv) split into ngrp =
+//    ceil(G / 8) head groups of gs = ceil(G / ngrp) <= 8 heads, one block
+//    each (grid x = Hkv * ngrp), so every block runs the G <= 8 code: the
+//    float32 path keeps q and the accumulators in registers at MAXG 8, and
+//    the tensor-core path keeps its heads in rows 0-7 of A. Each K/V tile is
+//    then read once per head group (twice at G 9 to 16; the second read
+//    mostly hits L2, as both blocks run at once), as K1 does since its own
+//    head groups. G <= 8 takes one group, g0 = 0: the instances and their
+//    work are those of the kernel before the split.
+// Both kernels take any G and D <= 256; both write through the same merge.
 #include <cstdint>
 
 #include "common.cuh"
@@ -107,6 +116,7 @@ struct Args {
   float* m_out;
   float* l_out;
   int B, Hkv, G, D, Skv, window, nsplit, chunk, tile, tpp, aligned;
+  int gs, ngrp;  // query heads per block (<= 8) and head groups per KV head
   long long q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_sh;
   float scale;
 };
@@ -134,6 +144,12 @@ __host__ __device__ inline int tile_positions(int D, int es) {
 }
 __host__ __device__ constexpr int ring_stages(int vpt) {
   return vpt == 1 ? 4 : 2;
+}
+// Head groups of at most 8 heads per KV head, as even as they go.
+__host__ __device__ inline int head_groups(int G) { return (G + 7) / 8; }
+__host__ __device__ inline int heads_per_group(int G) {
+  const int n = head_groups(G);
+  return (G + n - 1) / n;
 }
 
 // Attended range [lo, hi) of row b.
@@ -171,16 +187,17 @@ __device__ __forceinline__ void stage_tile(unsigned char* dst, const T* rows,
 
 // The consumer warps' partials, staged in shared memory (red [kWarps][MAXG]
 // [D], the maxima and denominators in sm_m / sm_l), merged with the
-// log-sum-exp step into the block's float32 partial (o, m, l) per q head.
+// log-sum-exp step into the block's float32 partial (o, m, l) for its G
+// q heads from g0.
 template <int MAXG>
 __device__ __forceinline__ void store_partial(const Args& a, const float* red,
                                               const float (*sm_m)[MAXG],
                                               const float (*sm_l)[MAXG],
-                                              int b, int h, int sp) {
-  const int G = a.G;
+                                              int b, int h, int g0, int G,
+                                              int sp) {
   const int D = a.D;
   const long long row0 =
-      (static_cast<long long>(b * a.Hkv + h) * a.nsplit + sp) * G;
+      (static_cast<long long>(b * a.Hkv + h) * a.nsplit + sp) * a.G + g0;
   for (int idx = threadIdx.x; idx < G * D; idx += kConsumers) {
     const int g = idx / D;
     const int d = idx % D;
@@ -200,8 +217,8 @@ __device__ __forceinline__ void store_partial(const Args& a, const float* red,
   }
 }
 
-// Grid (Hkv, B, nsplit), kThreads threads: warps 0-3 compute, warp 4
-// loads. Dynamic shared memory: the ring (stages x (K tile, V tile), each
+// Grid (Hkv * ngrp, B, nsplit), kThreads threads: warps 0-3 compute, warp
+// 4 loads. Dynamic shared memory: the ring (stages x (K tile, V tile), each
 // tile rows of vpr 16-byte vectors), reused after the loop for the warps'
 // partials, then the full and empty barriers.
 template <typename T, int MAXG, int VPT>
@@ -213,7 +230,9 @@ __global__ void __launch_bounds__(kThreads)
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
-  const int G = a.G;
+  const int h = blockIdx.x / a.ngrp;
+  const int g0 = (blockIdx.x % a.ngrp) * a.gs;  // first head of the group
+  const int G = min(a.gs, a.G - g0);             // heads of this block
   const int D = a.D;
   const int vpr = (D + VE - 1) / VE;
   const int TILE = a.tile;
@@ -225,7 +244,6 @@ __global__ void __launch_bounds__(kThreads)
   auto full = [&](int st) { return bars + 8 * st; };
   auto empty = [&](int st) { return bars + 8 * (kStages + st); };
 
-  const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int sp = blockIdx.z;
   const int tid = threadIdx.x;
@@ -298,7 +316,8 @@ __global__ void __launch_bounds__(kThreads)
       for (int e = 0; e < VE; ++e) {
         const int d = (c + j * TPP) * VE + e;
         qr[g][j][e] = (g < G && d < D)
-                          ? to_f(q[(h * G + g) * a.q_sh + d]) * a.scale
+                          ? to_f(q[(h * a.G + g0 + g) * a.q_sh + d]) *
+                                a.scale
                           : 0.f;
         acc[g][j][e] = 0.f;
       }
@@ -429,7 +448,7 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
-  store_partial<MAXG>(a, red, sm_m, sm_l, b, h, sp);
+  store_partial<MAXG>(a, red, sm_m, sm_l, b, h, g0, G, sp);
 }
 
 // ---------------------------------------------------------------------------
@@ -530,8 +549,8 @@ __device__ __forceinline__ void stage_tile_swz(unsigned char* dst,
   }
 }
 
-// Grid (Hkv, B, nsplit), kThreads threads: warps 0-3 compute, warp 4
-// loads. A tile is kTcTile positions of K and of V, each DP / 64 TMA boxes
+// Grid (Hkv * ngrp, B, nsplit), kThreads threads: warps 0-3 compute, warp
+// 4 loads. A tile is kTcTile positions of K and of V, each DP / 64 TMA boxes
 // of 64 values; consumer warp w takes rows 16w..16w+15 of every tile:
 // S = Q K^T as mma.sync with the G heads of q in rows 0-7 of A (ldmatrix
 // reads K), a base-2 online softmax per head on the accumulator's
@@ -557,13 +576,14 @@ __global__ void __launch_bounds__(kThreads)
   auto full = [&](int st) { return bars + 8 * st; };
   auto empty = [&](int st) { return bars + 8 * (kStages + st); };
 
-  const int h = blockIdx.x;
+  const int h = blockIdx.x / a.ngrp;
+  const int g0 = (blockIdx.x % a.ngrp) * a.gs;  // first head of the group
   const int b = blockIdx.y;
   const int sp = blockIdx.z;
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
-  const int G = a.G;
+  const int G = min(a.gs, a.G - g0);  // heads of this block
   const int D = a.D;
   int lo, hi;
   row_range(a.kv_len, b, a.Skv, a.window, &lo, &hi);
@@ -622,7 +642,7 @@ __global__ void __launch_bounds__(kThreads)
   uint32_t qa[DP / 16][2];
   {
     const uint16_t* q = reinterpret_cast<const uint16_t*>(a.q) +
-                        b * a.q_sb + (h * G + gq) * a.q_sh;
+                        b * a.q_sb + (h * a.G + g0 + gq) * a.q_sh;
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk)
 #pragma unroll
@@ -755,7 +775,7 @@ __global__ void __launch_bounds__(kThreads)
       }
   }
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
-  store_partial<8>(a, red, sm_m, sm_l, b, h, sp);
+  store_partial<8>(a, red, sm_m, sm_l, b, h, g0, G, sp);
 }
 
 // One block per (b, q head): merges the row's live chunks.
@@ -785,7 +805,8 @@ cudaError_t launch_split(const Args& a, const CUtensorMap& tmk,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   decode_split_kernel<T, MAXG, VPT>
-      <<<dim3(a.Hkv, a.B, a.nsplit), kThreads, smem, s>>>(a, tmk, tmv);
+      <<<dim3(a.Hkv * a.ngrp, a.B, a.nsplit), kThreads, smem, s>>>(a, tmk,
+                                                                   tmv);
   return cudaGetLastError();
 }
 
@@ -808,7 +829,8 @@ cudaError_t launch_mma(const Args& a, const CUtensorMap& tmk,
       smem);
   if (err != cudaSuccess) return err;
   decode_mma_kernel<T, DP>
-      <<<dim3(a.Hkv, a.B, a.nsplit), kThreads, smem, s>>>(a, tmk, tmv);
+      <<<dim3(a.Hkv * a.ngrp, a.B, a.nsplit), kThreads, smem, s>>>(a, tmk,
+                                                                   tmv);
   return cudaGetLastError();
 }
 
@@ -820,7 +842,7 @@ cudaError_t launch(const Args& a, const CUtensorMap& tmk,
                    const CUtensorMap& tmv, cudaStream_t s) {
   cudaError_t err;
   if constexpr (sizeof(T) == 4) {
-    switch (max_g(a.G)) {
+    switch (max_g(a.gs)) {
       case 1: err = launch_g<T, 1>(a, tmk, tmv, s); break;
       case 2: err = launch_g<T, 2>(a, tmk, tmv, s); break;
       case 4: err = launch_g<T, 4>(a, tmk, tmv, s); break;
@@ -907,7 +929,7 @@ extern "C" int flash_decode_launch(
     long long q_sb, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     float scale, int dtype, int normalize, void* stream) {
-  if (G < 1 || G > 8 || D < 1 || D > kMaxD || B < 1 || B > 65535 ||
+  if (G < 1 || D < 1 || D > kMaxD || B < 1 || B > 65535 ||
       Hkv < 1 || Skv < 0 || dtype < 0 || dtype > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const int es = esize_of(dtype);
@@ -926,7 +948,8 @@ extern "C" int flash_decode_launch(
          pl,     normalize ? out : nullptr, normalize ? nullptr : o_out,
          m_out,  l_out,  B,     Hkv,    G,      D,
          Skv,    window, nsplit, chunk, tile_of(D, dtype),
-         lanes_per_position(D, es), aligned, q_sb, q_sh, k_sb, k_ss,
+         lanes_per_position(D, es), aligned, heads_per_group(G),
+         head_groups(G), q_sb, q_sh, k_sb, k_ss,
          k_sh,   v_sb,   v_ss,  v_sh,   Hq * D, D,
          scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -26,7 +26,8 @@ CUDA-core kernel. Both skip tiles outside the causal or window band. See
 the source for the design.
 
 ``flash_attention`` takes its plain PyTorch version only for tensors on the
-CPU; for CUDA tensors it launches the kernel or raises.
+CPU; for CUDA tensors it launches the kernel or raises. ``supports`` is the
+kernel's geometry rule.
 """
 from __future__ import annotations
 
@@ -45,6 +46,16 @@ _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 12
                                            ctypes.c_void_p])
 BLOCK_M = 64            # packed (query row, head) rows per block
 _SMS = {}
+MAX_D = 256
+
+
+def supports(G: int, D: int, dtype) -> bool:
+    """Does the CUDA kernel take ``G = Hq / Hkv`` query heads per KV head,
+    head dim ``D`` and ``dtype``? Any G >= 1, D up to 256, float32 /
+    bfloat16 / float16; bfloat16 and float16 run on the tensor cores, whose
+    k-steps need D a multiple of 16."""
+    return (dtype in _DTYPE_CODE and G >= 1 and 1 <= D <= MAX_D
+            and (dtype == torch.float32 or D % 16 == 0))
 
 
 def kv_tile(D: int) -> int:
@@ -173,12 +184,7 @@ def _sm_count(device) -> int:
 
 def _check_tma(q, k, v):
     """bf16/fp16 inputs are read by TMA (k, v) and 16-byte loads (q): every
-    base and stride must be a multiple of 16 bytes, D a multiple of 16."""
-    D = q.shape[-1]
-    if D % 16:
-        raise ValueError(f"flash_attention in {q.dtype} needs the head dim "
-                         f"a multiple of 16 for the tensor-core kernel, got "
-                         f"{D}")
+    base and stride must be a multiple of 16 bytes."""
     for name, x in (("q", q), ("k", k), ("v", v)):
         es = x.element_size()
         if x.data_ptr() % 16 or any((st * es) % 16 for st, n in
@@ -197,9 +203,11 @@ def _launch(q, k, v, context_len, q_offset, causal, window, collect_mass):
         raise TypeError(f"flash_attention takes one of {list(_DTYPE_CODE)} "
                         f"for q, k and v; got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
-    if Hq % Hkv or not 1 <= D <= 256:
+    if Hkv < 1 or Hq % Hkv or not supports(Hq // Hkv, D, q.dtype):
         raise ValueError(f"unsupported geometry Hq={Hq} Hkv={Hkv} D={D} "
-                         "(needs Hq a multiple of Hkv and D <= 256)")
+                         f"{q.dtype} (needs Hq a multiple of Hkv, D <= "
+                         f"{MAX_D}, and at bfloat16 / float16 D a multiple "
+                         "of 16 for the tensor-core kernel)")
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"shape mismatch q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")

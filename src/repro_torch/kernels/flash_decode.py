@@ -13,7 +13,9 @@ sequence-sharded cache is never gathered.
 A decode is bound by the bytes of K and V it reads, so the CUDA kernel
 (``csrc/flash_decode.cu``) reads each attended K/V row once for all G query
 heads of its KV-head group, straight from the cache's (B, S, Hkv, D)
-layout through a TMA-fed ring, and cuts each row's attended range into
+layout through a TMA-fed ring (a group of more than 8 query heads is
+split into head groups of at most 8, one block each, which read the row
+once per group), and cuts each row's attended range into
 fixed chunks of ``chunk_positions(D, dtype)`` positions, one block each,
 whose float32 partials a second kernel merges with the log-sum-exp rule.
 The grid is sized from S alone, so a launch never reads the lengths back
@@ -21,8 +23,9 @@ to the host. ``decode_split_reference`` is that decomposition in plain
 PyTorch, for the tests. See the source for the design.
 
 Both wrappers take their plain PyTorch version only for tensors on the CPU;
-for CUDA tensors they launch the kernel or raise. ``flash_decode.launches``
-counts the kernel's launches from either wrapper.
+for CUDA tensors they launch the kernel or raise. ``supports`` is the
+kernel's geometry rule. ``flash_decode.launches`` counts the kernel's
+launches from either wrapper.
 """
 from __future__ import annotations
 
@@ -41,6 +44,14 @@ _ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 8 + [ctypes.c_float, ctypes.c_int,
                                           ctypes.c_int, ctypes.c_void_p])
 _CHUNKS = {}
+MAX_D = 256
+
+
+def supports(G: int, D: int, dtype) -> bool:
+    """Does the CUDA kernel take ``G = Hq / Hkv`` query heads per KV head,
+    head dim ``D`` and ``dtype``? Any G >= 1 (groups wider than 8 are
+    split over blocks), D up to 256, float32 / bfloat16 / float16."""
+    return dtype in _DTYPE_CODE and G >= 1 and 1 <= D <= MAX_D
 
 
 def decode_mask(S: int, kv_len: torch.Tensor, window: Optional[int] = None
@@ -178,9 +189,10 @@ def _launch(q, k, v, kv_len, window, normalize: bool):
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_decode takes one of {list(_DTYPE_CODE)} for "
                         f"q, k and v; got {q.dtype}, {k.dtype}, {v.dtype}")
-    if Hq % Hkv or not 1 <= Hq // Hkv <= 8 or not 1 <= D <= 256:
+    if Hkv < 1 or Hq % Hkv or not supports(Hq // Hkv, D, q.dtype):
         raise ValueError(f"unsupported geometry Hq={Hq} Hkv={Hkv} D={D} "
-                         "(needs G = Hq/Hkv in 1..8 and D <= 256)")
+                         f"{q.dtype} (needs Hq a multiple of Hkv and "
+                         f"D <= {MAX_D})")
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"shape mismatch q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")

@@ -5,7 +5,9 @@ A sender Agent holds contexts, a receiver Agent answers queries, KV flows
 through a byte-accounted transport under a calibrated, frozen layer
 selection. The default path is the continuous-batching scheduler with the
 ragged decode kernel; ``--serial`` runs the blocking reference loop.
-Weights are random from ``--seed`` (see ``launch/pairs.py``).
+Weights are random from ``--seed`` unless ``--weights trained`` loads the
+trained pair (``launch/pairs.py``: its checkpoint under experiments/ckpt,
+quick-trained there first when absent).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --config full
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
@@ -65,13 +67,23 @@ def main(argv=None) -> None:
                     help="the tiny 8-layer pair or llama3.2-3b-pair at "
                          "full width")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--weights", default="random",
+                    choices=["random", "trained"],
+                    help="random weights from --seed, or the trained pair "
+                         "(--config pair only; quick-trains when no "
+                         "checkpoint exists)")
     args = ap.parse_args(argv)
+    if args.weights == "trained" and args.config != "pair":
+        ap.error("--weights trained needs --config pair")
 
     device = resolve_device(args.device)
     cfg = (pairs.full_width_config() if args.config == "full"
            else pairs.pair_config())
     tok = pairs.pair_tokenizer()
-    sender, receiver = pairs.random_pair(cfg, args.seed, device=device)
+    if args.weights == "trained":
+        cfg, tok, sender, receiver = pairs.load_pair(device=device)
+    else:
+        sender, receiver = pairs.random_pair(cfg, args.seed, device=device)
     transport = (SerializedTransport(args.wire_dtype)
                  if args.transport == "serialized" else InMemoryTransport())
     session = CommSession(Agent("sender", cfg, sender, tok),

@@ -21,6 +21,11 @@ of ``cfg.attn_block_q``.
 ``backend="kernel"`` sends one-token decode (S == 1, no window, no mass)
 to the ragged decode kernel, the counterpart of the reference's
 ``"pallas"``; windowed layers decode masked-dense, as there.
+
+Whisper's decoder layers add cross-attention over the encoder's output
+(``cross_kv`` projects it once per layer, ``cross_attention`` attends it
+unmasked, at zero positions and without RoPE); it runs on the plain core,
+as in the reference.
 """
 from __future__ import annotations
 
@@ -195,3 +200,26 @@ def _ring_attention(p, cfg, q, k, v, q_pos, cache_k, cache_v, cache_len,
                         kv_pos=pos_shift + kv_pos, kv_valid=kv_pos >= 0,
                         causal=causal, window=window)
     return out.reshape(B, S, -1) @ p["wo"], (cache_k, cache_v), None
+
+
+def init_cross_attn(gen, cfg, dtype, device):
+    return init_attn(gen, cfg, dtype, device)
+
+
+def cross_attention(p, cfg, x, enc_k, enc_v):
+    """Whisper-style cross-attention of x (B, S, d) over precomputed
+    encoder KV (B, Senc, Hkv, Dh): unmasked, on the plain core."""
+    B, S, _ = x.shape
+    q = _proj(p, x, "q", cfg.num_heads, cfg.resolved_head_dim)
+    zeros = lambda n: torch.zeros((n,), dtype=torch.long,  # noqa: E731
+                                  device=x.device)
+    out, _ = attention_core(q, enc_k, enc_v, q_pos=zeros(S),
+                            kv_pos=zeros(enc_k.shape[1]), causal=False)
+    return out.reshape(B, S, -1) @ p["wo"]
+
+
+def cross_kv(p, cfg, enc_out):
+    """A layer's cross KV from the encoder output: (B, Senc, Hkv, Dh)
+    each."""
+    Hkv, Dh = cfg.num_kv_heads, cfg.resolved_head_dim
+    return _proj(p, enc_out, "k", Hkv, Dh), _proj(p, enc_out, "v", Hkv, Dh)

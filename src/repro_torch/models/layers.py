@@ -1,4 +1,5 @@
-"""Core primitives of the port: init, RMSNorm, RoPE, masked GQA attention
+"""Core primitives of the port: init, RMSNorm, RoPE, whisper's sinusoid
+positions, masked GQA attention
 (causal, sliding window) with the Eq. (1) context mass, its query-blocked
 form, the swiglu and gelu MLPs and the top-k MoE in both of the
 reference's strategies (``dense_all`` and capacity-based ``dropping``).
@@ -15,6 +16,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.core.selection import _exp_f32
 
 NEG_INF = -1e30
 
@@ -57,6 +60,21 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoid_positions(positions: torch.Tensor, d_model: int):
+    """Additive sinusoidal embeddings (whisper-style, no tables): (...,
+    d_model) float32, ``[sin | cos]`` of positions over the frequencies
+    ``exp(-log(10000) * i / half)``, in float32 as the reference computes
+    them. The frequencies take XLA's float32 exp (``_exp_f32``):
+    ``torch.exp`` rounds 51 of whisper-medium's 512 otherwise, and one ulp
+    of a frequency times a position of ~1,500 moves the sine by ~1e-4.
+    The sines and cosines then agree within ~6e-8."""
+    half = d_model // 2
+    arg = -math.log(10000.0) * torch.arange(half, dtype=torch.float32) / half
+    freq = torch.from_numpy(_exp_f32(arg.numpy())).to(positions.device)
+    ang = positions.float()[..., None] * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -35,8 +35,18 @@ The comparison methods enter through three more arguments: ``extra``
 soft embeddings (CIPHER), ``capture_hidden`` (each attention layer's
 last-token input, the AC wire payload) and ``inject`` (AC, dense path
 only). ``extra={"patches": (B, P, D)}`` substitutes a VLM's stub patch
-embeddings for the first P positions. Encoders, cross-attention and
-audio models are not ported yet and raise.
+embeddings for the first P positions.
+
+Whisper (``arch_type == "audio"``): ``params["encoder"]`` holds the
+encoder's layers (non-causal self-attention and gelu MLP) and its final
+norm; ``extra={"frames": (B, Senc, d)}`` (the stub audio frames) runs
+them, with the additive sinusoid positions, into ``enc_out``. The decoder
+adds sinusoid positions to its embeddings at ``cache_len + arange(S)``
+(no RoPE), and each decoder layer carries ``ln_x`` / ``xattn`` for
+cross-attention over ``enc_out``. A cached layer keeps that layer's cross
+KV in ``xk`` / ``xv``: built from ``enc_out`` at a prefill (S > 1) and
+reused at a one-token decode, as in the reference. Ragged rows need a
+RoPE arch and raise on an audio model.
 """
 from __future__ import annotations
 
@@ -49,7 +59,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_mlp, apply_moe, dense_init,
                                        embed_init, init_mlp, init_moe,
-                                       rms_norm)
+                                       rms_norm, sinusoid_positions)
 
 
 class ModelOut(NamedTuple):
@@ -73,17 +83,11 @@ def mlp_type(cfg: ModelConfig) -> str:
         "starcoder") else "swiglu"
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not cover yet: encoders,
-    cross-attention and audio models."""
-    for spec in cfg.layer_plan():
-        if spec.kind not in ATTN_KINDS + SSM_KINDS or spec.cross_attn:
-            raise NotImplementedError(
-                f"{cfg.name}: cross-attention layers are not ported yet "
-                f"(got {spec})")
-    if cfg.encoder_layers or cfg.arch_type == "audio":
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder and audio "
-                                  "models are not ported yet")
+def encoder_specs(cfg: ModelConfig) -> List[LayerSpec]:
+    """The run spec of every encoder layer (non-causal attention), as the
+    reference's ``encoder_plan``."""
+    return [LayerSpec(kind="attn", count=cfg.encoder_layers, causal=False)
+            ] * cfg.encoder_layers
 
 
 # ---------------------------------------------------------------------------
@@ -93,7 +97,6 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device) -> Dict[str, Any]:
     """Random init from ``seed`` on a ``torch.Generator``: the reference's
     distributions, not its draws (parity tests bridge reference weights
     through ``repro_torch.weights``)."""
-    check_supported(cfg)
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -121,6 +124,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device) -> Dict[str, Any]:
                                 device)
         else:
             p["mlp"] = init_mlp(gen, d, cfg.d_ff, dt, device, mlp_type(cfg))
+        if spec.cross_attn:
+            p["ln_x"] = zeros()
+            p["xattn"] = attn_mod.init_cross_attn(gen, cfg, dt, device)
         return p
 
     for spec in layer_specs(cfg):
@@ -132,6 +138,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device) -> Dict[str, Any]:
         params["layers"].append(params["shared_attn"])
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (d, cfg.vocab_size), dt, device)
+    if cfg.encoder_layers:
+        params["encoder"] = {
+            "layers": [layer(spec) for spec in encoder_specs(cfg)],
+            "final_norm": zeros()}
     return params
 
 
@@ -148,8 +158,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
     (is the buffer a ring shorter than ``max_len``: with
     ``cfg.ring_cache``, a windowed layer of a prefix-free dense cache holds
     min(max_len, window) entries; the packed cache has no ring, as in the
-    reference)."""
-    check_supported(cfg)
+    reference). A cross-attention layer also holds ``xk`` / ``xv`` of
+    (B, encoder_seq, Hkv, Dh), in either layout."""
     dtype = dtype_of(cfg)
     prefix_len = 0 if shared is None else shared.prefix_len
     Hkv, Dh = cfg.num_kv_heads, cfg.resolved_head_dim
@@ -161,7 +171,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
     packed = shared is not None and shared.is_packed
     packed_i = ({l: m for m, l in enumerate(shared.layers)} if packed
                 else {})
-    windows = [s.window for s in layer_specs(cfg) if s.kind in ATTN_KINDS]
+    specs = [s for s in layer_specs(cfg) if s.kind in ATTN_KINDS]
+    windows = [s.window for s in specs]
     layers: List[Dict[str, Any]] = []
     for l in range(L):
         has_prefix = shared is not None and (not packed or l in packed_i)
@@ -176,9 +187,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
                 i = packed_i[l] if shared.is_packed else l
                 k[:, :prefix_len] = src["k"][i].to(dtype)
                 v[:, :prefix_len] = src["v"][i].to(dtype)
-        layers.append({"k": k, "v": v, "prefix": has_prefix,
-                       "ctx_valid": sel[l] if has_prefix else False,
-                       "ring": S_buf < max_len})
+        entry = {"k": k, "v": v, "prefix": has_prefix,
+                 "ctx_valid": sel[l] if has_prefix else False,
+                 "ring": S_buf < max_len}
+        if specs[l].cross_attn:
+            entry["xk"] = torch.zeros((batch, cfg.encoder_seq, Hkv, Dh),
+                                      dtype=dtype, device=device)
+            entry["xv"] = torch.zeros_like(entry["xk"])
+        layers.append(entry)
     cache = {"len": prefix_len, "layers": layers}
     kinds = [s.kind for s in layer_specs(cfg) if s.kind in SSM_KINDS]
     if kinds:
@@ -223,8 +239,10 @@ def cache_insert_row(table: Dict[str, Any], row: Dict[str, Any], slot: int,
     buffer of another capacity moves as two segments: the prefix
     ``[0, src_prefix)`` stays put and the self region moves from
     ``src_prefix`` to ``dst_prefix`` (entries are rotated by absolute
-    position, never by buffer offset). ``len`` stays the caller's."""
+    position, never by buffer offset). A cross-attention layer's ``xk`` /
+    ``xv`` copy straight across. ``len`` stays the caller's."""
     for t_e, r_e in zip(table["layers"], row["layers"]):
+        _insert_cross(t_e, r_e, slot)
         for part in ("k", "v"):
             t, r = t_e[part], r_e[part]
             n = r.shape[1]
@@ -260,6 +278,7 @@ def cache_insert_row_paged(cfg: ModelConfig, table: Dict[str, Any],
                          f"carries a prefix on {carrying}")
     slot_of = {l: m for m, l in enumerate(layers)}
     for l, (t_e, r_e) in enumerate(zip(table["layers"], row["layers"])):
+        _insert_cross(t_e, r_e, slot)
         for part in ("k", "v"):
             t, r = t_e[part], r_e[part]
             n = r.shape[1]
@@ -274,9 +293,40 @@ def cache_insert_row_paged(cfg: ModelConfig, table: Dict[str, Any],
     return table
 
 
+def _insert_cross(t_e, r_e, slot: int) -> None:
+    """A cross-attention layer's ``xk`` / ``xv`` row into the table."""
+    for part in ("xk", "xv"):
+        if part in t_e:
+            t_e[part][slot] = r_e[part][0]
+
+
 # ---------------------------------------------------------------------------
 # the model
 # ---------------------------------------------------------------------------
+def _ragged(cache, prefix_lens) -> bool:
+    """Do the rows carry per-row lengths (continuous batching)?"""
+    return prefix_lens is not None or (
+        cache is not None and isinstance(cache["len"], torch.Tensor)
+        and cache["len"].dim() > 0)
+
+
+def _encoder_forward(params, cfg: ModelConfig, frames: torch.Tensor):
+    """Whisper's encoder over the stub frames (B, Senc, d): the additive
+    sinusoid positions, non-causal attention layers without RoPE, gelu
+    MLPs, the final norm."""
+    enc = params["encoder"]
+    x = frames.to(dtype_of(cfg))
+    pos = torch.arange(x.shape[1], device=x.device)
+    x = x + sinusoid_positions(pos, cfg.d_model)[None].to(x.dtype)
+    mt = mlp_type(cfg)
+    for lp in enc["layers"]:
+        out, _, _ = attn_mod.self_attention(
+            lp["attn"], cfg, rms_norm(x, lp["ln1"], cfg.norm_eps),
+            mode="train", causal=False, use_rope=False)
+        x = x + out
+        x = x + apply_mlp(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps),
+                          mt)
+    return rms_norm(x, enc["final_norm"], cfg.norm_eps)
 def apply_model(params, cfg: ModelConfig, tokens: torch.Tensor, *,
                 mode: str = "train", cache=None, shared=None,
                 extra: Optional[Dict[str, Any]] = None,
@@ -294,8 +344,8 @@ def apply_model(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     ``hiddens``, taken before any injection. ``inject={"vec": (L_attn, B,
     D), "mask": (L_attn,) bool, "mode": "replace" | "sum" | "mean"}``
     merges ``vec[l]`` into the last position's input of each flagged layer
-    l (the AC baselines); it runs on the dense path only."""
-    check_supported(cfg)
+    l (the AC baselines); it runs on the dense path only.
+    ``extra={"frames": (B, Senc, d)}`` feeds whisper's encoder."""
     B, S = tokens.shape
     if shared is not None and shared.is_packed and mode != "cached":
         shared = shared.to_dense(cfg.attn_layer_count)
@@ -309,7 +359,23 @@ def apply_model(params, cfg: ModelConfig, tokens: torch.Tensor, *,
                   and shared.pos_mode == "zero_unselected")
     if prefix_len == 0 or mode != "cached":
         prefix_lens = None
+    audio = cfg.arch_type == "audio"
+    if audio and _ragged(cache, prefix_lens):
+        # per-row positions ride in RoPE; the additive sinusoid embed is
+        # scalar-shift only (the reference asserts the same)
+        raise ValueError(f"{cfg.name}: ragged (continuous-batching) rows "
+                         "need a RoPE arch")
     cache_len = cache["len"] if cache is not None else 0
+    # cross-attention reads the encoder's output everywhere but at a
+    # cached one-token step, which reuses the layer's xk / xv
+    use_enc = not (mode == "cached" and S == 1)
+    enc_out = None
+    if (cfg.encoder_layers and use_enc and extra is not None
+            and "frames" in extra):
+        enc_out = _encoder_forward(params, cfg, extra["frames"])
+    if use_enc and enc_out is None and cfg.encoder_layers:
+        raise ValueError(f"{cfg.name}: cross-attention needs the encoder's "
+                         "frames (extra={'frames': (B, Senc, d)})")
     x = params["embed"][tokens]
     if cfg.num_patches and extra is not None and "patches" in extra:
         pe = extra["patches"].to(x.dtype)
@@ -318,6 +384,10 @@ def apply_model(params, cfg: ModelConfig, tokens: torch.Tensor, *,
         se = extra["soft_embeds"].to(x.dtype)
         start = extra.get("soft_start", 0)
         x[:, start:start + se.shape[1]] = se
+    if audio:      # whisper's decoder: additive sinusoid positions
+        pos = (cache_len if mode == "cached" else 0) + torch.arange(
+            S, device=x.device)
+        x = x + sinusoid_positions(pos, cfg.d_model)[None].to(x.dtype)
     masses: List[torch.Tensor] = []
     hiddens: List[torch.Tensor] = []
     states = cache.get("states") if cache is not None else None
@@ -358,7 +428,8 @@ def apply_model(params, cfg: ModelConfig, tokens: torch.Tensor, *,
         pfx = prefix_len if has_prefix else 0
         out, _, mass = attn_mod.self_attention(
             lp["attn"], cfg, rms_norm(x, lp["ln1"], cfg.norm_eps),
-            mode=mode, window=spec.window, pos_shift=shift,
+            mode=mode, causal=spec.causal, use_rope=not audio,
+            window=spec.window, pos_shift=shift,
             prefix_len=pfx,
             ctx_valid=sel if has_prefix else None,
             cache_k=entry["k"] if entry else None,
@@ -368,6 +439,8 @@ def apply_model(params, cfg: ModelConfig, tokens: torch.Tensor, *,
             prefix_lens=prefix_lens if has_prefix else None,
             collect_mass=collect_mass, backend=decode_backend)
         x = x + out
+        if spec.cross_attn:
+            x = x + _cross_layer(lp, cfg, x, entry, enc_out)
         h = rms_norm(x, lp["ln2"], cfg.norm_eps)
         if spec.moe:
             ffn, layer_aux = apply_moe(lp["moe"], h, cfg)
@@ -394,6 +467,20 @@ def apply_model(params, cfg: ModelConfig, tokens: torch.Tensor, *,
                     masses=torch.stack(masses) if masses else None,
                     aux_loss=aux,
                     hiddens=torch.stack(hiddens) if hiddens else None)
+
+
+def _cross_layer(lp, cfg: ModelConfig, x, entry, enc_out):
+    """One decoder layer's cross-attention output. With ``enc_out`` the
+    layer's cross KV is projected from it (and kept in a cached layer's
+    ``xk`` / ``xv``); without, a cached layer reuses its own."""
+    if enc_out is not None:
+        xk, xv = attn_mod.cross_kv(lp["xattn"], cfg, enc_out)
+        if entry is not None:
+            entry["xk"], entry["xv"] = xk, xv
+    else:
+        xk, xv = entry["xk"], entry["xv"]
+    return attn_mod.cross_attention(
+        lp["xattn"], cfg, rms_norm(x, lp["ln_x"], cfg.norm_eps), xk, xv)
 
 
 def _ssm_layer(lp, cfg: ModelConfig, kind: str, x, st, mode: str):

@@ -131,13 +131,19 @@ class Scheduler:
                              "heterogeneous session shares through "
                              "share_mapped, which its slot table does not "
                              "serve")
-        tfm.check_supported(session.cfg)
         for spec in session.cfg.layer_plan():
             if spec.kind not in ("attn", "shared_attn"):
                 raise ValueError(
                     "continuous batching covers attention-only models for "
                     f"now ({session.cfg.name} has {spec.kind} layers: "
                     "ragged SSM rows would need per-row state rewind)")
+            if spec.cross_attn:
+                raise ValueError(f"{session.cfg.name}: cross-attention "
+                                 "rows are not served by the slot table")
+        if session.cfg.arch_type == "audio":
+            raise ValueError(f"{session.cfg.name}: ragged rows need a RoPE "
+                             "arch (an audio model's positions are an "
+                             "additive sinusoid)")
         self.session = session
         self.kvcfg = kvcfg
         self.calib_key = calib_key

@@ -27,7 +27,8 @@ def test_configs_round_trip():
     assert list_archs() == ["gemma3-4b", "internlm2-20b",
                             "llama3.2-3b-pair", "mixtral-8x22b",
                             "olmoe-1b-7b", "pixtral-12b", "qwen1.5-110b",
-                            "rwkv6-1.6b", "starcoder2-7b", "zamba2-2.7b"]
+                            "rwkv6-1.6b", "starcoder2-7b", "whisper-medium",
+                            "zamba2-2.7b"]
     assert dataclasses.asdict(pairs.pair_config()) \
         == dataclasses.asdict(jpairs.pair_config())
     full = pairs.full_width_config()
@@ -35,8 +36,8 @@ def test_configs_round_trip():
             full.num_kv_heads, full.resolved_head_dim, full.d_ff,
             full.vocab_size, full.dtype, full.tie_embeddings) == \
         (28, 3072, 24, 8, 128, 8192, 128256, "bfloat16", True)
-    with pytest.raises(NotImplementedError):
-        get_config("whisper-medium")
+    assert dataclasses.asdict(get_config("whisper-medium")) == \
+        dataclasses.asdict(jget_config("whisper-medium"))
     with pytest.raises(KeyError):
         get_config("mixtral-8x7b")
 

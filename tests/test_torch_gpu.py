@@ -129,6 +129,7 @@ def test_split_kernel_many_splits_strided(cuda, dtype, G, D):
     (32, 8, 160),      # pixtral-12b: D 160, 320-byte rows
     (8, 4, 256),       # gemma3-4b's global layers: G 2 at D 256
     (16, 16, 128),     # olmoe-1b-7b: MHA
+    (16, 16, 64),      # whisper-medium's decoder: MHA at D 64
     (32, 2, 64),       # G 16: two full groups of 8
     (33, 3, 32)])      # G 11: groups of 6 and 5
 def test_kernel_at_config_geometries(cuda, dtype, Hq, Hkv, D):
@@ -494,6 +495,38 @@ def test_flash_decode_stages_what_tma_cannot_describe(cuda, dtype):
                                         device=cuda))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("G,D", [(9, 128), (16, 64), (12, 256)])
+@pytest.mark.parametrize("window", [None, 300])
+def test_flash_decode_wide_groups(cuda, dtype, G, D, window):
+    """F7: groups of more than 8 query heads per KV head split into head
+    groups of at most 8 (9 -> 5 + 4, 16 -> 8 + 8, 12 -> 6 + 6), normalised
+    and partials, with a window and without, read by TMA; rows of every
+    length class over several chunks."""
+    from repro_torch.kernels.flash_decode import chunk_positions, uses_tma
+    c = chunk_positions(D, dtype)
+    B, S, Hkv = 4, 2 * c + 37, 2
+    q, k, v = _decode_inputs(cuda, dtype, B, S, G * Hkv, Hkv, D,
+                             seed=G * 10 + D)
+    kv_len = torch.tensor([0, 1, c + 5, S], dtype=torch.int32, device=cuda)
+    assert uses_tma(k, v)
+    _check_decode(q, k, v, kv_len, window=window)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("G", [9, 16])
+def test_flash_decode_wide_groups_staged(cuda, dtype, G):
+    """F7 on the staged route: 24-byte rows no tensor map describes."""
+    from repro_torch.kernels.flash_decode import uses_tma
+    D = 12 if dtype != torch.float32 else 6
+    q, k, v = _decode_inputs(cuda, dtype, 3, 700, G * 2, 2, D, seed=G)
+    assert not uses_tma(k, v)
+    _check_decode(q, k, v, torch.tensor([700, 0, 333], dtype=torch.int32,
+                                        device=cuda), window=500)
+
+
 def test_flash_decode_dead_rows_zero_and_counts_once(cuda):
     """One call is one launch (split and merge kernels of one entry point);
     rows that attend nothing are exact zeros whatever the cache holds."""
@@ -588,6 +621,19 @@ def test_distributed_decode_on_card(cuda):
                                  device="cuda", seed=1,
                                  kv_len=np.array([4096, 3000, 17, 2049]))
     assert flash_decode.launches == before + 9
+    assert res["max_abs_err"] < 1e-4
+
+
+def test_distributed_decode_g9_on_card(cuda):
+    """The sharded decode at starcoder2-7b's G 9 (``--q-heads 36
+    --kv-heads 4``), which raised before K3's head groups."""
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.launch import distributed_decode
+    before = flash_decode.launches
+    res = distributed_decode.run(2, 36, 4, 128, 4096, 4, "float32",
+                                 device="cuda", seed=2,
+                                 kv_len=np.array([4096, 1234]))
+    assert flash_decode.launches == before + 5
     assert res["max_abs_err"] < 1e-4
 
 

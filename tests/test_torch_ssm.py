@@ -135,9 +135,15 @@ def test_port_init_shares_one_attention_block():
     shared = [layer for layer in p["layers"] if "attn" in layer]
     assert len(shared) == cfg.attn_layer_count == 2
     assert all(layer is p["shared_attn"] for layer in shared)
-    with pytest.raises(NotImplementedError):
-        tfm.init_params(dataclasses.replace(cfg, arch_type="audio"), 0,
-                        device="cpu")
+    # an audio arch_type makes the plan one plain attention run (no
+    # encoder here, so no cross-attention) with gelu MLPs: the port now
+    # builds it, as the reference does, with no shared block
+    audio = tfm.init_params(dataclasses.replace(cfg, arch_type="audio"), 0,
+                            device="cpu")
+    assert "shared_attn" not in audio and "encoder" not in audio
+    assert len(audio["layers"]) == cfg.num_layers
+    assert all(set(layer["mlp"]) == {"w_up", "w_down"}
+               for layer in audio["layers"])
 
 
 # ---------------------------------------------------------------------------

@@ -174,6 +174,19 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
      8 shards (counter at 0 first): one K3 launch per shard plus the
      monolithic decode, the LSE combine checked against both; then its
      sharded_decode timed beside the monolithic decode.
+  6a. training (phase_training) — the float32 pair card vs CPU, full-width
+     steps, whisper, the quick-trained pair on K1.
+  6b. distributed — llama3.2-3b-pair at full width on a one-rank NCCL
+     host mesh: 4 train steps with the state sharded by param_shardings
+     against the unsharded steps (losses within 1e-4 relative; remat on
+     and off; ms a step and peak GB of each), then the prefill, a decode
+     step and the KVComm receiver prefill with its Eq. (1) masses against
+     the unsharded port (5e-2 of the largest); meanwhile a subprocess
+     runs the production meshes' dry run (qwen1.5-110b train_4k,
+     mixtral-8x22b decode_32k on 2x16x16, rwkv6-1.6b long_500k,
+     whisper-medium train_4k, gemma3-4b prefill_32k --kvcomm): status
+     ok, FLOPs and collective bytes > 0, one line each. K1-K4 stay at 0
+     launches across the phase.
   7. the kernels line — one JSON object listing every kernel (K1-K4),
      with each one's device ms over SDPA's at its main case; K1's launches
      by path (full-width, paged, wire tiers, remote serving, resilient
@@ -3739,6 +3752,241 @@ def phase_training(dev, smi, tok):
     return k1
 
 
+# ---------------------------------------------------------------------------
+# distributed: the model and trainer on DTensors over a one-rank NCCL host
+# mesh at full width, and the production meshes' dry run in a subprocess
+# ---------------------------------------------------------------------------
+DIST_TRAIN_STEPS = 4
+DRYRUN_COMBOS = [("qwen1.5-110b", "train_4k", False, False),
+                 ("mixtral-8x22b", "decode_32k", True, False),
+                 ("rwkv6-1.6b", "long_500k", False, False),
+                 ("whisper-medium", "train_4k", False, False),
+                 ("gemma3-4b", "prefill_32k", False, True)]
+DRYRUN_CODE = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from repro_torch.launch import dryrun
+for arch, shape, multi_pod, kvcomm in json.loads(sys.argv[2]):
+    rec = dryrun.run_one(arch, shape, multi_pod, kvcomm=kvcomm)
+    print("DRYRUN " + json.dumps(rec), flush=True)
+"""
+
+
+def start_dryrun():
+    """The five production-mesh dry-run combos in a second process (a
+    fake process group cannot share a process with NCCL), on the CPU: it
+    sees no card."""
+    import os
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_CODE, str(SRC),
+         json.dumps(DRYRUN_COMBOS)], cwd=str(ROOT), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    CHILDREN.append(proc)
+    return proc
+
+
+def dist_train_run(dev, cfg, batches, mesh):
+    """DIST_TRAIN_STEPS make_train_step steps of ``cfg`` from seed 0 on
+    the given host batches, the state sharded by ``param_shardings`` over
+    ``mesh`` (unsharded without one): losses, wall ms a step, peak GB."""
+    import gc
+    import torch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.distributed import hints
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import mesh_axes
+    from repro_torch.launch.train import scalar
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training.optimizer import OptimizerConfig, \
+        init_opt_state
+    from repro_torch.training.train_loop import (TrainState,
+                                                 make_train_step, to_batch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = tfm.init_params(cfg, 0, device=dev)
+    B, S = batches[0]["tokens"].shape
+    shape = InputShape("train", S, B, "train")
+    if mesh is not None:
+        params = shd.distribute(params, mesh,
+                                shd.param_shardings(cfg, mesh, params))
+        hints.set_axes(*mesh_axes(mesh))
+    state = TrainState(params, init_opt_state(params))
+    step = make_train_step(cfg, OptimizerConfig(
+        lr=3e-4, total_steps=len(batches), warmup_steps=1))
+    ms, losses = [], []
+    try:
+        for b in batches:
+            b = to_batch(b, dev)
+            if mesh is not None:
+                b = shd.distribute(b, mesh, shd.input_shardings(
+                    cfg, mesh, shape, b))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            losses.append(scalar(m["loss"]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        hints.clear()
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    del state, params, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": ms,
+            "steady_step_ms": float(sorted(ms[1:])[len(ms[1:]) // 2]),
+            "peak_gb": peak}
+
+
+def phase_distributed(dev, smi):
+    """(a) llama3.2-3b-pair at full width (bf16 parameters, float32
+    moments), DIST_TRAIN_STEPS steps at B 4 x S 128 from seed 0, its state
+    sharded by param_shardings over a one-rank NCCL host mesh, against the
+    unsharded steps: losses within 1e-4 relative (predicted bit-equal: on
+    a (1, 1) mesh every DTensor op runs the local op), with the config's
+    remat (on) and with remat off; ms a step and peak GB of each. (b) On
+    that mesh the prefill (B 4 x S 256), one decode step over its cache
+    and the KVComm receiver prefill with the Eq. (1) masses
+    (make_kvcomm_prefill_fn: a 512-position sender prefix, 14 of 28
+    layers selected, B 4 x S 64): logits and masses within 5e-2 of the
+    largest of the unsharded port's. (c) The production meshes' dry run
+    of five combos in a subprocess: status ok, FLOPs > 0, collective
+    bytes > 0. The K1-K4 counters stay at 0 across the phase: the sharded
+    path, like the reference's, runs the plain attention and scans."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.pipeline import synthetic_byte_corpus, \
+        token_stream_iter
+    from repro_torch.distributed import hints
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import pairs, specs
+    from repro_torch.launch.mesh import make_host_mesh, mesh_axes
+    from repro_torch.models import transformer as tfm
+    t_phase = time.perf_counter()
+    dry = start_dryrun()
+    before = kernel_launches()
+    mesh = make_host_mesh("cuda")
+    fw = pairs.full_width_config()
+    corpus = synthetic_byte_corpus() % fw.vocab_size
+    it = token_stream_iter(corpus, 4, 128)
+    batches = [next(it) for _ in range(DIST_TRAIN_STEPS)]
+
+    # (a) train steps, sharded against unsharded, remat on and off
+    train = {}
+    for remat in (True, False):
+        cfg = dataclasses.replace(fw, remat=remat)
+        un = dist_train_run(dev, cfg, batches, None)
+        sh = dist_train_run(dev, cfg, batches, mesh)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(sh["losses"],
+                                                      un["losses"]))
+        check(all(np.isfinite(sh["losses"])) and rel <= 1e-4,
+              f"distributed train (remat {remat}): losses {sh['losses']} "
+              f"vs {un['losses']}")
+        train[f"remat_{remat}"] = {"unsharded": un, "sharded": sh,
+                                   "max_rel": rel,
+                                   "bit_equal": sh["losses"] == un["losses"]}
+        emit({"phase": "distributed_train", "model": fw.name,
+              "remat": remat, "batch": [4, 128], "mesh": {"data": 1,
+                                                          "model": 1},
+              "unsharded": un, "sharded": sh, "max_rel": rel,
+              "bound": 1e-4, "card": smi})
+
+    # (b) serving-shaped steps on the mesh against the unsharded port
+    params = tfm.init_params(fw, 0, device=dev)
+    sparams = shd.distribute(params, mesh,
+                             shd.param_shardings(fw, mesh, params))
+    rng = np.random.default_rng(7)
+    pre_shape = InputShape("prefill", 256, 4, "prefill")
+    prefill, _ = specs.make_step_fn(fw, pre_shape)
+    decode, _ = specs.make_step_fn(fw, InputShape("decode", 256, 4,
+                                                  "decode"))
+    kv_shape = InputShape("kvcomm", 64, 4, "prefill")
+    kvfn, kv_args = specs.make_kvcomm_prefill_fn(fw, kv_shape,
+                                                 context_len=512)
+    toks = torch.from_numpy(rng.integers(0, fw.vocab_size, (4, 256))).to(dev)
+    ktoks = toks[:, :64].clone()
+    kv = {n: torch.from_numpy(rng.standard_normal(
+        tuple(kv_args[2][n].shape)).astype(np.float32)).to(
+        dev, torch.bfloat16) for n in ("k", "v")}
+    select = kv_args[3]
+
+    def serve_steps(p, m):
+        batch, kbatch, kvs = {"tokens": toks}, {"tokens": ktoks}, kv
+        if m is not None:
+            batch = shd.distribute(batch, m, shd.input_shardings(
+                fw, m, pre_shape, batch))
+            kbatch = shd.distribute(kbatch, m, shd.input_shardings(
+                fw, m, kv_shape, kbatch))
+            kvs = shd.distribute(kv, m, shd.cache_shardings(
+                fw, m, kv_shape, kv))
+            hints.set_axes(*mesh_axes(m))
+        try:
+            with torch.no_grad():
+                t0 = time.perf_counter()
+                logits, cache = prefill(p, batch)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                dlogits, _ = decode(p, batch["tokens"][:, -1:], cache)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                klogits, masses, _ = kvfn(p, kbatch, kvs, select)
+                torch.cuda.synchronize()
+                t3 = time.perf_counter()
+        finally:
+            hints.clear()
+        full = lambda x: (x.full_tensor() if hasattr(x, "full_tensor")  # noqa
+                          else x).float().cpu()
+        return ([full(x) for x in (logits, dlogits, klogits, masses)],
+                {"prefill_ms": (t1 - t0) * 1e3, "decode_ms": (t2 - t1) * 1e3,
+                 "kvcomm_prefill_ms": (t3 - t2) * 1e3})
+
+    serve_steps(params, None)                       # warm-up
+    want, t_un = serve_steps(params, None)
+    got, t_sh = serve_steps(sparams, mesh)
+    errs = {}
+    for name, a, b in zip(("prefill", "decode", "kvcomm_prefill",
+                           "masses"), got, want):
+        check(a.shape == b.shape and bool(torch.isfinite(a).all()),
+              f"distributed {name}: shape {tuple(a.shape)} vs "
+              f"{tuple(b.shape)}")
+        errs[name] = float((a - b).abs().max() / b.abs().max())
+        check(errs[name] <= 5e-2, f"distributed {name}: {errs[name]}")
+    emit({"phase": "distributed_serving_steps", "model": fw.name,
+          "prefill": [4, 256], "kvcomm": {"batch": [4, 64], "context": 512,
+                                         "selected": int(select.sum())},
+          "max_err_over_largest": errs, "bound": 5e-2,
+          "masses": got[3].tolist(), "unsharded_ms": t_un,
+          "sharded_ms": t_sh, "card": smi})
+    del params, sparams, kv
+    dist.destroy_process_group()
+
+    # (c) the dry run
+    out, err = dry.communicate(timeout=900)
+    check(dry.returncode == 0, f"dry run exited {dry.returncode}: "
+          f"{err[-2000:]}")
+    recs = [json.loads(ln[7:]) for ln in out.splitlines()
+            if ln.startswith("DRYRUN ")]
+    check(len(recs) == len(DRYRUN_COMBOS), f"dry run: {len(recs)} records")
+    for rec in recs:
+        rec.pop("traceback", None)
+        emit({"phase": "distributed_dryrun", **rec})
+        check(rec["status"] == "ok" and rec["flops"] > 0
+              and rec["collectives"]["total"] > 0,
+              f"dry run {rec['arch']} {rec['shape']}: {rec.get('error')}")
+    after = kernel_launches()
+    check(after == before, f"distributed: kernel launches {before} -> "
+          f"{after}")
+    emit({"phase": "distributed", "k1_k4_launches": [a - b for a, b in
+                                                     zip(after, before)],
+          "train": {k: {"max_rel": v["max_rel"], "bit_equal": v["bit_equal"]}
+                    for k, v in train.items()},
+          "seconds": time.perf_counter() - t_phase, "card": smi})
+
+
 def kernel_entry(results, name, source, replaces, launches, main_case):
     main = next(r for r in results if r["case"] == main_case)
     mine = [r for r in results if r["kernel"] == name]
@@ -3844,6 +4092,7 @@ def main() -> int:
     k1_train = phase_training(dev, smi, pairs.pair_tokenizer())
     k1_paths["quick_trained_pair"] = k1_train
     launches += k1_train
+    phase_distributed(dev, smi)
     results = cases + [main] + ep_results + k4_cases + arch_cases
     kernels = {"kernels": [
         {**kernel_entry(results, "ragged_decode",

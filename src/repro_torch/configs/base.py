@@ -3,9 +3,12 @@
 Every architecture is described by a single frozen ``ModelConfig``. Field
 names are identical to the reference config, so a config built there
 converts with ``ModelConfig(**dataclasses.asdict(cfg))``. The config fully
-determines parameter shapes, the layer plan and the cache structure. Fields
-that only the reference's XLA path reads (``attn_impl``, ``remat``,
-``scan_unroll``, ``moe_groups``) are kept for that round trip.
+determines parameter shapes, the layer plan and the cache structure. A
+field that only the reference's XLA path reads (``scan_unroll``) is kept
+for that round trip; ``remat`` checkpoints each layer in training, as the
+reference checkpoints each layer run.
+``InputShape`` and ``INPUT_SHAPES`` are the reference's four assigned
+input shapes, which the dry run and the cost model read.
 """
 from __future__ import annotations
 
@@ -105,6 +108,14 @@ class ModelConfig:
             return self.head_dim
         return self.d_model // self.num_heads if self.num_heads else 0
 
+    @property
+    def ssm_heads(self) -> int:
+        return (self.ssm_expand * self.d_model) // self.ssm_head_dim
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
     def layer_plan(self) -> Tuple[LayerSpec, ...]:
         """Group layers into homogeneous runs."""
         if self.arch_type == "ssm":  # rwkv6
@@ -147,6 +158,10 @@ class ModelConfig:
         return sum(s.count for s in self.layer_plan()
                    if s.kind in ("attn", "shared_attn"))
 
+    @property
+    def total_layers(self) -> int:
+        return sum(s.count for s in self.layer_plan())
+
     def reduced(self, **overrides) -> "ModelConfig":
         """Tiny same-family variant for CPU tests (the reference's rule)."""
         small = dict(
@@ -181,3 +196,22 @@ class ModelConfig:
             small["num_layers"] = 2
         small.update(overrides)
         return dataclasses.replace(self, **small)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes assigned to this paper (public pool), as the reference's.
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}

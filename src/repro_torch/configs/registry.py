@@ -35,3 +35,10 @@ def get_config(name: str) -> ModelConfig:
 
 def list_archs() -> list[str]:
     return sorted(_REGISTRY)
+
+
+ASSIGNED_ARCHS = [
+    "mixtral-8x22b", "starcoder2-7b", "whisper-medium", "internlm2-20b",
+    "qwen1.5-110b", "pixtral-12b", "gemma3-4b", "rwkv6-1.6b",
+    "olmoe-1b-7b", "zamba2-2.7b",
+]

@@ -1,14 +1,21 @@
-"""Single-device training launcher of the port (the counterpart of the
-reference's ``launch/train.py``): a registered config, optionally reduced,
-trained on the packed byte corpus with AdamW.
+"""Training launcher of the port (the counterpart of the reference's
+``launch/train.py``): a registered config, optionally reduced, trained on
+the packed byte corpus with AdamW, its state sharded over a mesh by
+``distributed.sharding.param_shardings`` (parameters and moments alike)
+and each batch over the data axes.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-4b \\
         --reduced --steps 20 --batch 8 --seq 128 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --steps 4 --batch 4
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --device cpu --reduced
 
-It runs on one device (the card by default). The reference's sharded
-state and ``--production-mesh`` are not ported yet: sharding waits for the
-distributed slice of the port.
+The mesh is the host mesh (world, 1) over ("data", "model") by default:
+one process (a group of one rank) or every process ``torchrun`` starts,
+gloo on the CPU and NCCL on cards; ``--production-mesh`` takes the
+16x16 mesh (256 ranks). Every rank draws the same parameters from the
+seed and keeps its own shards. ``--save`` gathers the full tensors and
+rank 0 writes the reference's checkpoint layout.
 """
 from __future__ import annotations
 
@@ -18,21 +25,32 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch import resolve_device
+from repro_torch.configs.base import InputShape
 from repro_torch.configs.registry import get_config
 from repro_torch.data.pipeline import synthetic_byte_corpus, token_stream_iter
+from repro_torch.distributed import hints
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh, \
+    mesh_axes
+from repro_torch.models import transformer as tfm
 from repro_torch.training import checkpoint
-from repro_torch.training.optimizer import OptimizerConfig
-from repro_torch.training.train_loop import (init_train_state,
-                                             make_train_step, to_batch)
+from repro_torch.training.optimizer import OptimizerConfig, init_opt_state
+from repro_torch.training.train_loop import TrainState, make_train_step, \
+    to_batch
+
+
+def scalar(x) -> float:
+    """A metric as a Python float (a DTensor's pending sum or mean
+    carried out)."""
+    return float(x.full_tensor() if isinstance(x, DTensor) else x)
 
 
 def main(argv=None) -> None:
-    ap = argparse.ArgumentParser(
-        description=__doc__.split("\n\n")[0],
-        epilog="Single device only: the reference's sharded training and "
-               "--production-mesh wait for the port's distributed slice.")
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="llama3.2-3b-pair")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--steps", type=int, default=50)
@@ -42,21 +60,45 @@ def main(argv=None) -> None:
     ap.add_argument("--save", default=None)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="use the 16x16 mesh (needs 256 ranks)")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = dataclasses.replace(cfg.reduced(), vocab_size=260)
-    layers = sum(s.count for s in cfg.layer_plan())
+    started = not dist.is_initialized()
+    mesh = (make_production_mesh(device_type=device.type)
+            if args.production_mesh else make_host_mesh(device))
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    try:
+        _train(args, cfg, device, mesh)
+    finally:
+        hints.clear()
+        if started:
+            dist.destroy_process_group()
+
+
+def _train(args, cfg, device, mesh) -> None:
+    rank = dist.get_rank()
+    say = print if rank == 0 else (lambda *a, **k: None)
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
-    print(f"arch={cfg.name} device={where} layers={layers} d={cfg.d_model}")
+    axes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    say(f"arch={cfg.name} device={where} mesh={axes} "
+        f"layers={cfg.total_layers} d={cfg.d_model}")
 
     opt = OptimizerConfig(lr=args.lr, total_steps=args.steps,
                           warmup_steps=max(args.steps // 10, 1))
     step_fn = make_train_step(cfg, opt)
-    state = init_train_state(cfg, args.seed, device=device)
+    params = tfm.init_params(cfg, args.seed, device=device)
+    params = shd.distribute(params, mesh,
+                            shd.param_shardings(cfg, mesh, params))
+    state = TrainState(params, init_opt_state(params))
+    hints.set_axes(*mesh_axes(mesh))
+    shape = InputShape("train", args.seq, args.batch, "train")
     corpus = synthetic_byte_corpus(1 << 18) % cfg.vocab_size
     it = token_stream_iter(corpus, args.batch, args.seq)
     t0 = time.time()
@@ -68,14 +110,20 @@ def main(argv=None) -> None:
         if cfg.num_patches:
             batch["patches"] = np.zeros(
                 (args.batch, cfg.num_patches, cfg.d_model), np.float32)
-        state, m = step_fn(state, to_batch(batch, device))
+        batch = to_batch(batch, device)
+        batch = shd.distribute(batch, mesh, shd.input_shardings(
+            cfg, mesh, shape, batch))
+        state, m = step_fn(state, batch)
         if i % 10 == 0 or i == args.steps - 1:
-            print(f"step {i} loss {float(m['loss']):.4f} "
-                  f"({time.time() - t0:.1f}s)")
+            say(f"step {i} loss {scalar(m['loss']):.4f} "
+                f"({time.time() - t0:.1f}s)")
     if args.save:
-        checkpoint.save(args.save, state.params,
-                        {"arch": cfg.name, "steps": args.steps}, cfg=cfg)
-        print(f"saved {args.save}")
+        full = shd.gather(state.params)
+        if rank == 0:
+            checkpoint.save(args.save, full,
+                            {"arch": cfg.name, "steps": args.steps},
+                            cfg=cfg)
+            say(f"saved {args.save}")
 
 
 if __name__ == "__main__":

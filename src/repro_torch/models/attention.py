@@ -33,7 +33,9 @@ import functools
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.sharding import local_attention, write_seq
 from repro_torch.kernels.ragged_decode import per_row as _rows
 from repro_torch.kernels.ragged_decode import ragged_decode
 from repro_torch.models.layers import (attention_core,
@@ -43,11 +45,20 @@ from repro_torch.models.layers import (attention_core,
 
 def _core(cfg):
     """The attention core: "xla" (the plain core) materialises the (Sq,
-    Skv) probabilities, "chunked" takes query blocks of attn_block_q."""
+    Skv) probabilities, "chunked" takes query blocks of attn_block_q. On
+    DTensors (a mesh) it runs shard by shard (``local_attention``)."""
     if cfg.attn_impl == "chunked":
-        return functools.partial(attention_core_chunked,
+        core = functools.partial(attention_core_chunked,
                                  blk_q=cfg.attn_block_q)
-    return attention_core
+    else:
+        core = attention_core
+    return functools.partial(_run_core, core)
+
+
+def _run_core(core, q, k, v, **kw):
+    if isinstance(q, DTensor):
+        return local_attention(core, q, k, v, **kw)
+    return core(q, k, v, **kw)
 
 
 def init_attn(gen, cfg, dtype, device):
@@ -127,8 +138,8 @@ def self_attention(p, cfg, x, *, mode: str, causal: bool = True,
         cache_v[rows, cols] = v.to(cache_v.dtype)
     else:
         start = max(0, min(cache_len, Smax - S))
-        cache_k[:, start:start + S] = k.to(cache_k.dtype)
-        cache_v[:, start:start + S] = v.to(cache_v.dtype)
+        write_seq(cache_k, start, k.to(cache_k.dtype))
+        write_seq(cache_v, start, v.to(cache_v.dtype))
 
     if backend == "kernel" and S == 1 and window is None \
             and not collect_mass:
@@ -187,13 +198,26 @@ def _ring_attention(p, cfg, q, k, v, q_pos, cache_k, cache_v, cache_len,
         out, _ = _core(cfg)(q, k, v, q_pos=q_pos, kv_pos=q_pos,
                             causal=causal, window=window)
         n_w = min(S, W)
-        slots = (cache_len + torch.arange(S - n_w, S, device=dev)) % W
-        cache_k[:, slots] = k[:, S - n_w:].to(cache_k.dtype)
-        cache_v[:, slots] = v[:, S - n_w:].to(cache_v.dtype)
+        if isinstance(cache_k, DTensor):
+            # the slots run from s0 and wrap at W: two windows
+            s0 = (cache_len + S - n_w) % W
+            for buf, new in ((cache_k, k), (cache_v, v)):
+                new = new[:, S - n_w:].to(buf.dtype)
+                write_seq(buf, s0, new[:, :W - s0])
+                if n_w > W - s0:
+                    write_seq(buf, 0, new[:, W - s0:])
+        else:
+            slots = (cache_len + torch.arange(S - n_w, S, device=dev)) % W
+            cache_k[:, slots] = k[:, S - n_w:].to(cache_k.dtype)
+            cache_v[:, slots] = v[:, S - n_w:].to(cache_v.dtype)
         return out.reshape(B, S, -1) @ p["wo"], (cache_k, cache_v), None
     slot = cache_len % W
-    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+    if isinstance(cache_k, DTensor):
+        write_seq(cache_k, slot, k.to(cache_k.dtype))
+        write_seq(cache_v, slot, v.to(cache_v.dtype))
+    else:
+        cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
+        cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
     idx = torch.arange(W, device=dev)
     kv_pos = cache_len - torch.remainder(cache_len - idx, W)
     out, _ = _core(cfg)(q, cache_k, cache_v, q_pos=q_pos,
@@ -213,8 +237,8 @@ def cross_attention(p, cfg, x, enc_k, enc_v):
     q = _proj(p, x, "q", cfg.num_heads, cfg.resolved_head_dim)
     zeros = lambda n: torch.zeros((n,), dtype=torch.long,  # noqa: E731
                                   device=x.device)
-    out, _ = attention_core(q, enc_k, enc_v, q_pos=zeros(S),
-                            kv_pos=zeros(enc_k.shape[1]), causal=False)
+    out, _ = _run_core(attention_core, q, enc_k, enc_v, q_pos=zeros(S),
+                       kv_pos=zeros(enc_k.shape[1]), causal=False)
     return out.reshape(B, S, -1) @ p["wo"]
 
 

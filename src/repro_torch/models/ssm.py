@@ -13,9 +13,10 @@ axis):
 States are float32 whatever the model dtype, as in the reference. The
 RWKV6 time mix runs its WKV recurrence through
 ``repro_torch.kernels.rwkv_scan.wkv6``: the CUDA kernel on the card, the
-plain scan on the CPU. The Mamba2 scan is a plain loop over time (the
-reference has no kernel for it), with everything that does not depend on
-the state computed before the loop.
+plain scan on the CPU and, shard by shard, on DTensors (a mesh). The
+Mamba2 scan is a plain loop over time (the reference has no kernel for
+it), with everything that does not depend on the state computed before
+the loop.
 """
 from __future__ import annotations
 
@@ -23,8 +24,10 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
-from repro_torch.kernels.rwkv_scan import wkv6
+from repro_torch.distributed.sharding import local_wkv
+from repro_torch.kernels.rwkv_scan import wkv6, wkv6_reference
 from repro_torch.models.layers import dense_init
 
 
@@ -195,7 +198,13 @@ def rwkv_time_mix(p, cfg, x, state):
     # data-dependent decay (the Finch signature)
     dd = torch.tanh(xw.float() @ p["w_lora_a"]) @ p["w_lora_b"]
     w = torch.exp(-torch.exp(p["w0"] + dd)).reshape(B, S, H, hd)  # (0, 1)
-    y, new_wkv = wkv6(r, k, v, w, p["u"], state["wkv"].float())
+    if isinstance(r, DTensor):
+        # on a mesh the plain scan, shard by shard, as the reference's
+        # sharded path runs its XLA scan
+        y, new_wkv = local_wkv(wkv6_reference, r, k, v, w, p["u"],
+                               state["wkv"].float())
+    else:
+        y, new_wkv = wkv6(r, k, v, w, p["u"], state["wkv"].float())
     # per-head group norm (population variance, as jnp.var)
     yh = y.reshape(B, S, H, hd)
     yh = (yh - yh.mean(-1, keepdim=True)) * torch.rsqrt(

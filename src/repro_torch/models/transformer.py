@@ -50,11 +50,20 @@ RoPE arch and raise on an audio model.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.distributed import hints
+from repro_torch.distributed.sharding import (cache_placements, distribute,
+                                              local_embedding, unshard_data,
+                                              write_seq)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_mlp, apply_moe, dense_init,
@@ -149,7 +158,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device) -> Dict[str, Any]:
 # cache
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
-               shared=None) -> Dict[str, Any]:
+               shared=None, mesh=None) -> Dict[str, Any]:
     """Per-layer serving cache. ``len`` is the (uniform) count of valid
     entries including the prefix; the scheduler replaces it by a (B,)
     tensor for ragged rows. Each layer entry holds ``k``/``v`` of
@@ -159,8 +168,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
     ``cfg.ring_cache``, a windowed layer of a prefix-free dense cache holds
     min(max_len, window) entries; the packed cache has no ring, as in the
     reference). A cross-attention layer also holds ``xk`` / ``xv`` of
-    (B, encoder_seq, Hkv, Dh), in either layout."""
+    (B, encoder_seq, Hkv, Dh), in either layout.
+
+    With a ``mesh`` every buffer and state is a DTensor placed by the
+    reference's cache rules (``sharding.cache_placements``); a DTensor
+    prefix lands through ``sharding.write_seq``."""
     dtype = dtype_of(cfg)
+    place = functools.partial(_place, cfg, mesh, batch)
     prefix_len = 0 if shared is None else shared.prefix_len
     Hkv, Dh = cfg.num_kv_heads, cfg.resolved_head_dim
     L = cfg.attn_layer_count
@@ -179,29 +193,40 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
         S_buf = max_len + (prefix_len if has_prefix else 0)
         if cfg.ring_cache and windows[l] and prefix_len == 0 and not packed:
             S_buf = min(S_buf, windows[l])
-        k = torch.zeros((batch, S_buf, Hkv, Dh), dtype=dtype, device=device)
+        k = place("k", torch.zeros((batch, S_buf, Hkv, Dh), dtype=dtype,
+                                   device=device))
         v = torch.zeros_like(k)
         if has_prefix:
             src = (shared.packed_kv if shared.is_packed else shared.kv)
             if src is not None:
                 i = packed_i[l] if shared.is_packed else l
-                k[:, :prefix_len] = src["k"][i].to(dtype)
-                v[:, :prefix_len] = src["v"][i].to(dtype)
+                write_seq(k, 0, src["k"][i].to(dtype))
+                write_seq(v, 0, src["v"][i].to(dtype))
         entry = {"k": k, "v": v, "prefix": has_prefix,
                  "ctx_valid": sel[l] if has_prefix else False,
                  "ring": S_buf < max_len}
         if specs[l].cross_attn:
-            entry["xk"] = torch.zeros((batch, cfg.encoder_seq, Hkv, Dh),
-                                      dtype=dtype, device=device)
+            entry["xk"] = place("xk", torch.zeros(
+                (batch, cfg.encoder_seq, Hkv, Dh), dtype=dtype,
+                device=device))
             entry["xv"] = torch.zeros_like(entry["xk"])
         layers.append(entry)
     cache = {"len": prefix_len, "layers": layers}
     kinds = [s.kind for s in layer_specs(cfg) if s.kind in SSM_KINDS]
     if kinds:
         cache["states"] = [
-            _seed_state(_init_state(cfg, kind, batch, device), shared, j)
+            _seed_state({k: place(k, z) for k, z in _init_state(
+                cfg, kind, batch, device).items()}, shared, j)
             for j, kind in enumerate(kinds)]
     return cache
+
+
+def _place(cfg: ModelConfig, mesh, batch: int, name: str, t):
+    """A cache tensor as placed on ``mesh`` (unchanged without one)."""
+    if mesh is None:
+        return t
+    return distribute(t, mesh, cache_placements(cfg, mesh, batch, name,
+                                                t.shape))
 
 
 def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
@@ -318,15 +343,63 @@ def _encoder_forward(params, cfg: ModelConfig, frames: torch.Tensor):
     x = frames.to(dtype_of(cfg))
     pos = torch.arange(x.shape[1], device=x.device)
     x = x + sinusoid_positions(pos, cfg.d_model)[None].to(x.dtype)
-    mt = mlp_type(cfg)
+    remat = cfg.remat and torch.is_grad_enabled()
     for lp in enc["layers"]:
-        out, _, _ = attn_mod.self_attention(
-            lp["attn"], cfg, rms_norm(x, lp["ln1"], cfg.norm_eps),
-            mode="train", causal=False, use_rope=False)
-        x = x + out
-        x = x + apply_mlp(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps),
-                          mt)
-    return rms_norm(x, enc["final_norm"], cfg.norm_eps)
+        x = hints.shard_activations(
+            _run(functools.partial(_encoder_layer, cfg=cfg), lp, x, remat))
+    return rms_norm(hints.gather_sequence(x), enc["final_norm"],
+                    cfg.norm_eps)
+
+
+def _encoder_layer(lp, x, *, cfg: ModelConfig):
+    out, _, _ = attn_mod.self_attention(
+        lp["attn"], cfg, rms_norm(x, lp["ln1"], cfg.norm_eps),
+        mode="train", causal=False, use_rope=False)
+    x = x + out
+    return x + apply_mlp(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps),
+                         mlp_type(cfg))
+
+
+def _run(layer, lp, x, remat: bool):
+    """``layer(lp, x)``; with ``remat``, checkpointed (its activations are
+    recomputed in the backward pass), as the reference checkpoints each
+    layer run in training."""
+    if remat:
+        return checkpoint(_gathered, layer, lp, x, use_reentrant=False)
+    return _gathered(layer, lp, x)
+
+
+def _gathered(layer, lp, x):
+    """On a mesh a layer starts as under ZeRO-3 with sequence
+    parallelism: its parameters gathered over the data axes (kept sharded
+    over ``model``) and its input's sequence made whole; a no-op on plain
+    tensors."""
+    return layer(unshard_data(lp), hints.gather_sequence(x))
+
+
+def mesh_context(t: torch.Tensor):
+    """``implicit_replication`` where ``t`` is a DTensor: the plain
+    tensors the model makes (positions, masks, zero states) then act as
+    replicated on its mesh. A null context for a plain tensor, and inside
+    one already entered (``implicit_replication`` clears its flag on
+    exit, so it does not nest)."""
+    if isinstance(t, DTensor) and \
+            not DTensor._op_dispatcher._allow_implicit_replication:
+        return implicit_replication()
+    return contextlib.nullcontext()
+
+
+def _on_mesh(fn):
+    """Run ``fn(params, ...)`` inside ``mesh_context`` of its
+    parameters."""
+    @functools.wraps(fn)
+    def wrapper(params, *args, **kwargs):
+        with mesh_context(params["embed"]):
+            return fn(params, *args, **kwargs)
+    return wrapper
+
+
+@_on_mesh
 def apply_model(params, cfg: ModelConfig, tokens: torch.Tensor, *,
                 mode: str = "train", cache=None, shared=None,
                 extra: Optional[Dict[str, Any]] = None,
@@ -345,7 +418,12 @@ def apply_model(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     D), "mask": (L_attn,) bool, "mode": "replace" | "sum" | "mean"}``
     merges ``vec[l]`` into the last position's input of each flagged layer
     l (the AC baselines); it runs on the dense path only.
-    ``extra={"frames": (B, Senc, d)}`` feeds whisper's encoder."""
+    ``extra={"frames": (B, Senc, d)}`` feeds whisper's encoder.
+
+    On DTensor parameters (a mesh) the plain tensors it makes act as
+    replicated (``mesh_context``), each layer's output and the logits
+    take the layouts of ``distributed.hints``, and with ``cfg.remat``
+    each layer of a training forward is checkpointed."""
     B, S = tokens.shape
     if shared is not None and shared.is_packed and mode != "cached":
         shared = shared.to_dense(cfg.attn_layer_count)
@@ -376,7 +454,9 @@ def apply_model(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     if use_enc and enc_out is None and cfg.encoder_layers:
         raise ValueError(f"{cfg.name}: cross-attention needs the encoder's "
                          "frames (extra={'frames': (B, Senc, d)})")
-    x = params["embed"][tokens]
+    embed = unshard_data(params["embed"])
+    x = (local_embedding(tokens, embed) if isinstance(embed, DTensor)
+         else embed[tokens])
     if cfg.num_patches and extra is not None and "patches" in extra:
         pe = extra["patches"].to(x.dtype)
         x[:, :pe.shape[1]] = pe
@@ -392,14 +472,17 @@ def apply_model(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     hiddens: List[torch.Tensor] = []
     states = cache.get("states") if cache is not None else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    mt = mlp_type(cfg)
+    remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
     l = j = 0                       # attention and SSM layer indices
     for spec, lp in zip(layer_specs(cfg), params["layers"]):
         kind = spec.kind
         if kind in SSM_KINDS:
             st = (states[j] if states is not None
                   else _init_state(cfg, kind, B, x.device))
-            x, new_st = _ssm_layer(lp, cfg, kind, x, st, mode)
+            x, new_st = _run(functools.partial(
+                _ssm_layer, cfg=cfg, kind=kind, st=st, mode=mode), lp, x,
+                remat)
+            x = hints.shard_activations(x)
             if states is not None:
                 states[j] = new_st
             j += 1
@@ -426,8 +509,7 @@ def apply_model(params, cfg: ModelConfig, tokens: torch.Tensor, *,
         else:
             shift = prefix_len if keep else 0
         pfx = prefix_len if has_prefix else 0
-        out, _, mass = attn_mod.self_attention(
-            lp["attn"], cfg, rms_norm(x, lp["ln1"], cfg.norm_eps),
+        attn_kw = dict(
             mode=mode, causal=spec.causal, use_rope=not audio,
             window=spec.window, pos_shift=shift,
             prefix_len=pfx,
@@ -438,26 +520,24 @@ def apply_model(params, cfg: ModelConfig, tokens: torch.Tensor, *,
                        else cache_len - prefix_len) if entry else None,
             prefix_lens=prefix_lens if has_prefix else None,
             collect_mass=collect_mass, backend=decode_backend)
-        x = x + out
-        if spec.cross_attn:
-            x = x + _cross_layer(lp, cfg, x, entry, enc_out)
-        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        if spec.moe:
-            ffn, layer_aux = apply_moe(lp["moe"], h, cfg)
+        x, mass, layer_aux = _run(functools.partial(
+            _attn_layer, cfg=cfg, spec=spec, attn_kw=attn_kw, entry=entry,
+            enc_out=enc_out), lp, x, remat)
+        x = hints.shard_activations(x)
+        if layer_aux is not None:
             aux = aux + layer_aux
-        else:
-            ffn = apply_mlp(lp["mlp"], h, mt)
-        x = x + ffn
         if collect_mass:
             masses.append(mass if mass is not None else
                           torch.zeros((B,), dtype=torch.float32,
                                       device=x.device))
         l += 1
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = rms_norm(hints.gather_sequence(x), params["final_norm"],
+                 cfg.norm_eps)
     if logits_mode == "last":
         x = x[:, -1:, :]
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = (x @ head).float()
+    head = unshard_data(params["embed"]).T if cfg.tie_embeddings \
+        else unshard_data(params["lm_head"])
+    logits = hints.shard_logits((x @ head).float())
     new_cache = None
     if mode == "cached":
         new_cache = {"len": cache_len + S, "layers": cache["layers"]}
@@ -467,6 +547,24 @@ def apply_model(params, cfg: ModelConfig, tokens: torch.Tensor, *,
                     masses=torch.stack(masses) if masses else None,
                     aux_loss=aux,
                     hiddens=torch.stack(hiddens) if hiddens else None)
+
+
+def _attn_layer(lp, x, *, cfg: ModelConfig, spec: LayerSpec, attn_kw, entry,
+                enc_out):
+    """One attention layer with its residuals (self-attention, whisper's
+    cross-attention, the MLP or MoE); returns (x, Eq. (1) mass or None,
+    MoE aux loss or None)."""
+    out, _, mass = attn_mod.self_attention(
+        lp["attn"], cfg, rms_norm(x, lp["ln1"], cfg.norm_eps), **attn_kw)
+    x = x + out
+    if spec.cross_attn:
+        x = x + _cross_layer(lp, cfg, x, entry, enc_out)
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    if spec.moe:
+        ffn, layer_aux = apply_moe(lp["moe"], h, cfg)
+    else:
+        ffn, layer_aux = apply_mlp(lp["mlp"], h, mlp_type(cfg)), None
+    return x + ffn, mass, layer_aux
 
 
 def _cross_layer(lp, cfg: ModelConfig, x, entry, enc_out):
@@ -483,7 +581,7 @@ def _cross_layer(lp, cfg: ModelConfig, x, entry, enc_out):
         lp["xattn"], cfg, rms_norm(x, lp["ln_x"], cfg.norm_eps), xk, xv)
 
 
-def _ssm_layer(lp, cfg: ModelConfig, kind: str, x, st, mode: str):
+def _ssm_layer(lp, x, *, cfg: ModelConfig, kind: str, st, mode: str):
     """One Mamba2 or RWKV6 layer with its residuals; returns (x, new
     state)."""
     if kind == "mamba":

@@ -53,8 +53,10 @@ def tree_map(fn: Callable, tree, *rest):
             out = {k: go(v, *(o[k] for o in others))
                    for k, v in node.items()}
         elif isinstance(node, (list, tuple)):
-            out = type(node)(go(v, *(o[i] for o in others))
-                             for i, v in enumerate(node))
+            items = [go(v, *(o[i] for o in others))
+                     for i, v in enumerate(node)]
+            out = (type(node)(*items) if hasattr(node, "_fields")
+                   else type(node)(items))
         elif node is None:
             out = None
         else:
@@ -73,8 +75,9 @@ def leaves(tree) -> List[torch.Tensor]:
 
 
 def init_opt_state(params) -> OptState:
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa: E731
-                                  device=p.device)
+    """Zero moments in float32, laid out as their parameters (a DTensor
+    parameter's moments are DTensors of its placements)."""
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
     return OptState(step=0, m=tree_map(zeros, params),
                     v=tree_map(zeros, params))
 

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import reduce_partial
 from repro_torch.models import transformer as tfm
 from repro_torch.training.optimizer import (OptimizerConfig, OptState,
                                             adamw_update, init_opt_state,
@@ -37,7 +38,8 @@ def cross_entropy(logits, targets, weights=None):
     """Token-level CE. logits (B, S, V) float32; targets (B, S) int;
     ``weights`` (B, S) weighs each position."""
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    gold = reduce_partial(torch.gather(logits, -1,
+                                       targets.long()[..., None]))[..., 0]
     nll = logz - gold
     if weights is None:
         return torch.mean(nll)
@@ -66,8 +68,9 @@ def _grads(params, cfg: ModelConfig, batch):
         p.requires_grad_(True)
         p.grad = None
     try:
-        loss, parts = loss_fn(params, cfg, batch)
-        loss.backward()
+        with tfm.mesh_context(ps[0]):
+            loss, parts = loss_fn(params, cfg, batch)
+            loss.backward()
         grads = tree_map(lambda p: (p.grad if p.grad is not None
                                     else torch.zeros_like(p)), params)
     finally:
@@ -87,8 +90,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
         if microbatches == 1:
             loss, parts, grads = _grads(state.params, cfg, batch)
         else:
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), state.params)
+            grads = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), state.params)
             loss = aux = 0.0
             for i in range(microbatches):
                 mb = {k: v.reshape((microbatches, v.shape[0] // microbatches)

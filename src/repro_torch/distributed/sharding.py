@@ -33,10 +33,16 @@ from typing import Any, Dict
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, \
     distribute_tensor
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.launch.mesh import mesh_axes
+from repro_torch.models.layers import (_capacity, attention_core,
+                                       attention_core_chunked,
+                                       attention_partials, combine_weights,
+                                       dropping_groups, expert_sum, route)
 from repro_torch.training.optimizer import tree_map
 from repro_torch.utils.costs import count_backward, shard_scope
 
@@ -366,8 +372,6 @@ def write_seq(buf: torch.Tensor, start: int, new: torch.Tensor) -> None:
     if want == pl:
         buf[:, start:start + new.shape[1]] = new
         return
-    from torch.distributed.tensor._utils import \
-        compute_local_shape_and_global_offset
     shape, off = compute_local_shape_and_global_offset(buf.shape, mesh, pl)
     lo = max(start, off[1])
     hi = min(start + new.shape[1], off[1] + shape[1])
@@ -383,58 +387,165 @@ def mesh_of(tensor: torch.Tensor):
 
 def reduce_partial(t: torch.Tensor) -> torch.Tensor:
     """A DTensor's pending (partial) reductions carried out, its shards
-    kept; a plain tensor unchanged. Used where DTensor cannot carry the
-    partial through the next op (a masked gather's result indexed)."""
-    if not isinstance(t, DTensor):
+    kept; a plain tensor unchanged. Its gradient's pending reductions are
+    carried out too, as Megatron all-reduces a sublayer's input gradient:
+    left pending, a partial gradient reaching a row-parallel product makes
+    DTensor gather the whole weight there instead. Used after a
+    row-parallel product (before the residual add) and where a
+    shard-by-shard result is a sum over shards."""
+    if not isinstance(t, DTensor) or not any(p.is_partial()
+                                             for p in t.placements):
         return t
+    return _ReducePartial.apply(t)
+
+
+def _carried_out(t: DTensor) -> DTensor:
     pl = tuple(Replicate() if p.is_partial() else p for p in t.placements)
     return t if pl == tuple(t.placements) else t.redistribute(
         t.device_mesh, pl)
 
 
-def local_attention(core, q, k, v, *, q_pos, kv_pos, kv_valid=None,
-                    mass_mask=None, **kw):
-    """An attention core (``layers.attention_core`` or its chunked form)
-    on DTensor q (B, Sq, Hq, D), k / v (B, Skv, Hkv, D), shard by shard:
-    batch over the data axes and KV heads over ``model`` where they
-    divide, everything else whole (a sequence-sharded cache is gathered).
-    Each shard's query heads are those of its KV heads, so every shard
-    computes whole rows of softmax; the Eq. (1) mass, a mean over heads,
-    is the mean of the shards' means. Positions and masks are plain 1-D
-    tensors (uniform rows), the same on every rank."""
+class _ReducePartial(torch.autograd.Function):
+    """Pending reductions carried out, forward and backward."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return _carried_out(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _carried_out(grad) if isinstance(grad, DTensor) else grad
+
+
+def local_attention(q, k, v, *, q_pos, kv_pos, kv_valid=None,
+                    mass_mask=None, blk_q=None, **kw):
+    """The attention core (``layers.attention_core``, or its query-blocked
+    form with ``blk_q``) on DTensor q (B, Sq, Hq, D), k / v (B, Skv, Hkv,
+    D), shard by shard. Batch goes over the data axes. ``model`` splits
+    the work, in this order of preference: the KV heads with their query
+    heads where Hkv divides it; the query heads alone where Hq does (each
+    shard takes the KV heads of its own query heads from the whole k /
+    v); the query rows where Sq does (each shard attends from its own
+    rows over the whole k / v). In the last two the k / v gradients are
+    partial sums over ``model``. Every shard computes whole rows of
+    softmax; the Eq. (1) mass, a mean over heads and rows, is the mean of
+    the shards' means. A sequence-sharded KV (a cache) stays in
+    place: each shard attends over its own positions (``attention_partials``)
+    and the shards merge by log-sum-exp (``_merge_partials``). Positions
+    and masks are plain 1-D tensors (uniform rows), the same on every
+    rank."""
     mesh = q.device_mesh
     if any(t is not None and t.dim() != 1
            for t in (q_pos, kv_pos, kv_valid, mass_mask)):
         raise NotImplementedError("attention on a mesh takes uniform rows "
                                   "(1-D positions and masks)")
-    dp, tp = mesh_axes(mesh)
-    bax = batch_spec(mesh, q.shape[0])[0]
-    hax = tp if k.shape[2] % _axis_size(mesh, tp) == 0 else None
-    pl = to_placements((bax, None, hax, None), mesh)
+    _, tp = mesh_axes(mesh)
     names = tuple(mesh.mesh_dim_names)
-    mass_pl = [Replicate()] * mesh.ndim
-    if bax is not None:
-        for a in (bax,) if isinstance(bax, str) else bax:
-            mass_pl[names.index(a)] = Shard(0)
-    if hax is not None:
-        mass_pl[names.index(hax)] = Partial("avg")
-
-    region = [_axis_size(mesh, bax) * _axis_size(mesh, hax), 0]
+    k, v = _replicated(k, mesh), _replicated(v, mesh)
+    sax = tuple(n for n, p in zip(names, k.placements) if p == Shard(1))
+    bax = batch_spec(mesh, q.shape[0])[0]
+    if bax is not None and set((bax,) if isinstance(bax, str) else bax) \
+            & set(sax):
+        bax = None
+    Sq, Hq, Hkv = q.shape[1], q.shape[2], k.shape[2]
+    tp_size = _axis_size(mesh, tp)
+    split = None
+    if tp not in sax:
+        split = ("kv" if Hkv % tp_size == 0 else
+                 "q" if Hq % tp_size == 0 else
+                 "rows" if Sq > 1 and Sq % tp_size == 0 else None)
+    hax = tp if split else None
+    q_pl = to_placements((bax, hax if split == "rows" else None,
+                          None if split == "rows" else hax, None), mesh)
+    kv_pl = to_placements((bax, sax or None, hax if split == "kv" else None,
+                           None), mesh)
+    kv_grad = tuple(Partial() if split in ("q", "rows") and n == tp else p
+                    for n, p in zip(names, kv_pl))
+    region = [_axis_size(mesh, bax) * _axis_size(mesh, hax)
+              * _axis_size(mesh, sax or None), 0]
+    pick = _kv_heads_of(Hq, Hkv, Hq // tp_size,
+                        mesh.get_local_rank(tp)) if split == "q" else None
+    if split == "rows":
+        n = Sq // tp_size
+        q_pos = q_pos[mesh.get_local_rank(tp) * n:][:n]
+    if sax:
+        # this rank's slice of the sequence and of the 1-D masks over it
+        shape, off = compute_local_shape_and_global_offset(
+            k.shape, mesh, kv_pl)
+        lo, hi = off[1], off[1] + shape[1]
+        kv_pos, kv_valid, mass_mask = (
+            None if t is None else t[lo:hi]
+            for t in (kv_pos, kv_valid, mass_mask))
 
     def fn(q, k, v, q_pos, kv_pos, kv_valid, mass_mask):
+        if pick is not None:
+            k, v = pick(k), pick(v)
+        args = dict(q_pos=q_pos, kv_pos=kv_pos, kv_valid=kv_valid,
+                    mass_mask=mass_mask, **kw)
         with shard_scope(region):
-            return core(q, k, v, q_pos=q_pos, kv_pos=kv_pos,
-                        kv_valid=kv_valid, mass_mask=mass_mask, **kw)
+            if sax:       # unmerged, stacked on a leading shard axis
+                return tuple(None if t is None else t[None] for t in
+                             attention_partials(q, k, v, blk_q=blk_q,
+                                                **args))
+            if blk_q:
+                return attention_core_chunked(q, k, v, blk_q=blk_q, **args)
+            return attention_core(q, k, v, **args)
 
+    mass_pl = [Replicate()] * mesh.ndim
+    for a in () if bax is None else (bax,) if isinstance(bax, str) else bax:
+        mass_pl[names.index(a)] = Shard(0)
+    if hax is not None:
+        mass_pl[names.index(hax)] = Partial("avg")
+    if sax:
+        part = to_placements((sax, bax, None, None), mesh)
+        outs = (to_placements((sax, bax, None, None, None), mesh), part,
+                part, None if mass_mask is None else part)
+    else:
+        outs = (q_pl, None if mass_mask is None else tuple(mass_pl))
     out = local_map(
-        fn, out_placements=(pl, None if mass_mask is None
-                            else tuple(mass_pl)),
-        in_placements=(pl, pl, pl, None, None, None, None),
+        fn, out_placements=outs,
+        in_placements=(q_pl, kv_pl, kv_pl, None, None, None, None),
+        in_grad_placements=(q_pl, kv_grad, kv_grad, None, None, None, None),
         device_mesh=mesh, redistribute_inputs=True)(
-            *(_replicated(t, mesh) for t in (q, k, v)), q_pos, kv_pos,
-            kv_valid, mass_mask)
+            _replicated(q, mesh), k, v, q_pos, kv_pos, kv_valid, mass_mask)
+    if sax:
+        return _merge_partials(*out, dtype=q.dtype)
     count_backward(out[0], 2 * region[1])
+    if split == "rows":
+        # the rows made whole again: the output projection flattens
+        # (B, S), which DTensor refuses over a sharded S
+        out = (out[0].redistribute(mesh, to_placements(
+            (bax, None, None, None), mesh)), out[1])
     return out
+
+
+def _kv_heads_of(Hq: int, Hkv: int, n: int, r: int):
+    """For query heads [r n, r n + n) of Hq (groups of G = Hq / Hkv), the
+    map from the whole k / v (B, S, Hkv, D) to their KV heads: a slice
+    where the heads fall in whole groups, else one KV head per query head
+    (G 1)."""
+    G = Hq // Hkv
+    a = r * n
+    if G % n == 0 or n % G == 0:
+        lo, hi = a // G, (a + n - 1) // G + 1
+        return lambda t: t[:, :, lo:hi]
+    idx = [(a + i) // G for i in range(n)]
+    return lambda t: t[:, :, idx]
+
+
+def _merge_partials(o, m, l, mf, *, dtype):
+    """Shards' ``attention_partials`` stacked on axis 0 (sharded over the
+    sequence's mesh axes) merged by log-sum-exp: weights exp(m - max m) *
+    l over their sum. Returns (out (B, Sq, Hq, D) in ``dtype``, the Eq.
+    (1) mass (B,) or None), with pending sums carried out."""
+    M = m.amax(0, keepdim=True)
+    a = torch.exp(m - M) * l
+    w = a / a.sum(0, keepdim=True)
+    out = reduce_partial((o.float() * w[..., None]).sum(0)).to(dtype)
+    mass = None
+    if mf is not None:
+        mass = reduce_partial((mf * w).sum(0)).mean((1, 2))
+    return out, mass
 
 
 def local_wkv(scan, r, k, v, w, u, state):
@@ -466,6 +577,90 @@ def local_wkv(scan, r, k, v, w, u, state):
             *(_replicated(t, mesh) for t in (r, k, v, w, u, state)))
     count_backward(out[0], 2 * region[1])
     return out
+
+
+def local_moe(p, x, cfg):
+    """``layers.apply_moe`` on DTensor x (B, S, D) and expert banks, shard
+    by shard: each batch shard routes its own tokens, and each ``model``
+    shard runs the experts it holds (experts over ``model``) or its slice
+    of every expert's d_ff, so the output is a partial sum over
+    ``model``. ``dropping`` needs whole token groups on a batch shard
+    (its groups divisible by the batch shards), else the batch is made
+    whole first. The load-balance loss needs the means over every token:
+    ``dense_all`` returns each shard's means over its tokens, scaled to
+    sum to the whole batch's; ``dropping`` each group's loss. Where the
+    experts are split over ``model`` the loss's terms come from ``model``
+    rank 0 only (zeros elsewhere, a sum over ``model``), so its gradient
+    is taken once."""
+    mesh = x.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    _, tp = mesh_axes(mesh)
+    E, k = p["router"].shape[-1], cfg.num_experts_per_tok
+    dropping = cfg.moe_impl == "dropping"
+    bax = batch_spec(mesh, x.shape[0])[0]
+    if dropping:
+        G, n, C = _capacity(x, k, E, cfg.moe_capacity_factor, cfg.moe_groups)
+        if G % _axis_size(mesh, bax):
+            bax = None
+    x_pl = to_placements((bax, None, None), mesh)
+    w_pl = {n_: tuple(t.placements) for n_, t in p.items()}
+    split = any(pl.is_shard() for n_, pl in zip(names, w_pl["w_gate"])
+                if n_ == tp)
+    e0 = compute_local_shape_and_global_offset(
+        p["w_gate"].shape, mesh, w_pl["w_gate"])[1][0]
+    first = 1.0 if not split or mesh.get_local_rank(tp) == 0 else 0.0
+    shards = _axis_size(mesh, bax)
+    batch = tuple(pl.is_shard() for pl in x_pl)
+    # the output and the gradients of x and the router: partial sums over
+    # model where the experts are split there; the weights' gradients:
+    # partial sums over the batch shards
+    out_pl = tuple(Partial() if split and n_ == tp else pl
+                   for n_, pl in zip(names, x_pl))
+    w_grad = {k_: tuple(Partial() if b or (split and n_ == tp
+                                           and pl.is_replicate()) else pl
+                        for n_, b, pl in zip(names, batch, w))
+              for k_, w in w_pl.items()}
+    # means over the batch shards as sums of pre-scaled terms: a partial
+    # mean's gradient reaches each shard undivided
+    loss_pl = tuple(Partial() if b or (split and n_ == tp) else Replicate()
+                    for n_, b in zip(names, batch))
+    frac_pl = tuple(Partial() if b else Replicate() for b in batch)
+    keys = sorted(p)
+    route_region = [_axis_size(mesh, bax), 0]
+    region = [_axis_size(mesh, bax) * (_axis_size(mesh, tp) if split else 1),
+              0]
+
+    def fn(x, *w):
+        lp = dict(zip(keys, w))
+        B, S, D = x.shape
+        if dropping:
+            xg = x.reshape(-1, n, D)
+            with shard_scope(region):
+                out, auxes = dropping_groups(lp, xg, k, C, e0)
+            return out.reshape(B, S, D), auxes * first
+        with shard_scope(route_region):
+            gates, idx, me, ce = route(lp, x, k)
+            comb = combine_weights(gates, idx, lp)
+        with shard_scope(region):
+            Ep = lp["w_gate"].shape[0]
+            out = expert_sum(lp, x, comb[..., e0:e0 + Ep])
+        return out, me * (first / shards), ce / shards
+
+    group_pl = tuple(Partial() if split and n_ == tp else pl for n_, pl in
+                     zip(names, to_placements((bax,), mesh)))
+    outs = ((out_pl, group_pl) if dropping else
+            (out_pl, loss_pl, frac_pl))
+    res = local_map(
+        fn, out_placements=outs,
+        in_placements=(x_pl, *(w_pl[n_] for n_ in keys)),
+        in_grad_placements=(out_pl, *(w_grad[n_] for n_ in keys)),
+        device_mesh=mesh, redistribute_inputs=True)(
+            x, *(p[n_] for n_ in keys))
+    count_backward(res[0], 2 * (region[1] + route_region[1]))
+    if dropping:
+        return res[0], reduce_partial(res[1]).mean()
+    me, ce = reduce_partial(res[1]), reduce_partial(res[2])
+    return res[0], E * torch.sum(me * ce)
 
 
 def _replicated(t: torch.Tensor, mesh) -> DTensor:
@@ -509,3 +704,36 @@ def local_embedding(tokens, embed) -> DTensor:
         fn, out_placements=(out_pl,), in_placements=(tok_pl, emb_pl),
         in_grad_placements=(tok_pl, emb_grad), device_mesh=mesh,
         redistribute_inputs=True)(_replicated(tokens, mesh), embed)[0])
+
+
+def local_nll(logits, targets) -> DTensor:
+    """-log softmax(logits)[targets] for DTensor logits (B, S, V), shard by
+    shard (Megatron's vocabulary-parallel cross-entropy where the
+    vocabulary is sharded): each shard returns the log-sum-exp of its
+    logits and the logit of each target it holds (0 for the others); the
+    shards' log-sum-exps merge by log-sum-exp, and no shard holds the
+    whole vocabulary. With one vocabulary shard every step is the plain
+    cross-entropy's, to the bit. (DTensor's own gather would make a
+    gradient of the whole batch's logits on every rank.) Returns (B, S)
+    with its batch placements."""
+    mesh = logits.device_mesh
+    pl = tuple(logits.placements)
+    V = logits.dim() - 1
+    shape, off = compute_local_shape_and_global_offset(logits.shape, mesh,
+                                                       pl)
+    lo, n = off[V], shape[V]
+    tok_pl = tuple(p if p.is_shard(0) else Replicate() for p in pl)
+    part = tuple(Shard(0) if p.is_shard(V) else
+                 Shard(1) if p.is_shard(0) else Replicate() for p in pl)
+
+    def fn(lg, tg):
+        hit = (tg >= lo) & (tg < lo + n)
+        gold = torch.gather(lg, -1, (tg - lo).clamp(0, n - 1)[..., None])
+        return (torch.logsumexp(lg, dim=-1)[None],
+                (gold[..., 0] * hit.to(lg.dtype))[None])
+
+    lse, gold = local_map(
+        fn, out_placements=(part, part), in_placements=(pl, tok_pl),
+        in_grad_placements=(pl, tok_pl), device_mesh=mesh,
+        redistribute_inputs=True)(logits, _replicated(targets.long(), mesh))
+    return reduce_partial(torch.logsumexp(lse, dim=0) - gold.sum(0))

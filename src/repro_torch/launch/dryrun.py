@@ -51,6 +51,7 @@ from repro_torch.launch.mesh import PRODUCTION_MESHES, make_production_mesh, \
 from repro_torch.launch.specs import make_kvcomm_prefill_fn, make_step_fn
 from repro_torch.training.optimizer import OptState
 from repro_torch.training.train_loop import TrainState
+from repro_torch.utils import costs
 from repro_torch.utils.costs import CostMode
 
 # combos skipped, as the reference's (pure full-attention archs at 500k)
@@ -89,15 +90,34 @@ def _local_bytes(tree) -> int:
                for t in tree_leaves(tree) if isinstance(t, torch.Tensor))
 
 
+def _DeviceMemTracker():
+    """``MemTracker`` that leaves out DTensor's shape-inference runs (fake
+    tensors of global shapes, no device's memory). torch 2.11's tracker
+    counts them (a peak of terabytes); 2.13's skips them itself."""
+    from torch.distributed._tools.mem_tracker import MemTracker
+
+    class Tracker(MemTracker):
+        def __enter__(self):
+            self._fake_at_entry = costs.fake_mode()
+            return super().__enter__()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not any(issubclass(t, DTensor) for t in types) and \
+                    costs.propagating(self._fake_at_entry):
+                return func(*args, **(kwargs or {}))
+            return super().__torch_dispatch__(func, types, args, kwargs)
+
+    return Tracker()
+
+
 def measure(fn, args, mesh, shardings) -> Dict[str, Any]:
     """Place ``args`` by ``shardings`` on ``mesh``, run ``fn`` once under
     the cost counters and the memory tracker, and return the record's
     numbers (see the module docstring)."""
-    from torch.distributed._tools.mem_tracker import MemTracker
     placed = shd.distribute(args, mesh, shardings)
     hints.set_axes(*mesh_axes(mesh))
     try:
-        mem = MemTracker()
+        mem = _DeviceMemTracker()
         mem.track_external(*[t.to_local() if isinstance(t, DTensor) else t
                              for t in tree_leaves(placed)
                              if isinstance(t, torch.Tensor)])

@@ -10,17 +10,19 @@ and each batch over the data axes.
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
         --device cpu --reduced
 
-The mesh is the host mesh (world, 1) over ("data", "model") by default:
-one process (a group of one rank) or every process ``torchrun`` starts,
-gloo on the CPU and NCCL on cards; ``--production-mesh`` takes the
-16x16 mesh (256 ranks). Every rank draws the same parameters from the
-seed and keeps its own shards. ``--save`` gathers the full tensors and
-rank 0 writes the reference's checkpoint layout.
+Under ``torchrun`` with more than one process the state lies on the host
+mesh (world, 1) over ("data", "model"), gloo on the CPU and NCCL on
+cards; ``--production-mesh`` takes the 16x16 mesh (256 ranks). Every
+rank draws the same parameters from the seed and keeps its own shards.
+``--save`` gathers the full tensors and rank 0 writes the reference's
+checkpoint layout. One process runs on plain tensors: a mesh of one
+device moves no data, and DTensor's dispatch would only slow each step.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 
 import numpy as np
@@ -69,24 +71,28 @@ def main(argv=None) -> None:
     if args.reduced:
         cfg = dataclasses.replace(cfg.reduced(), vocab_size=260)
     started = not dist.is_initialized()
-    mesh = (make_production_mesh(device_type=device.type)
-            if args.production_mesh else make_host_mesh(device))
+    mesh = None
+    if args.production_mesh:
+        mesh = make_production_mesh(device_type=device.type)
+    elif int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        mesh = make_host_mesh(device)
     if device.type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())
     try:
         _train(args, cfg, device, mesh)
     finally:
         hints.clear()
-        if started:
+        if started and dist.is_initialized():
             dist.destroy_process_group()
 
 
 def _train(args, cfg, device, mesh) -> None:
-    rank = dist.get_rank()
+    """The training loop; on plain tensors without a ``mesh``."""
+    rank = dist.get_rank() if mesh is not None else 0
     say = print if rank == 0 else (lambda *a, **k: None)
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
-    axes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    axes = dict(zip(mesh.mesh_dim_names, mesh.shape)) if mesh else None
     say(f"arch={cfg.name} device={where} mesh={axes} "
         f"layers={cfg.total_layers} d={cfg.d_model}")
 
@@ -94,10 +100,11 @@ def _train(args, cfg, device, mesh) -> None:
                           warmup_steps=max(args.steps // 10, 1))
     step_fn = make_train_step(cfg, opt)
     params = tfm.init_params(cfg, args.seed, device=device)
-    params = shd.distribute(params, mesh,
-                            shd.param_shardings(cfg, mesh, params))
+    if mesh is not None:
+        params = shd.distribute(params, mesh,
+                                shd.param_shardings(cfg, mesh, params))
+        hints.set_axes(*mesh_axes(mesh))
     state = TrainState(params, init_opt_state(params))
-    hints.set_axes(*mesh_axes(mesh))
     shape = InputShape("train", args.seq, args.batch, "train")
     corpus = synthetic_byte_corpus(1 << 18) % cfg.vocab_size
     it = token_stream_iter(corpus, args.batch, args.seq)
@@ -111,8 +118,9 @@ def _train(args, cfg, device, mesh) -> None:
             batch["patches"] = np.zeros(
                 (args.batch, cfg.num_patches, cfg.d_model), np.float32)
         batch = to_batch(batch, device)
-        batch = shd.distribute(batch, mesh, shd.input_shardings(
-            cfg, mesh, shape, batch))
+        if mesh is not None:
+            batch = shd.distribute(batch, mesh, shd.input_shardings(
+                cfg, mesh, shape, batch))
         state, m = step_fn(state, batch)
         if i % 10 == 0 or i == args.steps - 1:
             say(f"step {i} loss {scalar(m['loss']):.4f} "

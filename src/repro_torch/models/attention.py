@@ -47,18 +47,16 @@ def _core(cfg):
     """The attention core: "xla" (the plain core) materialises the (Sq,
     Skv) probabilities, "chunked" takes query blocks of attn_block_q. On
     DTensors (a mesh) it runs shard by shard (``local_attention``)."""
-    if cfg.attn_impl == "chunked":
-        core = functools.partial(attention_core_chunked,
-                                 blk_q=cfg.attn_block_q)
-    else:
-        core = attention_core
-    return functools.partial(_run_core, core)
+    return functools.partial(
+        _run_core, cfg.attn_block_q if cfg.attn_impl == "chunked" else None)
 
 
-def _run_core(core, q, k, v, **kw):
+def _run_core(blk_q, q, k, v, **kw):
     if isinstance(q, DTensor):
-        return local_attention(core, q, k, v, **kw)
-    return core(q, k, v, **kw)
+        return local_attention(q, k, v, blk_q=blk_q, **kw)
+    if blk_q:
+        return attention_core_chunked(q, k, v, blk_q=blk_q, **kw)
+    return attention_core(q, k, v, **kw)
 
 
 def init_attn(gen, cfg, dtype, device):
@@ -198,26 +196,18 @@ def _ring_attention(p, cfg, q, k, v, q_pos, cache_k, cache_v, cache_len,
         out, _ = _core(cfg)(q, k, v, q_pos=q_pos, kv_pos=q_pos,
                             causal=causal, window=window)
         n_w = min(S, W)
-        if isinstance(cache_k, DTensor):
-            # the slots run from s0 and wrap at W: two windows
-            s0 = (cache_len + S - n_w) % W
-            for buf, new in ((cache_k, k), (cache_v, v)):
-                new = new[:, S - n_w:].to(buf.dtype)
-                write_seq(buf, s0, new[:, :W - s0])
-                if n_w > W - s0:
-                    write_seq(buf, 0, new[:, W - s0:])
-        else:
-            slots = (cache_len + torch.arange(S - n_w, S, device=dev)) % W
-            cache_k[:, slots] = k[:, S - n_w:].to(cache_k.dtype)
-            cache_v[:, slots] = v[:, S - n_w:].to(cache_v.dtype)
+        # slots (cache_len + i) % W of the last n_w entries: from s0,
+        # wrapping at W
+        s0 = (cache_len + S - n_w) % W
+        for buf, new in ((cache_k, k), (cache_v, v)):
+            new = new[:, S - n_w:].to(buf.dtype)
+            write_seq(buf, s0, new[:, :W - s0])
+            if n_w > W - s0:
+                write_seq(buf, 0, new[:, W - s0:])
         return out.reshape(B, S, -1) @ p["wo"], (cache_k, cache_v), None
     slot = cache_len % W
-    if isinstance(cache_k, DTensor):
-        write_seq(cache_k, slot, k.to(cache_k.dtype))
-        write_seq(cache_v, slot, v.to(cache_v.dtype))
-    else:
-        cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
-        cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+    write_seq(cache_k, slot, k.to(cache_k.dtype))
+    write_seq(cache_v, slot, v.to(cache_v.dtype))
     idx = torch.arange(W, device=dev)
     kv_pos = cache_len - torch.remainder(cache_len - idx, W)
     out, _ = _core(cfg)(q, cache_k, cache_v, q_pos=q_pos,
@@ -237,7 +227,7 @@ def cross_attention(p, cfg, x, enc_k, enc_v):
     q = _proj(p, x, "q", cfg.num_heads, cfg.resolved_head_dim)
     zeros = lambda n: torch.zeros((n,), dtype=torch.long,  # noqa: E731
                                   device=x.device)
-    out, _ = _run_core(attention_core, q, enc_k, enc_v, q_pos=zeros(S),
+    out, _ = _run_core(None, q, enc_k, enc_v, q_pos=zeros(S),
                        kv_pos=zeros(enc_k.shape[1]), causal=False)
     return out.reshape(B, S, -1) @ p["wo"]
 

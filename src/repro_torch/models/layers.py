@@ -80,22 +80,10 @@ def sinusoid_positions(positions: torch.Tensor, d_model: int):
 # ---------------------------------------------------------------------------
 # attention core (plain PyTorch; the decode kernel lives in kernels/)
 # ---------------------------------------------------------------------------
-def attention_core(
-    q: torch.Tensor,                      # (B, Sq, Hq, D)
-    k: torch.Tensor,                      # (B, Skv, Hkv, D)
-    v: torch.Tensor,                      # (B, Skv, Hkv, D)
-    *,
-    q_pos: torch.Tensor,                  # (Sq,) or (B, Sq)
-    kv_pos: torch.Tensor,                 # (Skv,) or (B, Skv)
-    kv_valid: Optional[torch.Tensor] = None,   # (Skv,) or (B, Skv) bool
-    causal: bool = True,
-    window: Optional[int] = None,              # sliding window
-    mass_mask: Optional[torch.Tensor] = None,  # (Skv,) bool
-) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Masked GQA attention; returns (out, context_mass (B,) or None).
-
-    The mass is the paper's Eq. (1) inner sum: softmax mass on
-    ``mass_mask`` columns, averaged over heads and query rows."""
+def _masked_scores(q, k, *, q_pos, kv_pos, kv_valid, causal, window):
+    """float32 scores (B, Hkv, G, Sq, Skv) of q (B, Sq, Hq, D) against k
+    (B, Skv, Hkv, D), NEG_INF where the causal, window and validity masks
+    forbid."""
     B, Sq, Hq, Dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -118,7 +106,30 @@ def attention_core(
         if kv_valid.dim() == 1:
             kv_valid = kv_valid[None]
         allow = allow & kv_valid[:, None, None, None, :]
-    scores = torch.where(allow, scores, torch.full_like(scores, NEG_INF))
+    return torch.where(allow, scores, torch.full_like(scores, NEG_INF))
+
+
+def attention_core(
+    q: torch.Tensor,                      # (B, Sq, Hq, D)
+    k: torch.Tensor,                      # (B, Skv, Hkv, D)
+    v: torch.Tensor,                      # (B, Skv, Hkv, D)
+    *,
+    q_pos: torch.Tensor,                  # (Sq,) or (B, Sq)
+    kv_pos: torch.Tensor,                 # (Skv,) or (B, Skv)
+    kv_valid: Optional[torch.Tensor] = None,   # (Skv,) or (B, Skv) bool
+    causal: bool = True,
+    window: Optional[int] = None,              # sliding window
+    mass_mask: Optional[torch.Tensor] = None,  # (Skv,) bool
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Masked GQA attention; returns (out, context_mass (B,) or None).
+
+    The mass is the paper's Eq. (1) inner sum: softmax mass on
+    ``mass_mask`` columns, averaged over heads and query rows."""
+    B, Sq, Hq, Dh = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    scores = _masked_scores(q, k, q_pos=q_pos, kv_pos=kv_pos,
+                            kv_valid=kv_valid, causal=causal, window=window)
     probs = torch.softmax(scores, dim=-1)
     mass = None
     if mass_mask is not None:
@@ -126,6 +137,46 @@ def attention_core(
         mass = (m / (Hkv * G * Sq)).expand(B)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype), v)
     return out.reshape(B, Sq, Hq, Dh), mass
+
+
+def attention_partials(q, k, v, *, q_pos, kv_pos, kv_valid=None,
+                       causal: bool = True, window=None, mass_mask=None,
+                       blk_q: Optional[int] = None):
+    """``attention_core`` over one slice of the KV sequence, unmerged:
+    (out (B, Sq, Hq, D) normalised over the slice, in v's dtype; the
+    row max m, the row sum l of exp(score - m) and, with ``mass_mask``,
+    the slice's mass fraction, each (B, Sq, Hq) float32). Slices merge by
+    their log-sum-exp weights exp(m - max m) * l (``sharding.
+    local_attention``). A row with no allowed column has m = NEG_INF and
+    weight 0 beside any slice that has one. With ``blk_q`` it takes query
+    blocks as ``attention_core_chunked`` does."""
+    B, Sq, Hq, Dh = q.shape
+    if blk_q and Sq % blk_q == 0 and Sq > blk_q:
+        if q_pos.dim() == 1:
+            q_pos = q_pos[None].expand(B, Sq)
+        parts = [attention_partials(
+            q[:, i:i + blk_q], k, v, q_pos=q_pos[:, i:i + blk_q],
+            kv_pos=kv_pos, kv_valid=kv_valid, causal=causal, window=window,
+            mass_mask=mass_mask) for i in range(0, Sq, blk_q)]
+        return tuple(None if p[0] is None else torch.cat(p, dim=1)
+                     for p in zip(*parts))
+    scores = _masked_scores(q, k, q_pos=q_pos, kv_pos=kv_pos,
+                            kv_valid=kv_valid, causal=causal, window=window)
+    m = scores.amax(-1, keepdim=True)
+    e = torch.exp(scores - m)
+    l = e.sum(-1, keepdim=True)
+    probs = e / l
+
+    def rows(t):      # (B, Hkv, G, Sq) -> (B, Sq, Hq)
+        return t.permute(0, 3, 1, 2).reshape(B, Sq, Hq)
+
+    mf = None
+    if mass_mask is not None:
+        mf = rows(torch.einsum("bhgqk,k->bhgq", probs,
+                               mass_mask.to(probs.dtype)))
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype), v)
+    return (out.reshape(B, Sq, Hq, Dh), rows(m[..., 0]), rows(l[..., 0]),
+            mf)
 
 
 def attention_core_chunked(q, k, v, *, q_pos, kv_pos, kv_valid=None,
@@ -197,6 +248,14 @@ def router_probs(p, x, k: int):
     Switch load-balancing loss E * sum_e f_e * p_e as a float32 scalar).
     Ties go to the lower expert, as ``jax.lax.top_k`` orders them (a
     stable descending sort; ``torch.topk`` breaks ties otherwise)."""
+    gates, idx, me, ce = route(p, x, k)
+    return gates, idx, me.shape[0] * torch.sum(me * ce)
+
+
+def route(p, x, k: int):
+    """``router_probs`` before the loss: (gates, idx, p_e, f_e), the last
+    two (E,) float32 means over the tokens of the router's probabilities
+    and of the assignments."""
     logits = x.float() @ p["router"]
     probs = torch.softmax(logits, dim=-1)
     order = torch.sort(probs, dim=-1, descending=True, stable=True)
@@ -205,20 +264,30 @@ def router_probs(p, x, k: int):
     E = logits.shape[-1]
     me = probs.reshape(-1, E).mean(0)
     ce = F.one_hot(idx, E).sum(-2).reshape(-1, E).float().mean(0)
-    return gates.to(x.dtype), idx, E * torch.sum(me * ce)
+    return gates.to(x.dtype), idx, me, ce
 
 
 def apply_moe_dense_all(p, x, k: int):
     """Every expert on every token, accumulated over the experts in order
     in x's dtype with each token's gate (zero where not routed)."""
     gates, idx, aux = router_probs(p, x, k)
-    E = p["w_gate"].shape[0]
-    comb = (F.one_hot(idx, E).to(x.dtype) * gates[..., None]).sum(-2)
+    return expert_sum(p, x, combine_weights(gates, idx, p)), aux
+
+
+def combine_weights(gates, idx, p):
+    """Each token's gate per expert, (..., E), zero where not routed."""
+    E = p["router"].shape[-1]
+    return (F.one_hot(idx, E).to(gates.dtype) * gates[..., None]).sum(-2)
+
+
+def expert_sum(p, x, comb):
+    """sum_e comb[..., e] * expert_e(x) over the experts of ``p`` (and
+    ``comb``'s matching columns), accumulated in order in x's dtype."""
     acc = torch.zeros_like(x)
-    for e in range(E):
+    for e in range(p["w_gate"].shape[0]):
         h = (F.silu(x @ p["w_gate"][e]) * (x @ p["w_up"][e])) @ p["w_down"][e]
         acc = acc + h * comb[..., e, None]
-    return acc, aux
+    return acc
 
 
 def _dispatch(p, xf, k: int, C: int):
@@ -226,7 +295,7 @@ def _dispatch(p, xf, k: int, C: int):
     route): assignments sorted by expert (stably, so each expert's come
     in token order), each expert's first C of them. Returns (tok_slot
     (E, C), gate_slot (E, C) in xf's dtype, valid (E, C), aux)."""
-    n, E = xf.shape[0], p["w_gate"].shape[0]
+    n, E = xf.shape[0], p["router"].shape[-1]
     gates, idx, aux = router_probs(p, xf, k)
     dev = xf.device
     eid = idx.reshape(n * k)
@@ -262,20 +331,29 @@ def apply_moe_dropping(p, x, k: int, capacity_factor: float = 1.25,
     B, S, D = x.shape
     E = p["w_gate"].shape[0]
     G, n, C = _capacity(x, k, E, capacity_factor, groups)
-    xg = x.reshape(G, n, D)
+    out, auxes = dropping_groups(p, x.reshape(G, n, D), k, C)
+    return out.reshape(B, S, D), auxes.mean()
+
+
+def dropping_groups(p, xg, k: int, C: int, e0: int = 0):
+    """``apply_moe_dropping`` on token groups xg (G, n, D) at capacity C,
+    run by the experts of ``p``, which are experts [e0, e0 + E_p) of the
+    router's E: (their gated outputs (G, n, D), each group's loss (G,))."""
+    G, n, D = xg.shape
+    Ep = p["w_gate"].shape[0]
     routes = [_dispatch(p, xg[g], k, C) for g in range(G)]
-    buf = torch.stack([xg[g][r[0]] * r[2][..., None].to(x.dtype)
-                       for g, r in enumerate(routes)])       # (G, E, C, D)
+    buf = torch.stack([xg[g][r[0][e0:e0 + Ep]]
+                       * r[2][e0:e0 + Ep][..., None].to(xg.dtype)
+                       for g, r in enumerate(routes)])      # (G, Ep, C, D)
     h = F.silu(torch.einsum("gecd,edf->gecf", buf, p["w_gate"]))
     h = h * torch.einsum("gecd,edf->gecf", buf, p["w_up"])
     yb = torch.einsum("gecf,efd->gecd", h, p["w_down"])
     out = torch.stack([
-        torch.zeros((n, D), dtype=x.dtype, device=x.device).index_add_(
-            0, tok_slot.reshape(-1),
-            (yb[g] * gate_slot[..., None]).reshape(E * C, D))
+        torch.zeros((n, D), dtype=xg.dtype, device=xg.device).index_add_(
+            0, tok_slot[e0:e0 + Ep].reshape(-1),
+            (yb[g] * gate_slot[e0:e0 + Ep][..., None]).reshape(Ep * C, D))
         for g, (tok_slot, gate_slot, _, _) in enumerate(routes)])
-    aux = torch.stack([r[3] for r in routes]).mean()
-    return out.reshape(B, S, D), aux
+    return out, torch.stack([r[3] for r in routes])
 
 
 def moe_dropped(p, x, cfg) -> int:

@@ -62,7 +62,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.distributed import hints
 from repro_torch.distributed.sharding import (cache_placements, distribute,
-                                              local_embedding, unshard_data,
+                                              local_embedding, local_moe,
+                                              reduce_partial, unshard_data,
                                               write_seq)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
@@ -335,7 +336,8 @@ def _ragged(cache, prefix_lens) -> bool:
         and cache["len"].dim() > 0)
 
 
-def _encoder_forward(params, cfg: ModelConfig, frames: torch.Tensor):
+def _encoder_forward(params, cfg: ModelConfig, frames: torch.Tensor,
+                     on_mesh: bool = False):
     """Whisper's encoder over the stub frames (B, Senc, d): the additive
     sinusoid positions, non-causal attention layers without RoPE, gelu
     MLPs, the final norm."""
@@ -345,35 +347,39 @@ def _encoder_forward(params, cfg: ModelConfig, frames: torch.Tensor):
     x = x + sinusoid_positions(pos, cfg.d_model)[None].to(x.dtype)
     remat = cfg.remat and torch.is_grad_enabled()
     for lp in enc["layers"]:
-        x = hints.shard_activations(
-            _run(functools.partial(_encoder_layer, cfg=cfg), lp, x, remat))
-    return rms_norm(hints.gather_sequence(x), enc["final_norm"],
-                    cfg.norm_eps)
+        x = _run(functools.partial(_encoder_layer, cfg=cfg), lp, x,
+                 remat=remat, on_mesh=on_mesh)
+        if on_mesh:
+            x = hints.shard_activations(x)
+    if on_mesh:
+        x = hints.gather_sequence(x)
+    return rms_norm(x, enc["final_norm"], cfg.norm_eps)
 
 
 def _encoder_layer(lp, x, *, cfg: ModelConfig):
     out, _, _ = attn_mod.self_attention(
         lp["attn"], cfg, rms_norm(x, lp["ln1"], cfg.norm_eps),
         mode="train", causal=False, use_rope=False)
-    x = x + out
-    return x + apply_mlp(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps),
-                         mlp_type(cfg))
+    x = x + reduce_partial(out)
+    return x + reduce_partial(apply_mlp(
+        lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps), mlp_type(cfg)))
 
 
-def _run(layer, lp, x, remat: bool):
+def _run(layer, lp, x, *, remat: bool, on_mesh: bool):
     """``layer(lp, x)``; with ``remat``, checkpointed (its activations are
     recomputed in the backward pass), as the reference checkpoints each
-    layer run in training."""
+    layer run in training. ``on_mesh``: the layer starts as under ZeRO-3
+    with sequence parallelism (``_gathered``)."""
+    if on_mesh:
+        layer = functools.partial(_gathered, layer)
     if remat:
-        return checkpoint(_gathered, layer, lp, x, use_reentrant=False)
-    return _gathered(layer, lp, x)
+        return checkpoint(layer, lp, x, use_reentrant=False)
+    return layer(lp, x)
 
 
 def _gathered(layer, lp, x):
-    """On a mesh a layer starts as under ZeRO-3 with sequence
-    parallelism: its parameters gathered over the data axes (kept sharded
-    over ``model``) and its input's sequence made whole; a no-op on plain
-    tensors."""
+    """``layer`` with its parameters gathered over the data axes (kept
+    sharded over ``model``) and its input's sequence made whole."""
     return layer(unshard_data(lp), hints.gather_sequence(x))
 
 
@@ -425,6 +431,7 @@ def apply_model(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     take the layouts of ``distributed.hints``, and with ``cfg.remat``
     each layer of a training forward is checkpointed."""
     B, S = tokens.shape
+    on_mesh = isinstance(params["embed"], DTensor)
     if shared is not None and shared.is_packed and mode != "cached":
         shared = shared.to_dense(cfg.attn_layer_count)
     flags = [False] * cfg.attn_layer_count
@@ -450,13 +457,12 @@ def apply_model(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     enc_out = None
     if (cfg.encoder_layers and use_enc and extra is not None
             and "frames" in extra):
-        enc_out = _encoder_forward(params, cfg, extra["frames"])
+        enc_out = _encoder_forward(params, cfg, extra["frames"], on_mesh)
     if use_enc and enc_out is None and cfg.encoder_layers:
         raise ValueError(f"{cfg.name}: cross-attention needs the encoder's "
                          "frames (extra={'frames': (B, Senc, d)})")
-    embed = unshard_data(params["embed"])
-    x = (local_embedding(tokens, embed) if isinstance(embed, DTensor)
-         else embed[tokens])
+    x = (local_embedding(tokens, unshard_data(params["embed"])) if on_mesh
+         else params["embed"][tokens])
     if cfg.num_patches and extra is not None and "patches" in extra:
         pe = extra["patches"].to(x.dtype)
         x[:, :pe.shape[1]] = pe
@@ -481,8 +487,9 @@ def apply_model(params, cfg: ModelConfig, tokens: torch.Tensor, *,
                   else _init_state(cfg, kind, B, x.device))
             x, new_st = _run(functools.partial(
                 _ssm_layer, cfg=cfg, kind=kind, st=st, mode=mode), lp, x,
-                remat)
-            x = hints.shard_activations(x)
+                remat=remat, on_mesh=on_mesh)
+            if on_mesh:
+                x = hints.shard_activations(x)
             if states is not None:
                 states[j] = new_st
             j += 1
@@ -522,8 +529,9 @@ def apply_model(params, cfg: ModelConfig, tokens: torch.Tensor, *,
             collect_mass=collect_mass, backend=decode_backend)
         x, mass, layer_aux = _run(functools.partial(
             _attn_layer, cfg=cfg, spec=spec, attn_kw=attn_kw, entry=entry,
-            enc_out=enc_out), lp, x, remat)
-        x = hints.shard_activations(x)
+            enc_out=enc_out), lp, x, remat=remat, on_mesh=on_mesh)
+        if on_mesh:
+            x = hints.shard_activations(x)
         if layer_aux is not None:
             aux = aux + layer_aux
         if collect_mass:
@@ -531,13 +539,17 @@ def apply_model(params, cfg: ModelConfig, tokens: torch.Tensor, *,
                           torch.zeros((B,), dtype=torch.float32,
                                       device=x.device))
         l += 1
-    x = rms_norm(hints.gather_sequence(x), params["final_norm"],
-                 cfg.norm_eps)
+    if on_mesh:
+        x = hints.gather_sequence(x)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if logits_mode == "last":
         x = x[:, -1:, :]
-    head = unshard_data(params["embed"]).T if cfg.tie_embeddings \
-        else unshard_data(params["lm_head"])
-    logits = hints.shard_logits((x @ head).float())
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    if on_mesh:
+        head = unshard_data(head)
+    logits = (x @ (head.T if cfg.tie_embeddings else head)).float()
+    if on_mesh:
+        logits = hints.shard_logits(logits)
     new_cache = None
     if mode == "cached":
         new_cache = {"len": cache_len + S, "layers": cache["layers"]}
@@ -556,15 +568,16 @@ def _attn_layer(lp, x, *, cfg: ModelConfig, spec: LayerSpec, attn_kw, entry,
     MoE aux loss or None)."""
     out, _, mass = attn_mod.self_attention(
         lp["attn"], cfg, rms_norm(x, lp["ln1"], cfg.norm_eps), **attn_kw)
-    x = x + out
+    x = x + reduce_partial(out)
     if spec.cross_attn:
-        x = x + _cross_layer(lp, cfg, x, entry, enc_out)
+        x = x + reduce_partial(_cross_layer(lp, cfg, x, entry, enc_out))
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
     if spec.moe:
-        ffn, layer_aux = apply_moe(lp["moe"], h, cfg)
+        ffn, layer_aux = (local_moe if isinstance(h, DTensor)
+                          else apply_moe)(lp["moe"], h, cfg)
     else:
         ffn, layer_aux = apply_mlp(lp["mlp"], h, mlp_type(cfg)), None
-    return x + ffn, mass, layer_aux
+    return x + reduce_partial(ffn), mass, layer_aux
 
 
 def _cross_layer(lp, cfg: ModelConfig, x, entry, enc_out):
@@ -588,11 +601,12 @@ def _ssm_layer(lp, x, *, cfg: ModelConfig, kind: str, st, mode: str):
         out, new_st = ssm_mod.apply_mamba(
             lp["mamba"], cfg, rms_norm(x, lp["ln"], cfg.norm_eps), st,
             mode=mode)
-        return x + out, new_st
+        return x + reduce_partial(out), new_st
     r = lp["rwkv"]
     tm_out, new_wkv, new_tmx = ssm_mod.rwkv_time_mix(
         r, cfg, rms_norm(x, lp["ln1"], cfg.norm_eps), st)
-    x = x + tm_out
+    x = x + reduce_partial(tm_out)
     cm_out, new_cmx = ssm_mod.rwkv_channel_mix(
         r, cfg, rms_norm(x, lp["ln2"], cfg.norm_eps), st)
-    return x + cm_out, {"cm_x": new_cmx, "tm_x": new_tmx, "wkv": new_wkv}
+    return x + reduce_partial(cm_out), {"cm_x": new_cmx, "tm_x": new_tmx,
+                                        "wkv": new_wkv}

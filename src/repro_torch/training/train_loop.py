@@ -13,10 +13,11 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import reduce_partial
+from repro_torch.distributed.sharding import local_nll
 from repro_torch.models import transformer as tfm
 from repro_torch.training.optimizer import (OptimizerConfig, OptState,
                                             adamw_update, init_opt_state,
@@ -37,10 +38,12 @@ def init_train_state(cfg: ModelConfig, seed: int = 0, *, device
 def cross_entropy(logits, targets, weights=None):
     """Token-level CE. logits (B, S, V) float32; targets (B, S) int;
     ``weights`` (B, S) weighs each position."""
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = reduce_partial(torch.gather(logits, -1,
-                                       targets.long()[..., None]))[..., 0]
-    nll = logz - gold
+    if isinstance(logits, DTensor):       # on a mesh, shard by shard
+        nll = local_nll(logits, targets)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+        nll = logz - gold
     if weights is None:
         return torch.mean(nll)
     wsum = torch.clamp(torch.sum(weights), min=1e-6)

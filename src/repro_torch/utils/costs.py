@@ -31,6 +31,12 @@ collectives one device runs. It counts:
 
 Eager execution runs every layer, so every layer is counted: there is no
 counterpart of the loop-aware (while-trip-count) collective count.
+
+DTensor infers each new op's output layout by running the op on fake
+tensors of the *global* shapes, under a fake mode of its own (its
+sharding propagation). Those runs are no device's work: ``CostMode``
+passes them through uncounted, and ``propagating`` tells other modes
+(the dry run's memory tracker) to do the same.
 """
 from __future__ import annotations
 
@@ -40,7 +46,9 @@ from typing import Dict, List
 
 import torch
 from torch.distributed.tensor import DTensor
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.utils._python_dispatch import TorchDispatchMode, \
+    _get_current_dispatch_mode_stack
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
 
@@ -80,8 +88,9 @@ def shard_scope(region: list):
 def count_backward(t: torch.Tensor, flops: float) -> None:
     """Add ``flops`` to ``flops_job`` when ``t``'s gradient is computed:
     a shard-by-shard region's backward, which autograd runs outside the
-    region's scope."""
-    if t.requires_grad:
+    region's scope. Nothing is registered unless a ``CostMode`` is
+    counting."""
+    if _ACTIVE and t.requires_grad:
         def hook(grad):
             for mode in _ACTIVE:
                 mode.flops_job += flops
@@ -97,6 +106,21 @@ def collective_kind(func) -> str | None:
         if key in name:
             return kind
     return None
+
+
+def fake_mode():
+    """The innermost fake mode on the dispatch mode stack, or None."""
+    for m in reversed(_get_current_dispatch_mode_stack()):
+        if isinstance(m, FakeTensorMode):
+            return m
+    return None
+
+
+def propagating(entry_fake_mode) -> bool:
+    """Whether the op being dispatched is one of DTensor's shape-inference
+    runs: a fake mode is active that was not when the counting mode was
+    entered (``entry_fake_mode``)."""
+    return fake_mode() is not entry_fake_mode
 
 
 def _nbytes(tree) -> int:
@@ -130,6 +154,8 @@ class CostMode(TorchDispatchMode):
             self.on_mesh = True
             self.flops_job += _flops(func, args, kwargs, None)
             return NotImplemented
+        if propagating(self._fake_on_entry):
+            return func(*args, **kwargs)
         out = func(*args, **kwargs)
         name = func._overloadpacket.__name__
         kind = collective_kind(func)
@@ -155,6 +181,7 @@ class CostMode(TorchDispatchMode):
         self.census[kind] += 1
 
     def __enter__(self):
+        self._fake_on_entry = fake_mode()
         _ACTIVE.append(self)
         return super().__enter__()
 

@@ -6,8 +6,15 @@ timeout, a FileStore and ``torch.set_num_threads(1)``.
 configs at float32 (llama3.2-3b-pair; starcoder2-7b, whose heads the
 production model axis does not divide; mixtral-8x22b, expert tensor
 parallelism; olmoe-1b-7b, experts over "model"; rwkv6-1.6b; whisper-medium)
-one sharded train step's loss and gradients, and a cached prefill's and a
-decode step's logits, equal the unsharded port's.
+and on llama3.2-3b-pair with one KV head and the chunked core (the query
+heads split over "model" without their KV head, the cache's sequence
+sharded) and with three heads (the query rows split over "model"), on
+mixtral-8x22b with three experts (their d_ff over "model") and on
+olmoe-1b-7b with the dropping MoE, one sharded train step's loss and
+gradients, and a cached
+prefill's and a decode step's logits, equal the unsharded port's; so do
+a batch-1 decode over a cache sharded over data x model and the KVComm
+prefill's logits and Eq. (1) masses.
 (ii) Every leaf's local shard (offset and shape) on a 2x4 and a 2x2x2
 mesh equals ``NamedSharding(...).devices_indices_map`` from a JAX
 subprocess with 8 host devices (the pattern of
@@ -33,7 +40,18 @@ from repro_torch.utils import analytic
 
 SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
 ARCHS = ["llama3.2-3b-pair", "starcoder2-7b", "mixtral-8x22b",
-         "olmoe-1b-7b", "rwkv6-1.6b", "whisper-medium"]
+         "olmoe-1b-7b", "rwkv6-1.6b", "whisper-medium",
+         "llama3.2-3b-pair:kv1", "llama3.2-3b-pair:h3", "mixtral-8x22b:e3",
+         "olmoe-1b-7b:drop"]
+# rwkv6-1.6b's float32 gradients are conditioned beyond 1e-5: a 1e-7
+# relative perturbation of its parameters moves the unsharded gradients
+# by up to 1.6e-4 (its per-head group norm divides by sqrt(var + 1e-5)
+# at near-zero variance), and the tensor-parallel products' split sums
+# move them by as much (largest element-wise reading over parameter seeds
+# 0-5: 4.9e-5; seed 0, this test's: 2.1e-5 to 2.3e-5). A backward that
+# drops one batch shard's gradient of u reads 0.989
+# (tools/sharded_readings.py seeds, fault).
+GRAD_BOUND = {"rwkv6-1.6b": 1e-3}
 TIMEOUT = 300
 
 SHARDED = r"""
@@ -46,11 +64,13 @@ rank = int(sys.argv[1])
 dist.init_process_group("gloo", store=dist.FileStore({store!r}, 4),
                         rank=rank, world_size=4)
 from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import DTensor
 from repro_torch.configs.base import InputShape
 from repro_torch.configs.registry import get_config
+from repro_torch.core.types import SharedKV
 from repro_torch.distributed import hints, sharding as shd
 from repro_torch.models import transformer as tfm
-from repro_torch.training.optimizer import leaves, tree_map
+from repro_torch.training.optimizer import leaves
 from repro_torch.training.train_loop import _grads
 
 mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
@@ -59,9 +79,55 @@ def rel(a, b):      # max |a - b| over max |b|
     a, b = a.detach().double(), b.detach().double()
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
-def nrel(a, b):     # relative, in norm
-    a, b = a.detach().double(), b.detach().double()
-    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+def full(t):
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+# "name:kv1": one KV head, the chunked core (blocks of 4); "name:h3":
+# three heads, one KV head (query rows split over "model"); "name:e3":
+# three experts (each expert's d_ff over "model"); "name:drop": the
+# dropping MoE in two token groups at capacity factor 1 (drops)
+def variant(arch):
+    name, _, v = arch.partition(":")
+    cfg = dataclasses.replace(get_config(name).reduced(), dtype="float32",
+                              vocab_size=128)
+    if v == "kv1":
+        cfg = dataclasses.replace(cfg, num_kv_heads=1, attn_impl="chunked",
+                                  attn_block_q=4)
+    if v == "h3":
+        cfg = dataclasses.replace(cfg, num_heads=3, num_kv_heads=1,
+                                  head_dim=32)
+    if v == "e3":
+        cfg = dataclasses.replace(cfg, num_experts=3)
+    if v == "drop":
+        cfg = dataclasses.replace(cfg, moe_impl="dropping", moe_groups=2,
+                                  moe_capacity_factor=1.0)
+    return cfg
+
+# a batch-1 prefill and decode over a cache of 12 (sequence over data x
+# model), and the KVComm prefill (a 4-position prefix on the first layer)
+# over buffers of 14 (sequence sharded where Hkv does not divide "model")
+# and 15 (not sharded): logits, masses, placements
+def cache_paths(params, tokens, m):
+    res = {{}}
+    c = tfm.init_cache(cfg, 1, 12, device="cpu", mesh=m)
+    o1 = tfm.apply_model(params, cfg, tokens[:1], mode="cached", cache=c,
+                         logits_mode="last")
+    o2 = tfm.apply_model(params, cfg, tokens[:1, -1:], mode="cached",
+                         cache=o1.cache, logits_mode="last")
+    res["long"] = (full(o1.logits), full(o2.logits), c["layers"][0]["k"])
+    L, P = cfg.attn_layer_count, 4
+    g = torch.Generator().manual_seed(3)
+    kv = {{n: torch.randn((L, B, P, cfg.num_kv_heads,
+                          cfg.resolved_head_dim), generator=g) for n in "kv"}}
+    shared = SharedKV(kv=kv, select=torch.arange(L) < 1, prefix_len=P)
+    for n in (S + 2, S + 3):
+        c = tfm.init_cache(cfg, B, n, device="cpu", shared=shared, mesh=m)
+        o = tfm.apply_model(params, cfg, tokens, mode="cached", cache=c,
+                            shared=shared, logits_mode="last",
+                            collect_mass=True)
+        res[n] = (full(o.logits), torch.stack([full(t) for t in o.masses]),
+                  c["layers"][0]["k"])
+    return res
 
 def forward(params, batch, m):
     c = tfm.init_cache(cfg, B, S + 2, device="cpu", mesh=m)
@@ -75,8 +141,7 @@ def forward(params, batch, m):
 out = {{}}
 B, S = 2, 8
 for arch in {archs!r}:
-    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32",
-                              vocab_size=128)
+    cfg = variant(arch)
     params = tfm.init_params(cfg, 0, device="cpu")
     rng = np.random.default_rng(0)
     batch = {{k: torch.from_numpy(rng.integers(0, 128, (B, S)))
@@ -85,15 +150,11 @@ for arch in {archs!r}:
         batch["frames"] = torch.from_numpy(rng.standard_normal(
             (B, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
     loss_u, _, g_u = _grads(params, cfg, batch)
-    # the unsharded gradients' own float32 sensitivity: a 1e-7 relative
-    # perturbation of every parameter
-    gen = torch.Generator().manual_seed(1)
-    bumped = tree_map(lambda t: t * (1 + 1e-7 * torch.randn(
-        t.shape, generator=gen)), params)
-    kappa = max(nrel(a, b) for a, b in zip(
-        leaves(_grads(bumped, cfg, batch)[2]), leaves(g_u)))
+    caches = cfg.num_kv_heads and not cfg.encoder_layers
     with torch.no_grad():
         pre_u, dec_u = forward(params, batch, None)
+        paths_u = cache_paths(params, batch["tokens"], None) if caches \
+            else {{}}
     shape = InputShape("t", S, B, "train")
     sp = shd.distribute(params, mesh, shd.param_shardings(cfg, mesh, params))
     sb = shd.distribute(batch, mesh,
@@ -102,17 +163,21 @@ for arch in {archs!r}:
     loss_s, _, g_s = _grads(sp, cfg, sb)
     with torch.no_grad():
         pre_s, dec_s = forward(sp, sb, mesh)
+        paths_s = cache_paths(sp, batch["tokens"], mesh) if caches else {{}}
     hints.clear()
     out[arch] = {{
         "loss": abs(float(loss_s.full_tensor()) - float(loss_u))
                 / abs(float(loss_u)),
-        "grads": [nrel(a.full_tensor(), b)
+        "grads": [rel(a.full_tensor(), b)
                   for a, b in zip(leaves(g_s), leaves(g_u))],
-        "kappa": kappa,
         "sharded": sum(1 for t in leaves(sp)
                        if any(p.is_shard() for p in t.placements)),
         "prefill": rel(pre_s.full_tensor(), pre_u),
-        "decode": rel(dec_s.full_tensor(), dec_u)}}
+        "decode": rel(dec_s.full_tensor(), dec_u),
+        "paths": {{str(key): {{
+            "errs": [rel(a, b) for a, b in zip(val[:2], paths_u[key][:2])],
+            "seq": [p.is_shard(1) for p in val[2].placements]}}
+            for key, val in paths_s.items()}}}}
 if rank == 0:
     print("JSON" + json.dumps(out))
 dist.destroy_process_group()
@@ -153,6 +218,44 @@ for names, shape in ((("data", "model"), (2, 4)),
                               for sl, n in zip(idx, leaf.shape)]])
             out["x".join(map(str, shape)) + "|" + arch + "|" + key] = rows
 print("JSON" + json.dumps(out))
+"""
+
+ONE_RANK = r"""
+import sys, json, dataclasses
+sys.path.insert(0, {src!r})
+import numpy as np
+import torch, torch.distributed as dist
+torch.set_num_threads(1)
+dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs.base import InputShape
+from repro_torch.configs.registry import get_config
+from repro_torch.distributed import hints, sharding as shd
+from repro_torch.models import transformer as tfm
+from repro_torch.training.optimizer import leaves
+from repro_torch.training.train_loop import _grads
+
+mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+out = {{}}
+for dt in ("float32", "bfloat16"):
+    cfg = dataclasses.replace(get_config("llama3.2-3b-pair").reduced(),
+                              dtype=dt, vocab_size=128)
+    params = tfm.init_params(cfg, 0, device="cpu")
+    rng = np.random.default_rng(0)
+    batch = {{k: torch.from_numpy(rng.integers(0, 128, (2, 8)))
+             for k in ("tokens", "targets")}}
+    loss_u, _, g_u = _grads(params, cfg, batch)
+    sp = shd.distribute(params, mesh, shd.param_shardings(cfg, mesh, params))
+    sb = shd.distribute(batch, mesh, shd.input_shardings(
+        cfg, mesh, InputShape("t", 8, 2, "train"), batch))
+    hints.set_axes("data", "model")
+    loss_s, _, g_s = _grads(sp, cfg, sb)
+    hints.clear()
+    out[dt] = (float(loss_s.full_tensor()) == float(loss_u)
+               and all(torch.equal(a.full_tensor(), b)
+                       for a, b in zip(leaves(g_s), leaves(g_u))))
+print("JSON" + json.dumps(out))
+dist.destroy_process_group()
 """
 
 DRYRUN = r"""
@@ -214,13 +317,14 @@ def runs():
         jaxp = _start(JAX_INDICES.format(src=SRC, archs=sorted(
             list_archs())), env_extra={"JAX_PLATFORMS": "cpu"})
         dry = _start(DRYRUN.format(src=SRC, combos=COMBOS))
-        procs = ranks + [jaxp, dry]
+        one = _start(ONE_RANK.format(src=SRC))
+        procs = ranks + [jaxp, dry, one]
         try:
             sharded = _payload(ranks[0])
             for p in ranks[1:]:
                 _payload_rc(p)
             return {"sharded": sharded, "indices": _payload(jaxp),
-                    "dryrun": _payload(dry)}
+                    "dryrun": _payload(dry), "one_rank": _payload(one)}
         finally:
             for p in procs:
                 if p.poll() is None:
@@ -242,21 +346,35 @@ def _payload_rc(proc):
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("arch", ARCHS)
 def test_sharded_step_equals_unsharded(runs, arch):
-    """Loss and the prefill / decode logits within 1e-5 (relative to the
-    largest). Every gradient within 1e-5 relative in norm, except
-    rwkv6-1.6b's: its unsharded float32 gradients themselves move by
-    ~1.8e-5 under a 1e-7 relative perturbation of the parameters
-    (``kappa``, measured here; its per-head group norm divides by
-    sqrt(var + 1e-5) at near-zero variance on the first tokens), and
-    sharding reorders float32 sums by about as much, so its gradients are
-    held to max(1e-5, 2 kappa)."""
+    """Loss, every gradient and the prefill / decode logits within 1e-5,
+    element by element, relative to the largest (rwkv6-1.6b's gradients
+    within ``GRAD_BOUND``); for the attention models the batch-1 decode
+    over a cache sharded over data x model and the KVComm prefill's
+    logits and masses too. With one KV head the cache's sequence is
+    sharded over "model" wherever its length divides (14 of the KVComm
+    buffers, not 15)."""
     r = runs["sharded"][arch]
     assert r["sharded"] > 0
     assert r["loss"] <= 1e-5, r["loss"]
     assert r["prefill"] <= 1e-5, r["prefill"]
     assert r["decode"] <= 1e-5, r["decode"]
-    bound = 1e-5 if arch != "rwkv6-1.6b" else max(1e-5, 2 * r["kappa"])
-    assert max(r["grads"]) <= bound, (max(r["grads"]), r["kappa"])
+    assert max(r["grads"]) <= GRAD_BOUND.get(arch, 1e-5), max(r["grads"])
+    for key, p in r["paths"].items():
+        assert max(p["errs"]) <= 1e-5, (key, p)
+    if r["paths"]:
+        assert r["paths"]["long"]["seq"] == [True, True]
+        if arch.endswith((":kv1", ":h3")):
+            assert r["paths"]["10"]["seq"] == [False, True]
+            assert r["paths"]["11"]["seq"] == [False, False]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_one_rank_mesh_is_bit_equal(runs, dtype):
+    """On a (1, 1) mesh (one device, as on the card) every DTensor op runs
+    the plain op: a train step's loss and gradients equal the unsharded
+    port's bit for bit, bf16 too (chip_smoke's ``distributed`` phase
+    holds four full-width steps to the same)."""
+    assert runs["one_rank"][dtype]
 
 
 # ---------------------------------------------------------------------------

@@ -331,10 +331,14 @@ def rd_case(name, q, k, v, kv_len, pfx, prefix_len):
     input dtype, as the JAX oracle does, so the check runs it on the same
     inputs in float32 (the timing runs it as it is)."""
     import torch
-    from repro_torch.kernels.ragged_decode import (ragged_decode,
+    from repro_torch.kernels.ragged_decode import (geometry, plan,
+                                                   ragged_decode,
                                                    ragged_decode_reference)
     B, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
+    # the kernel's route and split plan at this shape
+    nsplit, chunk = plan(B, Hkv, Hq // Hkv, D, Skv, q.dtype, q.device)
+    geom = geometry(Hq // Hkv, D, q.dtype, q.device)
     idx = torch.arange(Skv, device=q.device)[None]
     allow = torch.where(idx < prefix_len, idx < pfx[:, None],
                         idx < kv_len[:, None])
@@ -361,7 +365,11 @@ def rd_case(name, q, k, v, kv_len, pfx, prefix_len):
             "nbytes": 2 * n_att * Hkv * D * isz + 2 * q.numel() * isz + 8 * B,
             "flops": 4 * n_att * Hq * D, "plain_iters": 20,
             "shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "D": D, "Skv": Skv,
-                      "prefix_len": prefix_len, "attended": n_att}}
+                      "prefix_len": prefix_len, "attended": n_att,
+                      "route": ("tensor_cores" if geom.tensor_cores
+                                else "cuda_cores"),
+                      "resident": geom.resident, "nsplit": nsplit,
+                      "chunk": chunk}}
 
 
 def random_case(dev, dtype, B, Skv, P, Hq, Hkv, D, seed, n_dead=0):
@@ -2579,8 +2587,8 @@ ARCH_DEPTH = {"mixtral-8x22b": 4, "qwen1.5-110b": 4}
 # prefix bucket, Hq, Hkv, D). bf16 at the stream's table: 2,049-position
 # contexts in a 2,064 bucket (1,025 in 1,040), then the 16-position query
 # and 8 new tokens, every row 4 steps in (served_case); the G 8 yardstick
-# is starcoder2's rows with 32 query heads, the G 9 split's cost beside
-# it. float32 at a small size with random lengths and a dead row.
+# is starcoder2's rows with 32 query heads, G 9's 16-row tile beside it.
+# float32 at a small size with random lengths and a dead row.
 ARCH_K1_CASES = [
     ("gemma3_global_g2_d256", "bfloat16", 4, 2088, 2064, 8, 4, 256),
     ("olmoe_mha_d128", "bfloat16", 4, 2088, 2064, 16, 16, 128),
@@ -3328,10 +3336,11 @@ def entry_point_cases(dev):
         wkv_case(dev, "wkv_tiny", 2, 40, 3, 16, seed=6,
                  plain_iters=5),
     ]
-    # F7: groups of more than 8 query heads per KV head split into head
-    # groups of at most 8 (G 9 -> 5 + 4, G 16 -> 8 + 8), normalised and
-    # partials, with a window and without, on the TMA ring and on staged
-    # rows (24-byte rows no tensor map describes)
+    # F7: groups of more than 8 query heads per KV head: one 16-row tile
+    # up to G 16 in bf16, head groups of at most 8 in float32 (G 9 -> 5 +
+    # 4, G 16 -> 8 + 8), normalised and partials, with a window and
+    # without, on the TMA ring and on staged rows (24-byte rows no tensor
+    # map describes)
     wide_rng = np.random.default_rng(1)    # rng keeps the full cases' draws
     lens = lambda S, B: wide_rng.integers(1, S + 1, B)     # noqa: E731
     wide = [
@@ -3372,7 +3381,7 @@ def entry_point_cases(dev):
         fd_case(dev, "long_cache_32k", bf16, 4, 32768, 24, 8, 128, lc_lens,
                 seed=10),
         # starcoder2-7b's G 9 (36 / 4 heads of 128) over the same lengths:
-        # two head groups per KV head
+        # one 16-row tile per KV head
         fd_case(dev, "long_cache_32k_g9", bf16, 4, 32768, 36, 4, 128,
                 lc_lens, seed=22),
         # gemma3-4b local layer decode: window 1024 over an 8k cache
@@ -4111,6 +4120,7 @@ def main() -> int:
          "decoder_archs_steps": arch_steps,
          "new_geometries": {c["case"]: {
              k: c[k] for k in ("dtype", "B", "Hq", "Hkv", "D", "Skv",
+                               "route", "nsplit", "chunk",
                                "device_ms", "bound_ms", "library_device_ms",
                                "ms", "plain_ms", "library_ms",
                                "max_abs_err", "tol_ratio")}
@@ -4125,7 +4135,7 @@ def main() -> int:
                         "src/repro/kernels/flash_decode.py:32",
                         ep_launches["flash_decode"] + sharded["launches"]
                         + sharded_g9["launches"], "long_cache_32k"),
-         # F7: groups of more than 8 query heads, split into head groups
+         # F7: groups of more than 8 query heads
          "wide_groups": {c["case"]: {
              k: c[k] for k in ("dtype", "B", "S", "Hq", "Hkv", "D", "G",
                                "window", "partials", "route", "device_ms",

@@ -1,10 +1,12 @@
 // The split-KV merge that the one-token decode kernels (K1 ragged decode,
-// K3 flash decode) share: one block of kMergeThreads per (batch row, q
-// head) merges that row's live split partials with the log-sum-exp rule
-// (common.cuh: lse_scale) in two passes, the splits' maxima and factors
-// spread over the block and staged in shared memory, so each thread's
-// loads of its head-dim elements of the partials are independent of one
-// another (a 32k row has a few hundred splits).
+// K3 flash decode) share, and the step before it that folds a split
+// block's warps into its partial (store_partial). The merge: one block of
+// kMergeThreads per (batch row, q head) merges that row's live split
+// partials with the log-sum-exp rule (common.cuh: lse_scale) in two
+// passes, the splits' maxima and factors spread over the block and staged
+// in shared memory, so each thread's loads of its head-dim elements of the
+// partials are independent of one another (a 32k row has a few hundred
+// splits).
 //
 // The partials are float32 (o, m, l) per (b, KV head, split, q head of the
 // group[, d]) in (B, Hkv, nsplit, G[, D]) scratch; only the first `live`
@@ -21,6 +23,40 @@ namespace kern {
 
 constexpr int kMergeThreads = 128;
 constexpr int kMergeMaxD = 256;
+
+// A split block's partial: the partials of its `warps` warps, staged in
+// shared memory (red [warps][MAXG][D], the maxima and denominators in
+// sm_m / sm_l [warps][MAXG]), merged with the log-sum-exp step into one
+// float32 (o, m, l) per q head of the block's group (G heads from g0) in
+// the scratch po / pm / pl of `a` at split sp. The block's first
+// `nthreads` threads call it.
+template <int MAXG, int warps, int nthreads, class A>
+__device__ __forceinline__ void store_partial(const A& a, const float* red,
+                                              const float (*sm_m)[MAXG],
+                                              const float (*sm_l)[MAXG],
+                                              int b, int h, int g0, int G,
+                                              int sp) {
+  const int D = a.D;
+  const long long row0 =
+      (static_cast<long long>(b * a.Hkv + h) * a.nsplit + sp) * a.G + g0;
+  for (int idx = threadIdx.x; idx < G * D; idx += nthreads) {
+    const int g = idx / D;
+    const int d = idx % D;
+    float M = kNegInf;
+    float L = 0.f;
+    float o = 0.f;
+#pragma unroll
+    for (int w = 0; w < warps; ++w) {
+      const float2 f = lse_merge(M, L, sm_m[w][g], sm_l[w][g]);
+      o = o * f.x + red[(w * MAXG + g) * D + d] * f.y;
+    }
+    a.po[(row0 + g) * D + d] = o;
+    if (d == 0) {
+      a.pm[row0 + g] = M;
+      a.pl[row0 + g] = L;
+    }
+  }
+}
 
 // The merge of (b, q head hq) over its first `live` splits; called by a
 // __global__ wrapper with one block of kMergeThreads per (b, q head). `a`

@@ -26,7 +26,8 @@
 //    live blocks at the 32k cache) and 256 above (64 blocks at a window of
 //    1,024 with 4 KV heads of 256 and B 4); at float32 8 tiles.
 //  * K/V by TMA into a ring. 4-D tensor maps over the cache's own (B, Skv,
-//    Hkv, D) strides (tma.cuh; built on the host per call) load boxes of one
+//    Hkv, D) strides (tma.cuh; encoded on the host once per buffer and
+//    layout, then taken from a cache) load boxes of one
 //    KV head x a tile of positions into a ring of 2-4 stages in dynamic
 //    shared memory (3 stages of 32 KB at bf16 D 128, two blocks an SM);
 //    one producer warp issues the loads and four consumer warps compute,
@@ -35,22 +36,23 @@
 //    sequence slices are plain strided views and take the same maps. Rows a
 //    map cannot describe (a base, stride or row that is not a multiple of 16
 //    bytes) are staged by the producer warp with plain loads into the same
-//    ring: the same kernel, never refused. Per-lane cp.async, K1's route,
-//    was not taken: K1 reads at 0.30 of the HBM rate with it at its long
-//    cache (PERF.md), and TMA keeps a whole tile in flight per
-//    instruction.
+//    ring: the same kernel, never refused. Per-lane cp.async was not
+//    taken: K1's earlier split kernel, which staged with it, read at 0.30
+//    of the HBM rate at its long cache (PERF.md), and TMA keeps a whole
+//    tile in flight per instruction. K1 now runs the same tensor-core
+//    block over the same maps.
 //  * bf16 / fp16 on the tensor cores (decode_mma_kernel). A first version
 //    computed on the CUDA cores as the float32 path does; its consumers
 //    alone (no loads) took longer than the stream alone (no compute) at the
-//    32k cache, so both products moved to mma.sync m16n8k16: the G <= 8
-//    heads of q sit in rows 0-7 of A (rows 8-15 zero), a tile is 64
-//    positions of K and V as 64-value column blocks in the 128-byte
-//    swizzle (K2's layout), each consumer warp takes 16 positions, S = Q
-//    K^T reads K by ldmatrix, a quad of lanes holds a head's 16 scores for
-//    a base-2 online softmax, and O += P V takes P from those registers (a
-//    16-bit high part plus the rounding of its residual, P to ~2^-17 as in
-//    K2) and V by transposed ldmatrix. V rows past the chunk's end are
-//    zeroed before the product (0 * NaN would reach O).
+//    32k cache, so both products moved to mma.sync m16n8k16, in the split
+//    block K1 shares (decode_mma.cuh; K3 gives it one run of positions a
+//    block, K1 two): a tile is 64 positions of K and V as
+//    64-value column blocks in the 128-byte swizzle (K2's layout), each
+//    consumer warp takes 16 positions, the group's heads are the rows of A
+//    (rows 0-7 for G <= 8, rows 0-15 for G <= 16), and O += P V takes P
+//    from the score registers as a 16-bit high part plus the rounding of
+//    its residual. V rows past the chunk's end are zeroed before the
+//    product (0 * NaN would reach O).
 //  * float32 on the CUDA cores (decode_split_kernel; mma.sync takes no
 //    float32 operands and TF32 would not hold float32 parity): TPP lanes
 //    share a position, each holding one 16-byte vector of q (pre-scaled)
@@ -59,27 +61,27 @@
 //    shuffles, two positions at once, and one online-softmax step covers
 //    both.
 //  * The position groups (or lanes) of a warp and then the warps merge
-//    through shared memory (common.cuh: lse_merge) into one float32
-//    partial (o, m, l) per (row, KV head, chunk, q head) in scratch. A
-//    second kernel of the same C call, the merge K1 launches too
+//    through shared memory (decode_merge.cuh: store_partial) into one
+//    float32 partial (o, m, l) per (row, KV head, chunk, q head) in
+//    scratch. A second kernel of the same C call, the merge K1 launches too
 //    (decode_merge.cuh), merges a row's live chunks, ceil((hi - lo) /
 //    CHUNK), one block per (row, q head), and writes the normalised output
 //    (exact zeros where hi <= lo) or the merged partials (m = -1e30, l = 0
 //    for an empty row).
-//  * Wider groups (starcoder2's G 9, any G = Hq / Hkv) split into ngrp =
-//    ceil(G / 8) head groups of gs = ceil(G / ngrp) <= 8 heads, one block
-//    each (grid x = Hkv * ngrp), so every block runs the G <= 8 code: the
-//    float32 path keeps q and the accumulators in registers at MAXG 8, and
-//    the tensor-core path keeps its heads in rows 0-7 of A. Each K/V tile is
-//    then read once per head group (twice at G 9 to 16; the second read
-//    mostly hits L2, as both blocks run at once), as K1 does since its own
-//    head groups. G <= 8 takes one group, g0 = 0: the instances and their
-//    work are those of the kernel before the split.
+//  * Wider groups split into ngrp head groups of gs heads, one block each
+//    (grid x = Hkv * ngrp): at most 16 heads on the tensor cores, so
+//    starcoder2's G 9 and any G up to 16 read each K/V tile once, and at
+//    most 8 on the CUDA cores, where the float32 path keeps q and the
+//    accumulators in registers at MAXG 8 (G 9 to 16 read each tile twice
+//    there; the second read mostly hits L2, as both blocks run at once).
+//    G <= 8 takes one group, g0 = 0, in rows 0-7 of A: the instances and
+//    their work are those of the kernel before the groups.
 // Both kernels take any G and D <= 256; both write through the same merge.
 #include <cstdint>
 
 #include "common.cuh"
 #include "decode_merge.cuh"
+#include "decode_mma.cuh"
 #include "tma.cuh"
 
 namespace {
@@ -92,7 +94,6 @@ using kern::mbar_arrive;
 using kern::mbar_expect_tx;
 using kern::mbar_init;
 using kern::mbar_wait;
-using kern::pack2;
 using kern::smem_u32;
 using kern::to_f;
 using kern::unpack;
@@ -116,7 +117,7 @@ struct Args {
   float* m_out;
   float* l_out;
   int B, Hkv, G, D, Skv, window, nsplit, chunk, tile, tpp, aligned;
-  int gs, ngrp;  // query heads per block (<= 8) and head groups per KV head
+  int gs, ngrp;  // query heads per block (<= 8 / 16) and groups per KV head
   long long q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_sh;
   float scale;
 };
@@ -145,10 +146,13 @@ __host__ __device__ inline int tile_positions(int D, int es) {
 __host__ __device__ constexpr int ring_stages(int vpt) {
   return vpt == 1 ? 4 : 2;
 }
-// Head groups of at most 8 heads per KV head, as even as they go.
-__host__ __device__ inline int head_groups(int G) { return (G + 7) / 8; }
-__host__ __device__ inline int heads_per_group(int G) {
-  const int n = head_groups(G);
+// Head groups of at most `cap` heads per KV head, as even as they go: 8
+// on the CUDA cores (float32), 16 on the tensor cores (the rows of A).
+__host__ __device__ inline int head_groups(int G, int cap) {
+  return (G + cap - 1) / cap;
+}
+__host__ __device__ inline int heads_per_group(int G, int cap) {
+  const int n = head_groups(G, cap);
   return (G + n - 1) / n;
 }
 
@@ -182,38 +186,6 @@ __device__ __forceinline__ void stage_tile(unsigned char* dst, const T* rows,
     }
     *reinterpret_cast<uint4*>(dst + idx * 16) =
         *reinterpret_cast<const uint4*>(tmp);
-  }
-}
-
-// The consumer warps' partials, staged in shared memory (red [kWarps][MAXG]
-// [D], the maxima and denominators in sm_m / sm_l), merged with the
-// log-sum-exp step into the block's float32 partial (o, m, l) for its G
-// q heads from g0.
-template <int MAXG>
-__device__ __forceinline__ void store_partial(const Args& a, const float* red,
-                                              const float (*sm_m)[MAXG],
-                                              const float (*sm_l)[MAXG],
-                                              int b, int h, int g0, int G,
-                                              int sp) {
-  const int D = a.D;
-  const long long row0 =
-      (static_cast<long long>(b * a.Hkv + h) * a.nsplit + sp) * a.G + g0;
-  for (int idx = threadIdx.x; idx < G * D; idx += kConsumers) {
-    const int g = idx / D;
-    const int d = idx % D;
-    float M = kNegInf;
-    float L = 0.f;
-    float o = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float2 f = lse_merge(M, L, sm_m[w][g], sm_l[w][g]);
-      o = o * f.x + red[(w * MAXG + g) * D + d] * f.y;
-    }
-    a.po[(row0 + g) * D + d] = o;
-    if (d == 0) {
-      a.pm[row0 + g] = M;
-      a.pl[row0 + g] = L;
-    }
   }
 }
 
@@ -448,334 +420,54 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
-  store_partial<MAXG>(a, red, sm_m, sm_l, b, h, g0, G, sp);
+  kern::store_partial<MAXG, kWarps, kConsumers>(a, red, sm_m, sm_l, b, h,
+                                                g0, G, sp);
 }
 
 // ---------------------------------------------------------------------------
-// bf16 / fp16: both products on the tensor cores (mma.sync m16n8k16)
+// bf16 / fp16: the tensor-core split block K1 shares (decode_mma.cuh)
 // ---------------------------------------------------------------------------
-constexpr int kTcTile = 64;  // positions per tile: 16 per consumer warp
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kTcTile = kern::kDecTile;  // positions per tile
 
-// Head dim padded to whole 64-value column blocks (one TMA box each), ring
-// stages and tiles per chunk: 512 KB of K and V up to D 128 (1,024
-// positions: a block's ramp is then a small part of its life), 256 KB
-// above (256 positions, so that a window of 1,024 still fills 64 blocks
-// at B*Hkv = 16).
-__host__ __device__ constexpr int tc_dp(int D) { return (D + 63) / 64 * 64; }
-__host__ __device__ constexpr int tc_stages(int DP) {
-  return DP <= 128 ? 3 : 2;
-}
+// Tiles per chunk: 512 KB of K and V up to D 128 (1,024 positions: a
+// block's ramp is then a small part of its life), 256 KB above (256
+// positions, so that a window of 1,024 still fills 64 blocks at
+// B*Hkv = 16).
 __host__ __device__ constexpr int tc_tiles_per_chunk(int DP) {
   return DP <= 64 ? 32 : DP <= 128 ? 16 : 4;
 }
 
-// Byte offset of 16-byte chunk c (of DP / 8) of row r in a tile laid out as
-// DP / 64 column blocks of [kTcTile rows][128 bytes] in the 128-byte
-// swizzle (the layout a TMA box of 64 values writes).
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return (c >> 3) * (kTcTile * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4);
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0,
-                                        uint32_t& r1, uint32_t& r2,
-                                        uint32_t& r3) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t& r0,
-                                              uint32_t& r1, uint32_t& r2,
-                                              uint32_t& r3) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr));
-}
-
-// D += A B for a 16x16 A whose rows 8-15 are zero (the G <= 8 heads sit in
-// rows 0-7): a0 / a2 hold A's row lane/4 at columns 2*(lane%4) + {0, 1}
-// and + 8; d0, d1 are D's row lane/4 at columns 2*(lane%4) + {0, 1}.
-template <typename T>
-__device__ __forceinline__ void mma_rows8(float& d0, float& d1, uint32_t a0,
-                                          uint32_t a2, uint32_t b0,
-                                          uint32_t b1);
-template <>
-__device__ __forceinline__ void mma_rows8<__nv_bfloat16>(
-    float& d0, float& d1, uint32_t a0, uint32_t a2, uint32_t b0,
-    uint32_t b1) {
-  float d2 = 0.f, d3 = 0.f;
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d0), "+f"(d1), "+f"(d2), "+f"(d3)
-      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
-}
-template <>
-__device__ __forceinline__ void mma_rows8<__half>(float& d0, float& d1,
-                                                  uint32_t a0, uint32_t a2,
-                                                  uint32_t b0, uint32_t b1) {
-  float d2 = 0.f, d3 = 0.f;
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d0), "+f"(d1), "+f"(d2), "+f"(d3)
-      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
-}
-
-// Stage one tile of K or V rows [pos0, pos0 + kTcTile) by plain loads into
-// the swizzled layout (zeros past D and for positions at or past `end`).
-template <typename T, int DP>
-__device__ __forceinline__ void stage_tile_swz(unsigned char* dst,
-                                               const T* rows, long long ss,
-                                               int pos0, int end, int D,
-                                               int lane) {
-  constexpr int NC = DP / 8;  // 16-byte chunks per row
-  for (int idx = lane; idx < kTcTile * NC; idx += 32) {
-    const int r = idx / NC;
-    const int c = idx % NC;
-    const int pos = pos0 + r;
-    __align__(16) T tmp[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int d = c * 8 + e;
-      tmp[e] = (pos < end && d < D) ? rows[pos * ss + d] : from_f<T>(0.f);
-    }
-    *reinterpret_cast<uint4*>(dst + swz(r, c)) =
-        *reinterpret_cast<const uint4*>(tmp);
+// A block's one run of positions [t0, end), in tiles from t0.
+struct OneRun {
+  int t0, end;
+  __device__ __forceinline__ int count() const {
+    return (end - t0 + kTcTile - 1) / kTcTile;
   }
-}
+  __device__ __forceinline__ void tile(int it, int* pos0, int* e) const {
+    *pos0 = t0 + it * kTcTile;
+    *e = end;
+  }
+};
 
-// Grid (Hkv * ngrp, B, nsplit), kThreads threads: warps 0-3 compute, warp
-// 4 loads. A tile is kTcTile positions of K and of V, each DP / 64 TMA boxes
-// of 64 values; consumer warp w takes rows 16w..16w+15 of every tile:
-// S = Q K^T as mma.sync with the G heads of q in rows 0-7 of A (ldmatrix
-// reads K), a base-2 online softmax per head on the accumulator's
-// registers (a quad of lanes holds a head's 16 scores), then O += P V with
-// P as the A operand straight from those registers, as a 16-bit high part
-// plus the 16-bit rounding of its residual (P to ~2^-17, as K2 does), and
-// V read transposed by ldmatrix.
-template <typename T, int DP>
+// Grid (Hkv * ngrp, B, nsplit), kThreads threads: block sp takes the
+// chunk [lo + sp * CHUNK, ...) of its row's attended range through the
+// shared tensor-core block, the group's heads in rows 0-7 (NR = 1) or 0-15
+// (NR = 2) of A.
+template <typename T, int DP, int NR>
 __global__ void __launch_bounds__(kThreads)
     decode_mma_kernel(const Args a, const __grid_constant__ CUtensorMap tmk,
                       const __grid_constant__ CUtensorMap tmv) {
-  constexpr int NCB = DP / 64;
-  constexpr int kStages = tc_stages(DP);
-  constexpr int kTileBytes = kTcTile * DP * 2;  // K or V of one tile
-  extern __shared__ unsigned char smem_raw[];
-  const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t sbase = (raw + 1023) & ~1023u;  // swizzle atoms: 1024 B
-  unsigned char* smem = smem_raw + (sbase - raw);
-  const int red_bytes = kWarps * 8 * a.D * 4;
-  const uint32_t bars =
-      sbase + (kStages * 2 * kTileBytes > red_bytes ? kStages * 2 * kTileBytes
-                                                    : red_bytes);
-  auto full = [&](int st) { return bars + 8 * st; };
-  auto empty = [&](int st) { return bars + 8 * (kStages + st); };
-
   const int h = blockIdx.x / a.ngrp;
   const int g0 = (blockIdx.x % a.ngrp) * a.gs;  // first head of the group
   const int b = blockIdx.y;
   const int sp = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int G = min(a.gs, a.G - g0);  // heads of this block
-  const int D = a.D;
   int lo, hi;
   row_range(a.kv_len, b, a.Skv, a.window, &lo, &hi);
   const int t0 = lo + sp * a.chunk;
   if (t0 >= hi) return;  // uniform over the block; the merge skips it
-  const int end = min(hi, t0 + a.chunk);
-  const int ntile = (end - t0 + kTcTile - 1) / kTcTile;
-  const bool aligned = a.aligned != 0;
-
-  if (tid == 0) {
-    for (int st = 0; st < kStages; ++st) {
-      mbar_init(full(st), aligned ? 1 : 32);
-      mbar_init(empty(st), kConsumers);
-    }
-    kern::mbar_init_fence();
-  }
-  __syncthreads();
-
-  if (warp == kWarps) {  // producer: keeps the ring full
-    const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
-    const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
-    for (int it = 0; it < ntile; ++it) {
-      const int st = it % kStages;
-      const int pos0 = t0 + it * kTcTile;
-      if (aligned) {
-        if (lane == 0) {
-          if (it >= kStages)
-            mbar_wait(empty(st), ((it / kStages) & 1) ^ 1);
-          mbar_expect_tx(full(st), 2 * kTileBytes);
-          const uint32_t dk = sbase + st * 2 * kTileBytes;
-#pragma unroll
-          for (int cb = 0; cb < NCB; ++cb) {
-            kern::tma_load(dk + cb * kTcTile * 128, &tmk, cb * 64, h, pos0, b,
-                           full(st));
-            kern::tma_load(dk + kTileBytes + cb * kTcTile * 128, &tmv,
-                           cb * 64, h, pos0, b, full(st));
-          }
-        }
-      } else {
-        if (it >= kStages) mbar_wait(empty(st), ((it / kStages) & 1) ^ 1);
-        unsigned char* dst = smem + st * 2 * kTileBytes;
-        stage_tile_swz<T, DP>(dst, kb, a.k_ss, pos0, end, D, lane);
-        stage_tile_swz<T, DP>(dst + kTileBytes, vb, a.v_ss, pos0, end, D,
-                              lane);
-        mbar_arrive(full(st));
-      }
-    }
-    return;
-  }
-
-  // --- consumers. Fragment rows: head gq = lane / 4; t4 = lane % 4.
-  const int gq = lane >> 2;
-  const int t4 = lane & 3;
-  const int r0 = warp * 16;  // the warp's rows of each tile
-  // q's head gq as A fragments (16 values per k-step; zero past G and D)
-  uint32_t qa[DP / 16][2];
-  {
-    const uint16_t* q = reinterpret_cast<const uint16_t*>(a.q) +
-                        b * a.q_sb + (h * a.G + g0 + gq) * a.q_sh;
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int d = kk * 16 + half * 8 + 2 * t4;
-        const uint32_t x0 = (gq < G && d < D) ? q[d] : 0u;
-        const uint32_t x1 = (gq < G && d + 1 < D) ? q[d + 1] : 0u;
-        qa[kk][half] = x0 | (x1 << 16);
-      }
-  }
-  const float sl2 = a.scale * kLog2e;  // scores in base 2
-  float o[DP / 8][2];
-#pragma unroll
-  for (int nd = 0; nd < DP / 8; ++nd) o[nd][0] = o[nd][1] = 0.f;
-  float m = kNegInf;  // base 2
-  float l = 0.f;      // this lane's share (its quad sums it at the end)
-
-  for (int it = 0; it < ntile; ++it) {
-    const int st = it % kStages;
-    mbar_wait(full(st), (it / kStages) & 1);
-    const uint32_t sK = sbase + st * 2 * kTileBytes;
-    const uint32_t sV = sK + kTileBytes;
-    const int base = t0 + it * kTcTile + r0;  // position of the warp's row 0
-    const int live = end - base;              // live rows of the warp
-    if (live > 0) {
-      if (live < 16 && aligned) {
-        // the TMA loaded whatever the cache holds past `end`: zero those V
-        // rows, whose products would otherwise reach O (0 * NaN)
-        unsigned char* vt = smem + st * 2 * kTileBytes + kTileBytes;
-        for (int idx = lane; idx < (16 - live) * NCB * 8; idx += 32) {
-          const int r = r0 + live + idx / (NCB * 8);
-          const int c = idx % (NCB * 8);
-          *reinterpret_cast<uint4*>(vt + (c >> 3) * (kTcTile * 128) +
-                                    r * 128 + (c & 7) * 16) =
-              make_uint4(0u, 0u, 0u, 0u);
-        }
-        __syncwarp();
-      }
-      // S: the warp's 16 rows as two blocks of 8 positions
-      float s[2][2];
-#pragma unroll
-      for (int nb = 0; nb < 2; ++nb) {
-        float c0 = 0.f, c1 = 0.f;
-#pragma unroll
-        for (int k2 = 0; k2 < DP / 32; ++k2) {
-          uint32_t b0, b1, b2, b3;
-          ldsm_x4(sK + swz(r0 + nb * 8 + (lane & 7), k2 * 4 + (lane >> 3)),
-                  b0, b1, b2, b3);
-          mma_rows8<T>(c0, c1, qa[2 * k2][0], qa[2 * k2][1], b0, b1);
-          mma_rows8<T>(c0, c1, qa[2 * k2 + 1][0], qa[2 * k2 + 1][1], b2, b3);
-        }
-        s[nb][0] = c0;
-        s[nb][1] = c1;
-      }
-      // online softmax of head gq over its 16 scores (4 per lane of a quad)
-      bool ok[2][2];
-      float mx = kNegInf;
-#pragma unroll
-      for (int nb = 0; nb < 2; ++nb)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          ok[nb][e] = nb * 8 + 2 * t4 + e < live;
-          s[nb][e] = ok[nb][e] ? s[nb][e] * sl2 : kNegInf;
-          mx = fmaxf(mx, s[nb][e]);
-        }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m, mx);  // a real score: row 0 is live
-      const float alpha = exp2f(m - m_new);
-      m = m_new;
-      float ps = 0.f;
-#pragma unroll
-      for (int nb = 0; nb < 2; ++nb)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          s[nb][e] = ok[nb][e] ? exp2f(s[nb][e] - m_new) : 0.f;
-          ps += s[nb][e];
-        }
-      l = l * alpha + ps;
-#pragma unroll
-      for (int nd = 0; nd < DP / 8; ++nd) {
-        o[nd][0] *= alpha;
-        o[nd][1] *= alpha;
-      }
-      // P as A fragments: positions 2*t4 + {0, 1} (block 0) and + 8
-      // (block 1), high part and the rounding of the residual
-      const uint32_t ph0 = pack2<T>(s[0][0], s[0][1]);
-      const uint32_t ph2 = pack2<T>(s[1][0], s[1][1]);
-      const float2 h0 = kern::unpack2<T>(ph0);
-      const float2 h2 = kern::unpack2<T>(ph2);
-      const uint32_t pl0 = pack2<T>(s[0][0] - h0.x, s[0][1] - h0.y);
-      const uint32_t pl2 = pack2<T>(s[1][0] - h2.x, s[1][1] - h2.y);
-      // O += P V: V^T fragments of 16 head values per transposed load
-#pragma unroll
-      for (int n2 = 0; n2 < DP / 16; ++n2) {
-        uint32_t v0, v1, v2, v3;
-        ldsm_x4_trans(sV + swz(r0 + ((lane >> 3) & 1) * 8 + (lane & 7),
-                               n2 * 2 + (lane >> 4)),
-                      v0, v1, v2, v3);
-        mma_rows8<T>(o[2 * n2][0], o[2 * n2][1], ph0, ph2, v0, v1);
-        mma_rows8<T>(o[2 * n2][0], o[2 * n2][1], pl0, pl2, v0, v1);
-        mma_rows8<T>(o[2 * n2 + 1][0], o[2 * n2 + 1][1], ph0, ph2, v2, v3);
-        mma_rows8<T>(o[2 * n2 + 1][0], o[2 * n2 + 1][1], pl0, pl2, v2, v3);
-      }
-      if (live < 16 && aligned)  // generic writes before the next TMA fill
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    }
-    mbar_arrive(empty(st));  // this thread is done with the stage
-  }
-  l += __shfl_xor_sync(0xffffffffu, l, 1);
-  l += __shfl_xor_sync(0xffffffffu, l, 2);
-
-  // the warps' partials through shared memory (the ring is done with once
-  // every consumer has passed its last tile; the producer has exited)
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
-  float* red = reinterpret_cast<float*>(smem);  // [kWarps][8][D]
-  __shared__ float sm_m[kWarps][8];
-  __shared__ float sm_l[kWarps][8];
-  if (gq < G) {
-    if (t4 == 0) {
-      sm_m[warp][gq] = m * kLn2;  // natural log, as the partials keep it
-      sm_l[warp][gq] = l;
-    }
-#pragma unroll
-    for (int nd = 0; nd < DP / 8; ++nd)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int d = nd * 8 + 2 * t4 + e;
-        if (d < D) red[(warp * 8 + gq) * D + d] = o[nd][e];
-      }
-  }
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
-  store_partial<8>(a, red, sm_m, sm_l, b, h, g0, G, sp);
+  kern::mma_decode_block<T, DP, NR>(a, &tmk, &tmv,
+                                    OneRun{t0, min(hi, t0 + a.chunk)}, b, h,
+                                    g0, min(a.gs, a.G - g0), sp);
 }
 
 // One block per (b, q head): merges the row's live chunks.
@@ -818,20 +510,25 @@ cudaError_t launch_g(const Args& a, const CUtensorMap& tmk,
              : launch_split<T, MAXG, 1>(a, tmk, tmv, s);
 }
 
-template <typename T, int DP>
-cudaError_t launch_mma(const Args& a, const CUtensorMap& tmk,
-                       const CUtensorMap& tmv, cudaStream_t s) {
-  const int ring = tc_stages(DP) * 2 * kTcTile * DP * 2;
-  const int red = kWarps * 8 * a.D * 4;
-  const int smem = (ring > red ? ring : red) + 2 * tc_stages(DP) * 8 + 1024;
+template <typename T, int DP, int NR>
+cudaError_t launch_mma_nr(const Args& a, const CUtensorMap& tmk,
+                          const CUtensorMap& tmv, cudaStream_t s) {
+  const int smem = kern::dec_smem(DP, NR, a.D);
   cudaError_t err = cudaFuncSetAttribute(
-      decode_mma_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      decode_mma_kernel<T, DP, NR>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  decode_mma_kernel<T, DP>
+  decode_mma_kernel<T, DP, NR>
       <<<dim3(a.Hkv * a.ngrp, a.B, a.nsplit), kThreads, smem, s>>>(a, tmk,
                                                                    tmv);
   return cudaGetLastError();
+}
+
+template <typename T, int DP>
+cudaError_t launch_mma(const Args& a, const CUtensorMap& tmk,
+                       const CUtensorMap& tmv, cudaStream_t s) {
+  return a.gs <= 8 ? launch_mma_nr<T, DP, 1>(a, tmk, tmv, s)
+                   : launch_mma_nr<T, DP, 2>(a, tmk, tmv, s);
 }
 
 // float32 on the CUDA cores (mma.sync takes no float32 operands and TF32
@@ -849,7 +546,7 @@ cudaError_t launch(const Args& a, const CUtensorMap& tmk,
       default: err = launch_g<T, 8>(a, tmk, tmv, s); break;
     }
   } else {
-    switch (tc_dp(a.D)) {
+    switch (kern::dec_dp(a.D)) {
       case 64: err = launch_mma<T, 64>(a, tmk, tmv, s); break;
       case 128: err = launch_mma<T, 128>(a, tmk, tmv, s); break;
       case 192: err = launch_mma<T, 192>(a, tmk, tmv, s); break;
@@ -884,10 +581,10 @@ bool make_maps(CUtensorMap* tmk, CUtensorMap* tmv, const void* k,
   const int box = dtype == 0 ? D : 64;
   const bool sw = dtype != 0;
   return Skv > 0 &&
-         kern::make_map(tmk, k, dtype, B, Skv, Hkv, D, k_sb, k_ss, k_sh, box,
-                        tile, sw) &&
-         kern::make_map(tmv, v, dtype, B, Skv, Hkv, D, v_sb, v_ss, v_sh, box,
-                        tile, sw);
+         kern::cached_map(tmk, k, dtype, B, Skv, Hkv, D, k_sb, k_ss, k_sh,
+                          box, tile, sw) &&
+         kern::cached_map(tmv, v, dtype, B, Skv, Hkv, D, v_sb, v_ss, v_sh,
+                          box, tile, sw);
 }
 
 }  // namespace
@@ -896,7 +593,7 @@ bool make_maps(CUtensorMap* tmk, CUtensorMap* tmv, const void* k,
 // scratch with it). dtype: 0 float32, 1 bfloat16, 2 float16.
 extern "C" int flash_decode_chunk(int D, int dtype) {
   return dtype == 0 ? kTilesPerChunk * tile_positions(D, 4)
-                    : tc_tiles_per_chunk(tc_dp(D)) * kTcTile;
+                    : tc_tiles_per_chunk(kern::dec_dp(D)) * kTcTile;
 }
 
 // Whether the fast route serves these K and V views: both describable by a
@@ -943,13 +640,14 @@ extern "C" int flash_decode_launch(
   const int aligned = make_maps(&tmk, &tmv, k, v, B, Hkv, D, Skv, k_sb, k_ss,
                                 k_sh, v_sb, v_ss, v_sh, dtype);
   const long long Hq = static_cast<long long>(Hkv) * G;
+  const int cap = dtype == 0 ? 8 : 16;  // heads per group
   // normalize = 1: the merge writes out; 0: the merged partials
   Args a{q,      k,      v,     kv_len, po,     pm,
          pl,     normalize ? out : nullptr, normalize ? nullptr : o_out,
          m_out,  l_out,  B,     Hkv,    G,      D,
          Skv,    window, nsplit, chunk, tile_of(D, dtype),
-         lanes_per_position(D, es), aligned, heads_per_group(G),
-         head_groups(G), q_sb, q_sh, k_sb, k_ss,
+         lanes_per_position(D, es), aligned, heads_per_group(G, cap),
+         head_groups(G, cap), q_sb, q_sh, k_sb, k_ss,
          k_sh,   v_sb,   v_ss,  v_sh,   Hq * D, D,
          scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -1,15 +1,19 @@
 // Tensor Memory Accelerator (TMA) loads with mbarrier completion, for
-// sm_90a: the helpers the prefill attention (K2) and the decode (K3)
+// sm_90a: the helpers the prefill attention (K2) and the decode (K1, K3)
 // kernels share.
 //
 // Device side: mbarrier init / arrive / expect_tx / parity wait, and a 4-D
 // tensor-map load into shared memory whose completion is counted in bytes
 // on an mbarrier. Host side: cuTensorMapEncodeTiled, taken from the driver
-// the runtime already loaded (no driver library linked), and a 4-D map of a
-// (B, S, H, D) attention tensor read through its own strides.
+// the runtime already loaded (no driver library linked), a 4-D map of a
+// (B, S, H, D) attention tensor read through its own strides, and a cache
+// of such maps.
 #pragma once
 
+#include <array>
 #include <cstdint>
+#include <mutex>
+#include <unordered_map>
 
 #include <cuda.h>  // CUtensorMap and its enums (no driver library linked)
 #include <cuda_runtime.h>
@@ -129,6 +133,45 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int dtype, int B,
                         : CU_TENSOR_MAP_SWIZZLE_NONE,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// make_map through a cache of the maps made so far, keyed on every
+// argument: a map describes an address and a layout, not the values there,
+// so a hit is the map make_map would encode. A decode step reads the same
+// cache buffers layer after layer and step after step (56 maps for a
+// 28-layer model), so the host pays the encode once per buffer, not per
+// call. The cache is emptied when it passes 4,096 maps. Thread-safe.
+inline bool cached_map(CUtensorMap* map, const void* ptr, int dtype, int B,
+                       int S, int H, int D, long long sb, long long ss,
+                       long long sh, int box_d, int rows, bool swizzle128) {
+  using Key = std::array<long long, 12>;
+  struct Hash {
+    size_t operator()(const Key& key) const {
+      uint64_t h = 1469598103934665603ull;  // FNV-1a over the key's words
+      for (long long k : key) h = (h ^ static_cast<uint64_t>(k)) *
+                                  1099511628211ull;
+      return static_cast<size_t>(h);
+    }
+  };
+  struct Entry {
+    CUtensorMap map;
+    bool ok;
+  };
+  static std::mutex mu;
+  static std::unordered_map<Key, Entry, Hash> cache;
+  const Key key = {static_cast<long long>(reinterpret_cast<uintptr_t>(ptr)),
+                   dtype, B, S, H, D, sb, ss, sh, box_d, rows, swizzle128};
+  std::lock_guard<std::mutex> lock(mu);
+  auto it = cache.find(key);
+  if (it == cache.end()) {
+    if (cache.size() >= 4096) cache.clear();
+    Entry e;
+    e.ok = make_map(&e.map, ptr, dtype, B, S, H, D, sb, ss, sh, box_d, rows,
+                    swizzle128);
+    it = cache.emplace(key, e).first;
+  }
+  *map = it->second.map;
+  return it->second.ok;
 }
 
 }  // namespace kern

@@ -13,8 +13,8 @@ sequence-sharded cache is never gathered.
 A decode is bound by the bytes of K and V it reads, so the CUDA kernel
 (``csrc/flash_decode.cu``) reads each attended K/V row once for all G query
 heads of its KV-head group, straight from the cache's (B, S, Hkv, D)
-layout through a TMA-fed ring (a group of more than 8 query heads is
-split into head groups of at most 8, one block each, which read the row
+layout through a TMA-fed ring (a group of more than 16 query heads, 8 in
+float32, is split into head groups, one block each, which read the row
 once per group), and cuts each row's attended range into
 fixed chunks of ``chunk_positions(D, dtype)`` positions, one block each,
 whose float32 partials a second kernel merges with the log-sum-exp rule.
@@ -49,8 +49,9 @@ MAX_D = 256
 
 def supports(G: int, D: int, dtype) -> bool:
     """Does the CUDA kernel take ``G = Hq / Hkv`` query heads per KV head,
-    head dim ``D`` and ``dtype``? Any G >= 1 (groups wider than 8 are
-    split over blocks), D up to 256, float32 / bfloat16 / float16."""
+    head dim ``D`` and ``dtype``? Any G >= 1 (groups wider than 16, or 8
+    in float32, are split over blocks), D up to 256, float32 / bfloat16 /
+    float16."""
     return dtype in _DTYPE_CODE and G >= 1 and 1 <= D <= MAX_D
 
 

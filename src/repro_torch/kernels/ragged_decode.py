@@ -13,15 +13,16 @@ the caller. Rows that attend nothing (dead slots) give exact zeros.
 On Hopper the step is bound by the bytes of K and V it reads (a few flops
 per byte), so the CUDA kernel (``csrc/ragged_decode.cu``) visits only the
 attended positions of each row, splits them over blocks of ``chunk``
-positions (split-KV), stages each block's K/V rows through shared memory
-with ``cp.async`` straight from the cache's own (B, Skv, Hkv, D) layout,
-reads each row once for all G query heads of its KV-head group (G <= 8;
-a wider group is split into head groups of at most 8, one block each,
-which read the row once per group), and merges
-the float32 partials with the log-sum-exp rule in a second kernel of the
-same launch. The grid is sized from Skv alone, so a launch never reads the
-lengths back to the host. ``ragged_decode_split_reference`` is that
-decomposition in plain PyTorch, for the tests. See the source for the
+positions (split-KV) and merges the float32 partials with the log-sum-exp
+rule in a second kernel of the same launch. bf16 / fp16 run the tensor-core
+split block K3 shares, with up to 16 query heads of a KV head in one tile
+(so each K/V row is read once for G <= 16), fed by TMA into a
+shared-memory ring straight from the cache's own (B, Skv, Hkv, D) layout
+(the tensor maps cached per buffer); float32 runs on the CUDA cores with
+``cp.async``. ``split_plan`` sizes the grid from
+shapes alone (about one wave of the blocks an SM holds), so a launch never
+reads the lengths back to the host. ``ragged_decode_split_reference`` is
+that decomposition in plain PyTorch, for the tests. See the source for the
 design.
 
 ``ragged_decode`` takes its plain PyTorch version only for tensors on the
@@ -32,7 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -40,17 +41,23 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
              + [ctypes.c_longlong] * 10 + [ctypes.c_float, ctypes.c_int,
                                            ctypes.c_void_p])
-_CHUNKS = {}
+_GEOMETRY = {}
+_PLANS = {}
+_SMS = {}
+_ENTRY = {}
 MAX_D = 256
+# grids of about PLAN_WAVES waves of the split blocks the card holds at once
+PLAN_WAVES = 1
 
 
 def supports(G: int, D: int, dtype) -> bool:
     """Does the CUDA kernel take ``G = Hq / Hkv`` query heads per KV head,
-    head dim ``D`` and ``dtype``? Any G >= 1 (groups wider than 8 are
-    split over blocks), D up to 256, float32 / bfloat16 / float16."""
+    head dim ``D`` and ``dtype``? Any G >= 1 (groups wider than 16, or 8
+    in float32, are split over blocks), D up to 256, float32 / bfloat16 /
+    float16."""
     return dtype in _DTYPE_CODE and G >= 1 and 1 <= D <= MAX_D
 
 
@@ -145,16 +152,84 @@ def ragged_decode_split_reference(q, k, v, kv_len, prefix_lens=None, *,
     return out.reshape(B, Hq, D)
 
 
-def chunk_positions(G: int, D: int, dtype) -> int:
-    """Attended positions one split block of the CUDA kernel covers (the
-    scratch is sized with it); asked of the library once per geometry."""
-    key = (G, D, dtype)
-    if key not in _CHUNKS:
-        fn = _build.load("ragged_decode").ragged_decode_chunk
-        fn.argtypes = [ctypes.c_int] * 3
+class Geometry(NamedTuple):
+    """How the CUDA kernel runs a (G, D, dtype): on the tensor cores or the
+    CUDA cores, the split blocks one SM holds, the attended positions of
+    one tile (a split is a whole number of them), the CUDA cores' fixed
+    split (0 on the tensor cores) and the most query heads a block takes."""
+    tensor_cores: bool
+    resident: int
+    tile: int
+    fixed_chunk: int
+    head_cap: int
+
+
+def geometry(G: int, D: int, dtype, device) -> Geometry:
+    """The kernel's ``Geometry`` on ``device``, asked of the library once
+    per (G, D, dtype, device)."""
+    key = (G, D, dtype, device)
+    if key not in _GEOMETRY:
+        fn = _build.load("ragged_decode").ragged_decode_geometry
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _CHUNKS[key] = fn(G, D, _DTYPE_CODE[dtype])
-    return _CHUNKS[key]
+        out = (ctypes.c_int * 5)()
+        with torch.cuda.device(device):
+            err = fn(G, D, _DTYPE_CODE[dtype], ctypes.addressof(out))
+        if err != 0:
+            raise RuntimeError(f"ragged_decode geometry query failed: CUDA "
+                               f"error {err}")
+        _GEOMETRY[key] = Geometry(bool(out[0]), *out[1:])
+    return _GEOMETRY[key]
+
+
+def split_plan(B: int, Hkv: int, G: int, Skv: int, geom: Geometry,
+               sms: int) -> Tuple[int, int]:
+    """(nsplit, chunk): split blocks per (row, head group) and the attended
+    positions each takes, from shapes alone. The CUDA cores take their
+    fixed chunk. The tensor cores take whole tiles, as few per block as
+    keep the grid within ``PLAN_WAVES`` waves of ``geom.resident`` blocks
+    on each of ``sms`` SMs, so a full row's blocks all start at once and
+    none starts past Skv. nsplit stays within the grid's 65,535."""
+    ntile = max(1, -(-Skv // geom.tile))
+    if not geom.tensor_cores:
+        per = max(1, geom.fixed_chunk // geom.tile)
+    else:
+        groups = B * Hkv * -(-G // geom.head_cap)
+        want = max(1, PLAN_WAVES * geom.resident * sms // groups)
+        per = -(-ntile // min(want, ntile))
+    per = max(per, -(-ntile // 65535))
+    return max(1, -(-Skv // (per * geom.tile))), per * geom.tile
+
+
+def _sm_count(device) -> int:
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device]
+
+
+def plan(B: int, Hkv: int, G: int, D: int, Skv: int, dtype, device
+         ) -> Tuple[int, int]:
+    """``split_plan`` for a launch on ``device``, kept per shape."""
+    key = (B, Hkv, G, D, Skv, dtype, device)
+    if key not in _PLANS:
+        _PLANS[key] = split_plan(B, Hkv, G, Skv,
+                                 geometry(G, D, dtype, device),
+                                 _sm_count(device))
+    return _PLANS[key]
+
+
+def _entry():
+    """The library's launch function, its argument types set once per
+    library (a per-call set costs ~3 us of host time)."""
+    lib = _build.load("ragged_decode")
+    fn = _ENTRY.get(lib)
+    if fn is None:
+        fn = lib.ragged_decode_launch
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+        _ENTRY[lib] = fn
+    return fn
 
 
 def _launch(q, k, v, kv_len, pfx, prefix_len: int) -> torch.Tensor:
@@ -173,32 +248,28 @@ def _launch(q, k, v, kv_len, pfx, prefix_len: int) -> torch.Tensor:
         raise ValueError(f"prefix_len {prefix_len} outside [0, {Skv}]")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("ragged_decode needs a contiguous head dim")
-    for t in (k, v, kv_len, pfx):
-        if t.device != q.device:
-            raise ValueError("all ragged_decode inputs must share a device")
-    kv_len = kv_len.to(torch.int32).contiguous()
-    pfx = pfx.to(torch.int32).contiguous()
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("all ragged_decode inputs must share a device")
+    # per_row made the lengths int32 on q's device
+    kv_len, pfx = kv_len.contiguous(), pfx.contiguous()
     out = torch.empty((B, Hq, D), dtype=q.dtype, device=q.device)
     if B == 0:
         return out
     G = Hq // Hkv
-    nsplit = max(1, -(-Skv // chunk_positions(G, D, q.dtype)))
+    nsplit, chunk = plan(B, Hkv, G, D, Skv, q.dtype, q.device)
     # float32 partials: o (B, Hkv, nsplit, G, D), then m and l
     rows = B * Hkv * nsplit * G
     scratch = torch.empty(rows * (D + 2), dtype=torch.float32,
                           device=q.device)
-    fn = _build.load("ragged_decode").ragged_decode_launch
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
     base = scratch.data_ptr()
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-             pfx.data_ptr(), base, base + 4 * rows * D,
-             base + 4 * rows * (D + 1), out.data_ptr(), B, Hkv, G, D, Skv,
-             prefix_len, nsplit, q.stride(0), q.stride(1), k.stride(0),
-             k.stride(1), k.stride(2), v.stride(0), v.stride(1), v.stride(2),
-             out.stride(0), out.stride(1), 1.0 / math.sqrt(D),
-             _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device)
-             .cuda_stream)
+    err = _entry()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
+        pfx.data_ptr(), base, base + 4 * rows * D, base + 4 * rows * (D + 1),
+        out.data_ptr(), B, Hkv, G, D, Skv, prefix_len, nsplit, chunk,
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2), out.stride(0), out.stride(1),
+        1.0 / math.sqrt(D), _DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ragged_decode kernel launch failed: CUDA error "
                            f"{err}")

@@ -172,6 +172,162 @@ def test_split_kernel_counts_once_and_zeroes_dead_rows(cuda):
     assert bool(torch.isfinite(out.float()).all())
 
 
+# --- K1's tensor-core kernel: two runs per row, 16-head tiles, bulk
+# copies of whole rows (staged rows where a copy cannot take them)
+def _plain_f32(q, k, v, kv_len, pfx, P):
+    return ragged_decode_reference(q.float(), k.float(), v.float(), kv_len,
+                                   pfx, prefix_len=P)
+
+
+@pytest.fixture(params=[None, 8, 1], ids=["card", "sms8", "sms1"])
+def sms(request, monkeypatch):
+    """The plan on the card as it is, or as if it had 8 or 1 SMs (longer
+    splits: runs that cross inside one block, one split a row)."""
+    from repro_torch.kernels import ragged_decode as rd
+    monkeypatch.setattr(rd, "_PLANS", {})
+    if request.param is not None:
+        monkeypatch.setattr(rd, "_sm_count", lambda device: request.param)
+    return request.param
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("P,pfx", [
+    (300, [0, 0, 0]),           # empty buckets: one run a row
+    (300, [37, 100, 250]),      # the bucket's run ends inside a tile
+    (300, [300, 300, 300]),     # full buckets: the runs touch
+    (0, [0, 0, 0])])            # no bucket
+def test_mma_run_boundaries(cuda, sms, dtype, P, pfx):
+    """The bucket run and the self run of each row, wherever the bucket
+    ends (at 0, inside a tile, at prefix_len, no bucket), at splits of one
+    tile, of 8 tiles and of a whole row, element by element against the
+    plain version in float32."""
+    g = torch.Generator().manual_seed(P + sum(pfx))
+    B, S, Hq, Hkv, D = 3, 900, 16, 2, 128
+    q = torch.randn(B, Hq, D, generator=g).to(cuda, dtype)
+    k = torch.randn(B, S, Hkv, D, generator=g).to(cuda, dtype)
+    v = torch.randn(B, S, Hkv, D, generator=g).to(cuda, dtype)
+    kv_len = torch.tensor([P + 77, S, P + 1], dtype=torch.int32,
+                          device=cuda)
+    pf = torch.tensor(pfx, dtype=torch.int32, device=cuda)
+    out = ragged_decode(q, k, v, kv_len, pf, prefix_len=P)
+    want = _plain_f32(q, k, v, kv_len, pf, P)
+    torch.cuda.synchronize()
+    _close(out, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("G", [6, 8, 9, 12, 16, 17])
+def test_mma_head_groups(cuda, dtype, G):
+    """One 16-row tile for G up to 16 (rows 0-7 to G 8), two head groups at
+    17; float32 on the CUDA cores; a dead row is exact zeros."""
+    from repro_torch.kernels.ragged_decode import geometry
+    g = torch.Generator().manual_seed(G)
+    B, S, P, Hkv, D = 3, 700, 256, 2, 128
+    q = torch.randn(B, G * Hkv, D, generator=g).to(cuda, dtype)
+    k = torch.randn(B, S, Hkv, D, generator=g).to(cuda, dtype)
+    v = torch.randn(B, S, Hkv, D, generator=g).to(cuda, dtype)
+    kv_len = torch.tensor([0, 700, 401], dtype=torch.int32, device=cuda)
+    pf = torch.tensor([0, 256, 99], dtype=torch.int32, device=cuda)
+    before = ragged_decode.launches
+    out = ragged_decode(q, k, v, kv_len, pf, prefix_len=P)
+    assert ragged_decode.launches == before + 1
+    want = _plain_f32(q, k, v, kv_len, pf, P)
+    torch.cuda.synchronize()
+    _close(out, want, dtype)
+    assert torch.all(out[0] == 0)
+    assert geometry(G, D, dtype, cuda).tensor_cores == (
+        dtype != torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("D", [64, 80, 160, 256])
+def test_mma_head_dims(cuda, dtype, D):
+    """Head dims whose rows are not a multiple of 128 bytes (D 80, 160),
+    and D 64 and 256, at G 9, over a bucket with gaps and a dead row."""
+    g = torch.Generator().manual_seed(D)
+    B, S, P, Hkv, G = 3, 600, 200, 2, 9
+    q = torch.randn(B, G * Hkv, D, generator=g).to(cuda, dtype)
+    k = torch.randn(B, S, Hkv, D, generator=g).to(cuda, dtype)
+    v = torch.randn(B, S, Hkv, D, generator=g).to(cuda, dtype)
+    kv_len = torch.tensor([600, 0, 333], dtype=torch.int32, device=cuda)
+    pf = torch.tensor([200, 0, 51], dtype=torch.int32, device=cuda)
+    out = ragged_decode(q, k, v, kv_len, pf, prefix_len=P)
+    want = _plain_f32(q, k, v, kv_len, pf, P)
+    torch.cuda.synchronize()
+    _close(out, want, dtype)
+    assert torch.all(out[1] == 0)
+
+
+def _unaligned(x, how):
+    """x's values in a view a bulk copy cannot take: a base 2 elements off
+    16 bytes, or rows 4 elements apart beyond D."""
+    B, S, H, D = x.shape
+    if how == "base":
+        buf = torch.empty(x.numel() + 2, dtype=x.dtype, device=x.device)
+        view = buf[2:].view(B, S, H, D)
+    else:
+        view = torch.empty(B, S, H, D + 4, dtype=x.dtype,
+                           device=x.device)[..., :D]
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("how", ["base", "stride"])
+def test_mma_staged_rows(cuda, dtype, how):
+    """K/V views whose base or row stride is not a multiple of 16 bytes are
+    staged by the producer warp's plain loads: same kernel, same result."""
+    g = torch.Generator().manual_seed(7)
+    B, S, P, Hq, Hkv, D = 3, 500, 128, 24, 8, 128
+    q = torch.randn(B, Hq, D, generator=g).to(cuda, dtype)
+    k = torch.randn(B, S, Hkv, D, generator=g).to(cuda, dtype)
+    v = torch.randn(B, S, Hkv, D, generator=g).to(cuda, dtype)
+    ku, vu = _unaligned(k, how), _unaligned(v, how)
+    assert ku.data_ptr() % 16 or any(
+        (st * ku.element_size()) % 16 for st in ku.stride()[:3])
+    kv_len = torch.tensor([500, 0, 300], dtype=torch.int32, device=cuda)
+    pf = torch.tensor([100, 0, 128], dtype=torch.int32, device=cuda)
+    out = ragged_decode(q, ku, vu, kv_len, pf, prefix_len=P)
+    want = _plain_f32(q, k, v, kv_len, pf, P)
+    torch.cuda.synchronize()
+    _close(out, want, dtype)
+    assert torch.all(out[1] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("how", [None, "stride"])
+def test_nan_past_lengths_is_inert(cuda, dtype, how):
+    """NaN in every K and V row a row does not attend (the bucket's gap and
+    everything past kv_len) reaches nothing: the output equals the run on
+    zeros there, and dead rows stay exact zeros (the card twin of
+    test_torch_ragged_decode's test_garbage_beyond_lengths_is_inert)."""
+    g = torch.Generator().manual_seed(11)
+    B, S, P, Hq, Hkv, D = 4, 700, 256, 36, 4, 128
+    q = torch.randn(B, Hq, D, generator=g).to(cuda, dtype)
+    k = torch.randn(B, S, Hkv, D, generator=g).to(cuda, dtype)
+    v = torch.randn(B, S, Hkv, D, generator=g).to(cuda, dtype)
+    kv_len = torch.tensor([290, 0, 700, 256], dtype=torch.int32,
+                          device=cuda)
+    pf = torch.tensor([13, 0, 256, 200], dtype=torch.int32, device=cuda)
+    idx = torch.arange(S, device=cuda)[None]
+    dead = ~torch.where(idx < P, idx < pf[:, None], idx < kv_len[:, None])
+    dead = dead[:, :, None, None]
+    clean = ragged_decode(q, k.masked_fill(dead, 0), v.masked_fill(dead, 0),
+                          kv_len, pf, prefix_len=P)
+    kn, vn = k.masked_fill(dead, float("nan")), v.masked_fill(dead,
+                                                              float("nan"))
+    if how is not None:
+        kn, vn = _unaligned(kn, how), _unaligned(vn, how)
+    out = ragged_decode(q, kn, vn, kv_len, pf, prefix_len=P)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out.float()).all())
+    assert torch.equal(out, clean)
+    assert torch.all(out[1] == 0)
+
+
 def test_scheduler_on_card_matches_serial(cuda):
     """The slice on the card at a small float32 size: the scheduler on the
     kernel backend is token-identical to serve_serial on the plain one."""

@@ -25,7 +25,9 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_reference, flash_attention_split_reference, kv_tile,
     split_plan)
 from repro_torch.kernels.ragged_decode import (
-    attended_counts, ragged_decode_reference, ragged_decode_split_reference)
+    Geometry, attended_counts, ragged_decode_reference,
+    ragged_decode_split_reference)
+from repro_torch.kernels.ragged_decode import split_plan as ragged_plan
 from repro_torch.kernels.rwkv_scan import wkv6_reference, wkv6_split_reference
 
 F32 = dict(atol=2e-5, rtol=2e-5)
@@ -108,6 +110,83 @@ def test_attended_counts():
     n, pc = attended_counts(kl, pf, 40, 10)
     assert n.tolist() == [0, 3, 29, 34, 12]
     assert pc.tolist() == [0, 3, 9, 4, 10]
+
+
+def _tc(resident):
+    """K1's tensor-core geometry: 64-position tiles, 16 heads a block."""
+    return Geometry(True, resident, 64, 0, 16)
+
+
+# K1's host plan at the served geometries (B, Hkv, G, Skv) and the blocks
+# an SM holds: llama3.2-3b-pair's table, the long cache, qwen1.5 (G 8),
+# internlm2 (G 6), starcoder2 (G 9: one group of 9), pixtral, gemma3 (G 2
+# at D 256: one block an SM), olmoe and whisper (MHA), zamba2 (MHA, 32 KV
+# heads), a G 17 (two groups), a short and an empty table
+@pytest.mark.parametrize("B,Hkv,G,Skv,resident", [
+    (4, 8, 3, 2079, 2), (8, 8, 3, 4096, 2), (4, 8, 8, 1064, 2),
+    (4, 8, 6, 1064, 3), (4, 4, 9, 1064, 2), (4, 8, 4, 1064, 2),
+    (4, 4, 2, 2088, 1), (4, 16, 1, 2088, 3), (4, 16, 1, 408, 4),
+    (4, 32, 1, 281, 3), (4, 2, 17, 3000, 2), (1, 1, 1, 40, 4),
+    (2, 8, 3, 0, 2)])
+def test_ragged_split_plan_fills_the_card(B, Hkv, G, Skv, resident):
+    """The tensor cores' plan: whole 64-position tiles per split, no split
+    that starts past Skv (so none is empty on a full row), a grid within
+    one wave of the blocks the card holds (unless one split per head group
+    already passes it) and over half of that wave where the rows have the
+    tiles to fill it."""
+    sms = 132
+    geom = _tc(resident)
+    nsplit, chunk = ragged_plan(B, Hkv, G, Skv, geom, sms)
+    assert chunk % 64 == 0 and chunk >= 64
+    assert nsplit == max(1, -(-Skv // chunk))
+    assert (nsplit - 1) * chunk < max(Skv, 1)
+    groups = B * Hkv * -(-G // 16)
+    ntile = max(1, -(-Skv // 64))
+    blocks, wave = groups * nsplit, resident * sms
+    assert blocks <= max(wave, groups)
+    assert 2 * blocks >= min(wave, groups * ntile)
+
+
+def test_ragged_split_plan_routes_and_limits():
+    """The CUDA cores keep their fixed chunk; PLAN_WAVES scales the grid;
+    nsplit never passes the grid's 65,535, however long the cache."""
+    from repro_torch.kernels import ragged_decode as rd
+    core = Geometry(False, 4, 16, 64, 8)
+    assert ragged_plan(4, 8, 3, 2079, core, 132) == (33, 64)
+    assert ragged_plan(4, 8, 3, 0, core, 132) == (1, 64)
+    one = ragged_plan(4, 8, 8, 1064, _tc(2), 132)
+    saved = rd.PLAN_WAVES
+    try:
+        rd.PLAN_WAVES = 2
+        two = ragged_plan(4, 8, 8, 1064, _tc(2), 132)
+    finally:
+        rd.PLAN_WAVES = saved
+    assert one == (6, 192) and two == (9, 128)
+    for geom in (_tc(1), core):
+        nsplit, chunk = ragged_plan(1, 1, 1, 2 ** 23, geom, 132)
+        assert nsplit <= 65535 and nsplit * chunk >= 2 ** 23
+
+
+# K1's split at the chunks its plan gives (whole 64-position tiles) on a
+# small card: runs that cross a chunk, a gap in the bucket, a dead row, a
+# row whose bucket is empty and one that attends only its bucket
+@pytest.mark.parametrize("sms,resident,G", [(1, 1, 9), (1, 2, 3), (2, 1, 1),
+                                            (8, 4, 17)])
+def test_ragged_split_at_planned_chunks(sms, resident, G):
+    rng = np.random.default_rng(sms * 10 + resident + G)
+    B, S, P, Hkv, D = 4, 700, 300, 2, 16
+    nsplit, chunk = ragged_plan(B, Hkv, G, S, _tc(resident), sms)
+    assert chunk % 64 == 0 and nsplit * chunk >= S
+    q, k, v = (_randn(rng, B, G * Hkv, D), _randn(rng, B, S, Hkv, D),
+               _randn(rng, B, S, Hkv, D))
+    kl = np.array([650, 0, 700, 250], np.int32)
+    pf = np.array([37, 0, 0, 250], np.int32)
+    split = ragged_decode_split_reference(t(q), t(k), t(v), t(kl), t(pf),
+                                          prefix_len=P, chunk=chunk)
+    oracle = np.asarray(ragged_oracle(q, k, v, kv_len=kl, prefix_lens=pf,
+                                      prefix_len=P))
+    np.testing.assert_allclose(split.numpy(), oracle, **F32)
+    np.testing.assert_array_equal(split.numpy()[1], 0.0)
 
 
 # K2: (B, Sq, Sc, G, Hkv, D, causal, window, mass, nsplit)

@@ -16,9 +16,14 @@ VARIANTS = [(spec, v) for spec in SPECS for v in json.loads(spec.read_text())]
 @pytest.mark.parametrize("spec,variant", VARIANTS,
                          ids=[f"{s.stem}-{v[0]}" for s, v in VARIANTS])
 def test_variant_edits_apply(spec, variant):
-    name, source, edits, check = variant
+    name, source, edits, check, *settings = variant
     assert (CSRC / f"{source}.cu").exists(), f"{name}: no csrc/{source}.cu"
     assert isinstance(check, bool)
+    # wrapper constants set for the variant's run, each one the wrapper has
+    assert len(settings) <= 1
+    for key in (settings[0] if settings else {}):
+        wrapper = (CSRC.parent / f"{source}.py").read_text()
+        assert f"\n{key} = " in wrapper, f"{name}: no {key} in {source}.py"
     if isinstance(edits, str):      # another version of csrc/, built as is
         return
     for old, new, *where in edits:  # the source, or a named header

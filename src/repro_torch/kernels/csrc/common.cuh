@@ -1,6 +1,6 @@
 // Helpers shared by the port's attention and scan kernels (sm_90a):
-// conversions between the storage types and float32, 16-byte cp.async
-// copies, and warp reductions.
+// conversions between the storage types and float32, 16- and 4-byte
+// cp.async copies, and warp reductions.
 #pragma once
 
 #include <cstdint>
@@ -37,6 +37,13 @@ __device__ __forceinline__ __half from_f<__half>(float x) {
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+// 4-byte copies (cp.async, cached in L1 and L2): any float's address
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
                "l"(gmem)
                : "memory");
 }

@@ -767,6 +767,166 @@ def test_wkv6_reads_strided_inputs(cuda):
     torch.testing.assert_close(s, rs, atol=1e-4, rtol=1e-4)
 
 
+def _wkv_inputs(dev, B, T, H, hd, decay, seed):
+    """K4 inputs from a seed: ``sigmoid`` decays, the model's law
+    exp(-exp(x)) with x uniform in [-6, 6] (exact zeros and w near 1), or
+    slow decays in [0.99, 1)."""
+    g = torch.Generator().manual_seed(seed)
+    r, k, v = (torch.randn(B, T, H, hd, generator=g) for _ in range(3))
+    x = torch.rand(B, T, H, hd, generator=g)
+    w = {"sigmoid": lambda: torch.sigmoid(12 * x - 6),
+         "law": lambda: torch.exp(-torch.exp(12 * x - 6)),
+         "slow": lambda: 0.99 + 0.01 * x}[decay]()
+    u = torch.randn(H, hd, generator=g)
+    s0 = 0.1 * torch.randn(B, H, hd, hd, generator=g)
+    return [t.to(dev) for t in (r, k, v, w, u, s0)]
+
+
+def _within_rms_rule(got, want, tol=1e-4):
+    """|kernel - plain| <= tol * rms(plain) + tol * |plain|, element by
+    element (chip_smoke.py's rule)."""
+    allow = tol * want.square().mean().sqrt() + tol * want.abs()
+    return bool(((got - want).abs() <= allow).all())
+
+
+@pytest.mark.parametrize("B,T,H,decay", [
+    (4, 2049, 32, "law"),       # rwkv6-1.6b's prefill, exact zeros in w
+    (4, 2049, 32, "slow"),      # state growing over 2,049 steps
+    (1, 8192, 32, "sigmoid"),   # one row's long prefill (time segments)
+])
+def test_wkv6_chunked_at_long_prefills(cuda, B, T, H, decay):
+    """The chunked kernel at the served widths (heads of 64) against the
+    plain scan, with the decay laws that stress its factoring."""
+    from repro_torch.kernels.rwkv_scan import plan, wkv6, wkv6_reference
+    r, k, v, w, u, s0 = _wkv_inputs(cuda, B, T, H, 64, decay, seed=T + B)
+    if decay == "law":
+        assert bool((w == 0).any())
+    assert plan(B, T, H, 64, cuda)[0] == "chunk"
+    y, s = wkv6(r, k, v, w, u, s0)
+    ry, rs = wkv6_reference(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert _within_rms_rule(y, ry) and _within_rms_rule(s, rs)
+
+
+@pytest.mark.parametrize("dT", [-15, -1, 0, 1, 2, 48])
+def test_wkv6_both_regimes(cuda, dT):
+    """T on both sides of the plan's threshold: the streaming kernel at
+    T <= STREAM_MAX_T, the chunked one above (T 1 and the receiver's 16
+    included), at the served heads and with the model's decay law."""
+    from repro_torch.kernels.rwkv_scan import (STREAM_MAX_T, plan, wkv6,
+                                               wkv6_reference)
+    T = STREAM_MAX_T + dT
+    r, k, v, w, u, s0 = _wkv_inputs(cuda, 4, T, 32, 64, "law", seed=T)
+    want = "stream" if T <= STREAM_MAX_T else "chunk"
+    assert plan(4, T, 32, 64, cuda)[0] == want
+    y, s = wkv6(r, k, v, w, u, s0)
+    ry, rs = wkv6_reference(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, ry, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(s, rs, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("hd", [8, 16, 32, 64, 128])
+def test_wkv6_chunked_every_head_dim(cuda, monkeypatch, hd):
+    """The chunked kernel at each head dim (the plan forced: whole heads,
+    one segment), T off the chunk, the model's decay law."""
+    from repro_torch.kernels import rwkv_scan
+    monkeypatch.setattr(rwkv_scan, "plan", lambda *args: ("chunk", 1))
+    r, k, v, w, u, s0 = _wkv_inputs(cuda, 2, 150, 3, hd, "law", seed=hd)
+    y, s = rwkv_scan.wkv6(r, k, v, w, u, s0)
+    ry, rs = rwkv_scan.wkv6_reference(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, ry, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(s, rs, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("hd,T,nseg", [(64, 1000, 2), (64, 1000, 3),
+                                       (64, 2049, 4), (128, 777, 3),
+                                       (16, 300, 5), (8, 129, 2)])
+def test_wkv6_time_segments(cuda, monkeypatch, hd, T, nseg):
+    """The chunked kernel with a head's steps in time segments of whole
+    chunks (the state pass, then the output pass), the plan forced, the
+    model's decay law, a non-zero s0; the last segment short."""
+    from repro_torch.kernels import rwkv_scan
+    monkeypatch.setattr(rwkv_scan, "plan", lambda *args: ("chunk", nseg))
+    r, k, v, w, u, s0 = _wkv_inputs(cuda, 2, T, 3, hd, "law", seed=T + hd)
+    y, s = rwkv_scan.wkv6(r, k, v, w, u, s0)
+    ry, rs = rwkv_scan.wkv6_reference(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, ry, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(s, rs, atol=1e-4, rtol=1e-4)
+
+
+def test_wkv6_time_segments_stage_unaligned_inputs(cuda, monkeypatch):
+    """Time segments through the staged route (a base off 16 bytes)."""
+    from repro_torch.kernels import rwkv_scan
+    monkeypatch.setattr(rwkv_scan, "plan", lambda *args: ("chunk", 3))
+    buf = torch.randn(4, 2, 450, 3, 65, device=cuda)
+    r, k, v, w = (buf[i, ..., 1:] for i in range(4))
+    w = torch.sigmoid(w)
+    u = torch.randn(3, 64, device=cuda)
+    s0 = torch.randn(2, 3, 64, 64, device=cuda)
+    y, s = rwkv_scan.wkv6(r, k, v, w, u, s0)
+    ry, rs = rwkv_scan.wkv6_reference(r, k, v, w, u, s0)
+    torch.testing.assert_close(y, ry, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(s, rs, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("C,Q", [(150, 16), (128, 16), (2049, 40)])
+def test_wkv6_continued_call_matches_one_call(cuda, C, Q):
+    """A call over [C; Q] and a call over C, then one over Q from its
+    state, give the same y for Q and the same state, bit for bit (the steps
+    past a call's last whole chunk are streamed), as the sequential scan
+    does: what state sharing's skyline compares."""
+    from repro_torch.kernels.rwkv_scan import wkv6
+    r, k, v, w, u, s0 = _wkv_inputs(cuda, 2, C + Q, 4, 64, "law", seed=C)
+    y, s = wkv6(r, k, v, w, u, s0)
+    _, sc = wkv6(*(x[:, :C] for x in (r, k, v, w)), u, s0)
+    yq, sq = wkv6(*(x[:, C:] for x in (r, k, v, w)), u, sc)
+    torch.cuda.synchronize()
+    assert torch.equal(y[:, C:], yq) and torch.equal(s, sq)
+
+
+@pytest.mark.parametrize("layout", ["strided", "unaligned"])
+def test_wkv6_chunk_tail_reads_strided_and_unaligned_inputs(cuda, layout):
+    """The steps past the last whole chunk, streamed by the chunked
+    kernel's blocks, read transposed (16-byte copies) and unaligned (4-byte
+    copies) inputs."""
+    from repro_torch.kernels.rwkv_scan import plan, wkv6, wkv6_reference
+    T = 150
+    if layout == "strided":
+        r, k, v, w = (torch.randn(2, 3, T, 64, device=cuda).transpose(1, 2)
+                      for _ in range(4))
+    else:
+        buf = torch.randn(4, 2, T, 3, 65, device=cuda)
+        r, k, v, w = (buf[i, ..., 1:] for i in range(4))
+    w = torch.sigmoid(w)
+    u = torch.randn(3, 64, device=cuda)
+    s0 = torch.randn(2, 3, 64, 64, device=cuda)
+    assert plan(2, T, 3, 64, cuda)[0] == "chunk"
+    y, s = wkv6(r, k, v, w, u, s0)
+    ry, rs = wkv6_reference(r, k, v, w, u, s0)
+    torch.testing.assert_close(y, ry, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(s, rs, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("T", [0, 5])
+def test_wkv6_streams_unaligned_and_strided_inputs(cuda, T):
+    """The streaming kernel reads any base and stride (4-byte copies); an
+    unaligned state is copied to an aligned one; T 0 passes s0 through."""
+    from repro_torch.kernels.rwkv_scan import wkv6, wkv6_reference
+    buf = torch.randn(4, 2, T, 3, 33, device=cuda)
+    r, k, v, w = (buf[i, ..., 1:] for i in range(4))
+    w = torch.sigmoid(w)
+    u = torch.randn(3, 32, device=cuda)
+    s0 = torch.randn(2 * 3 * 32 * 32 + 1, device=cuda)[1:].view(2, 3, 32, 32)
+    y, s = wkv6(r, k, v, w, u, s0)
+    ry, rs = wkv6_reference(r, k, v, w, u, s0)
+    assert y.shape == (2, T, 3, 32)
+    torch.testing.assert_close(y, ry, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(s, rs, atol=1e-4, rtol=1e-4)
+
+
 def test_distributed_decode_on_card(cuda):
     """The sharded decode: one K3 launch per shard plus one for the
     monolithic decode, and the combine agrees with it."""

@@ -2,8 +2,9 @@
 split over attended positions (``ragged_decode_split_reference``), K2's
 GQA row packing with a split KV range (``flash_attention_split_reference``),
 K3's fixed chunks of the attended range (``decode_split_reference``), each
-merged with the log-sum-exp rule, and K4's column-blocked, time-chunked
-scan (``wkv6_split_reference``). Each is held to the plain version the
+merged with the log-sum-exp rule, and K4's chunked form with its decays
+factored at sub-chunk boundaries (``wkv6_chunk_reference``), with the
+wrapper's plan of kernel and grid. Each is held to the plain version the
 wrapper runs for CPU tensors and to the JAX oracles
 (``ref.ragged_decode_reference``, ``ref.mha_reference``,
 ``ref.decode_partial_reference`` with ``ref.combine_decode_partials``,
@@ -28,7 +29,8 @@ from repro_torch.kernels.ragged_decode import (
     Geometry, attended_counts, ragged_decode_reference,
     ragged_decode_split_reference)
 from repro_torch.kernels.ragged_decode import split_plan as ragged_plan
-from repro_torch.kernels.rwkv_scan import wkv6_reference, wkv6_split_reference
+from repro_torch.kernels.rwkv_scan import (
+    STREAM_MAX_T, wkv6_chunk_reference, wkv6_plan, wkv6_reference)
 
 F32 = dict(atol=2e-5, rtol=2e-5)
 
@@ -282,22 +284,89 @@ def test_decode_split_counts():
     assert lo.tolist() == [0, 0, 20, 89] and hi.tolist() == [0, 5, 30, 40]
 
 
-# K4: (B, T, H, hd, jb, chunk): T off the chunk, hd 8 and 64, JB < hd
-@pytest.mark.parametrize("B,T,H,hd,jb,chunk", [
-    (2, 40, 3, 8, 8, 32),        # hd 8, one column block, T off the chunk
-    (1, 37, 2, 64, 32, 16),      # two column blocks, T off the chunk
-    (2, 20, 1, 64, 16, 32),      # four column blocks, one short chunk
+def _decays(rng, kind, shape):
+    """w for a K4 case: ``sigmoid`` of a normal draw; ``law``, the model's
+    exp(-exp(x)) with x uniform in [-6, 6] (exact zeros above x ~ 4.5, w
+    near 1 at the bottom); ``law_ones``, the same with every other step's
+    w 1 (the JAX wrapper's padding); ``slow``, w in [0.99, 1)."""
+    if kind == "sigmoid":
+        w = 1.0 / (1.0 + np.exp(-_randn(rng, *shape)))
+    elif kind == "slow":
+        w = rng.uniform(0.99, 1.0, shape)
+    else:
+        w = np.exp(-np.exp(rng.uniform(-6.0, 6.0, shape)))
+        if kind == "law_ones":
+            w[:, ::2] = 1.0
+    return w.astype(np.float32)
+
+
+# K4: (B, T, H, hd, chunk, decay, segments): T off the chunk and the
+# sub-chunk, T 1 and T 0, hd 8 and 64, chunks of 64 and 32, the model's
+# decay law with exact zeros, w = 1 steps, slow decays, time segments; a
+# non-zero s0 throughout
+@pytest.mark.parametrize("B,T,H,hd,chunk,decay,segments", [
+    (2, 40, 3, 8, 64, "sigmoid", 1),   # hd 8, T off the chunk and sub-chunk
+    (1, 150, 2, 64, 64, "law", 1),     # hd 64, three chunks, exact zeros
+    (2, 37, 1, 16, 32, "law_ones", 1),  # chunk 32, w = 1 every other step
+    (1, 99, 2, 64, 32, "slow", 1),     # w in [0.99, 1): the state grows
+    (1, 1, 2, 8, 64, "law", 1),        # one step
+    (1, 0, 2, 8, 64, "sigmoid", 1),    # no step: y empty, the state passes
+    (1, 300, 2, 16, 64, "law", 3),     # three time segments, the last short
+    (2, 129, 1, 8, 32, "sigmoid", 4),  # segments of whole chunks: 3 of 4
 ])
-def test_wkv6_split_matches_plain_and_oracle(B, T, H, hd, jb, chunk):
-    rng = np.random.default_rng(T * hd + jb)
+def test_wkv6_split_matches_plain_and_oracle(B, T, H, hd, chunk, decay,
+                                             segments):
+    rng = np.random.default_rng(T * hd + chunk)
     r, k, v = (_randn(rng, B, T, H, hd) for _ in range(3))
-    w = 1.0 / (1.0 + np.exp(-_randn(rng, B, T, H, hd)))
+    w = _decays(rng, decay, (B, T, H, hd))
+    if decay == "law" and T > 1:
+        assert (w == 0).any() and (w > 0.99).any()
     u = _randn(rng, H, hd)
     s0 = _randn(rng, B, H, hd, hd)
-    xs = (r, k, v, w.astype(np.float32), u, s0)
-    y, s = wkv6_split_reference(*(t(x) for x in xs), jb=jb, chunk=chunk)
+    xs = (r, k, v, w, u, s0)
+    y, s = wkv6_chunk_reference(*(t(x) for x in xs), chunk=chunk,
+                                segments=segments)
     py, ps = wkv6_reference(*(t(x) for x in xs))
     jy, js = wkv_oracle(*xs)
+    assert y.shape == (B, T, H, hd) and s.shape == (B, H, hd, hd)
     for a, b in ((y, py), (s, ps), (y, jy), (s, js)):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4,
                                    rtol=1e-4)
+
+
+def test_wkv6_chunk_zero_decay_resets_the_state():
+    """w = 0 at a step drops the state before it exactly, as the
+    reference's 0 * S does: no log floor leaves a trace of s0."""
+    rng = np.random.default_rng(5)
+    B, T, H, hd = 1, 40, 1, 8
+    r, k, v = (_randn(rng, B, T, H, hd) for _ in range(3))
+    w = np.full((B, T, H, hd), 0.9, np.float32)
+    w[:, 20] = 0.0
+    u = _randn(rng, H, hd)
+    s0 = _randn(rng, B, H, hd, hd)
+    xs = [t(x) for x in (r, k, v, w, u, s0)]
+    y, s = wkv6_chunk_reference(*xs)
+    xs[5] = xs[5] * 1e6                    # a wildly different s0
+    y2, s2 = wkv6_chunk_reference(*xs)
+    assert torch.equal(y[:, 21:], y2[:, 21:]) and torch.equal(s, s2)
+
+
+@pytest.mark.parametrize("B,T,H,hd,want", [
+    (4, 1, 32, 64, ("stream", 1)),        # RWKV6's decode step
+    (4, STREAM_MAX_T, 32, 64, ("stream", 1)),   # the receiver's T 16
+    (4, 0, 32, 64, ("stream", 1)),        # no step
+    (4, STREAM_MAX_T + 1, 32, 64, ("chunk", 1)),
+    (4, 2049, 32, 64, ("chunk", 1)),      # the sender's prefill: 128 heads
+    (2, 2049, 32, 64, ("chunk", 2)),      # 64 heads: two time segments
+    (1, 8192, 32, 64, ("chunk", 4)),      # one row: four segments
+    (1, 8192, 32, 128, ("chunk", 4)),     # (chunks of 32 at hd 128)
+    (1, 100000, 2, 64, ("chunk", 8)),     # at most SEGMENT_MAX
+    (1, 700, 32, 64, ("chunk", 2)),       # each segment >= 4 chunks
+    (1, 500, 32, 64, ("chunk", 1)),       # too short for two
+    (1, 200, 3, 8, ("chunk", 1)),
+])
+def test_wkv6_plan_regime_and_grid(B, T, H, hd, want):
+    """The wrapper's plan, from shapes alone: the streaming kernel at T <=
+    STREAM_MAX_T, else the chunked kernel with a block a head and, where
+    that leaves 0.9 x 132 SMs unfilled, each head's steps in segments."""
+    assert wkv6_plan(B, T, H, hd, 132) == want

@@ -28,12 +28,17 @@ chip_smoke.py cases of its kernel (K1: full_width_serving, long_cache,
 zamba2_shared_attn and the decoder configs' served geometries of
 chip_smoke.py's ARCH_K1_CASES in bf16; K2: sender_prefill_2049,
 receiver_prefill_mass and gemma3_local_window; K3: long_cache_32k at G 3
-and G 9, gemma3_window_decode and the sharded decode; K4:
-rwkv6_1_6b_scan), in the order of the file and then reversed, so that each
+and G 9, gemma3_window_decode and the sharded decode; K4: the entry point's
+rwkv6_1_6b_scan and one row of 8,192, and chip_smoke.py's state-sharing
+rows, the served prefill at T 2049, the receiver's T 16 and a decode
+step, then the rwkv6-1.6b
+sender's prefill of 4 x 2,049 tokens, host clock, with the variant in its
+24 time mixes), in the order of the file and then reversed, so that each
 variant is timed twice around the others on one card. A checked variant is
 held against the plain version as chip_smoke.py holds the kernel. One JSON
 line per variant and pass: device ms (the call queued behind a sleeping
-kernel), the tolerance ratio, the event ms and the host's enqueue ms;
+kernel), the tolerance ratio, the event ms, the host's enqueue ms, the
+bound and the plain version's device ms;
 then one line of the host's enqueue ms of every checked variant at its
 kernel's first case, timed in turns.
 """
@@ -121,12 +126,31 @@ def host_ms(fn, n=50, reps=15):
     return min(ts)
 
 
+def rwkv6_sender(dev):
+    """chip_smoke.py's rwkv6-1.6b sender (published widths, bf16, random
+    weights from seed 0) and its 4 contexts of 2,048 tokens: a call exports
+    their states, the prefill of 2,049 positions with K4 in each of its 24
+    time mixes."""
+    import numpy as np
+    from repro_torch.comm import Agent
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import pairs
+    from repro_torch.models import transformer as tfm
+    cfg = get_config("rwkv6-1.6b")
+    params = tfm.init_params(cfg, 0, device=dev)
+    sender = Agent("sender", cfg, params, pairs.pair_tokenizer())
+    ctx = np.random.default_rng(0).integers(
+        4, cfg.vocab_size, (4, 2048)).astype(np.int32)
+    return lambda: sender.export_kv(ctx)
+
+
 def main(argv):
     import numpy as np
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ragged_decode as rd
+    from repro_torch.kernels import rwkv_scan as rs
     from repro_torch.launch import distributed_decode
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device", file=sys.stderr)
@@ -159,14 +183,25 @@ def main(argv):
                            pad=0 if name in cs.ARCH_K1_UNBUCKETED else 15)
         cases[name] = cs.rd_case(name, *x, P)
         k1.append(name)
+    # K4 at the state-sharing phase's rows (4 x 32 heads of 64; the
+    # entry point holds the scan at T 2048 and the one row of 8,192)
+    for name, B, T, seed in [("rwkv6_served_prefill", 4, 2049, 20),
+                             ("rwkv6_receiver_prefill", 4, 16, 24),
+                             ("rwkv6_served_decode", 4, 1, 21)]:
+        cases[name] = cs.wkv_case(dev, name, B, T, 32, 64, seed=seed,
+                                  plain_iters=1)
+    sender = rwkv6_sender(dev) if any(
+        src == "rwkv_scan" for _, src, *_ in variants) else None
     by_source = {
         "ragged_decode": k1,
         "flash_attention": ["sender_prefill_2049", "receiver_prefill_mass",
                             "gemma3_local_window"],
         "flash_decode": ["long_cache_32k", "long_cache_32k_g9",
                          "gemma3_window_decode"],
-        "rwkv_scan": ["rwkv6_1_6b_scan"]}
-    wrappers = {"ragged_decode": rd, "flash_decode": fd}
+        "rwkv_scan": ["rwkv6_served_prefill", "rwkv6_receiver_prefill",
+                      "rwkv6_served_decode", "rwkv6_long_prefill_8192",
+                      "rwkv6_1_6b_scan"]}
+    wrappers = {"ragged_decode": rd, "flash_decode": fd, "rwkv_scan": rs}
     # the sharded decode of chip_smoke.py's phase 6
     B, Hq, Hkv, D, S = 4, 24, 8, 128, 32768
     lens = torch.as_tensor(np.random.default_rng(0).integers(S // 2, S + 1,
@@ -184,6 +219,7 @@ def main(argv):
         fd._CHUNKS.clear()
         rd._GEOMETRY.clear()
         rd._PLANS.clear()
+        rs._PLANS.clear()
         launch, settings = spec[name]
         mod = wrappers.get(src)
         if mod is None:
@@ -206,11 +242,15 @@ def main(argv):
                 res[cn] = {"device_ms": r["device_ms"], "ms": r["ms"],
                            "host_ms": host_ms(case["run"]),
                            "tol_ratio": r["tol_ratio"],
+                           "bound_ms": r["bound_ms"],
+                           "plain_device_ms": r["plain_device_ms"],
                            "sdpa_device_ms": r["library_device_ms"]}
             else:
                 torch.cuda.synchronize()
                 res[cn] = {"device_ms": cs.time_ms(case["run"], flush=flush,
                                                    queue_ahead=True)}
+        if src == "rwkv_scan" and check:
+            res["sender_prefill_ms"] = cs.wall_ms(sender, n=5)
         if src == "flash_decode":
             res["sharded_device_ms"] = cs.time_ms(
                 lambda: distributed_decode.sharded_decode(q, k, v, lens, 8),

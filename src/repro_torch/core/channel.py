@@ -1,14 +1,14 @@
-"""Transfer records, the analytic wire-byte counts and the multi-sender
-composition of §J."""
+"""Transfer records, the byte-counting ``Channel``, the analytic wire-byte
+counts and the multi-sender composition of §J."""
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.types import SharedKV
+from repro_torch.core.types import KVCommConfig, SharedKV
 
 
 @dataclass
@@ -47,6 +47,36 @@ class TransferRecord:
         (0.0 for unpaged transfers)."""
         return (self.pages_hit / self.pages_total) if self.pages_total \
             else 0.0
+
+
+@dataclass
+class Channel:
+    """A byte-counting link M_s -> M_r. Legacy surface: the transports of
+    ``repro_torch.comm.transport`` subsume it and keep the same
+    ``TransferRecord`` log."""
+    log: List[TransferRecord] = field(default_factory=list)
+
+    @property
+    def total_bytes(self) -> int:
+        return sum(r.n_bytes for r in self.log)
+
+    def send_kv(self, cfg: ModelConfig, kvcfg: KVCommConfig, kv, select,
+                states=None, state_select=None) -> SharedKV:
+        # core.protocol imports the models, which import core.selection
+        from repro_torch.core import protocol
+        shared, n = protocol.transmit(cfg, kvcfg, kv, select, states,
+                                      state_select)
+        self.log.append(TransferRecord(
+            kind="kv", n_bytes=n,
+            layers=int(select.sum()) if select is not None else 0,
+            context_len=shared.prefix_len))
+        return shared
+
+    def send_text(self, token_count: int, bytes_per_token: int = 2) -> int:
+        """Account an NLD/CIPHER-style natural-language transfer."""
+        n = token_count * bytes_per_token
+        self.log.append(TransferRecord("text", n, 0, token_count))
+        return n
 
 
 def combine_senders(shareds: List[SharedKV]) -> SharedKV:

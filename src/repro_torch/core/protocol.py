@@ -142,6 +142,16 @@ def build_shared(kvcfg: KVCommConfig, kv, select, states=None,
                     pos_mode=kvcfg.pos_mode)
 
 
+def transmit(cfg: ModelConfig, kvcfg: KVCommConfig, kv, select,
+             states=None, state_select=None) -> Tuple[SharedKV, int]:
+    """Deprecated shim: ``build_shared`` and the analytic byte count
+    (``comm.transport.payload_bytes``) in one call. Byte accounting lives
+    in the transports; new code uses them."""
+    from repro_torch.comm.transport import payload_bytes
+    return (build_shared(kvcfg, kv, select, states, state_select),
+            payload_bytes(kv, select, states, state_select))
+
+
 def build_packed(kvcfg: KVCommConfig, payload, layers: Sequence[int],
                  prefix_len: int, select, states=None,
                  state_select=None) -> SharedKV:

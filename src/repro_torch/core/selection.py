@@ -174,3 +174,17 @@ def select_layers(attn_scores: Optional[torch.Tensor], num_layers: int,
     if cfg.selector == "random":
         return topk_mask(random_scores(cfg.seed, num_layers), m)
     raise ValueError(f"unknown selector {cfg.selector!r}")
+
+
+def kendall_tau(rank_a, rank_b) -> torch.Tensor:
+    """Kendall's tau between two layer-score vectors (paper Fig. 14): the
+    mean over pairs i < j of sign(a_i - a_j) * sign(b_i - b_j), float32.
+    A tie gives a sign of 0; L = 1 has no pair and gives NaN (0 / 0)."""
+    a = torch.as_tensor(rank_a, dtype=torch.float32)
+    b = torch.as_tensor(rank_b, dtype=torch.float32)
+    L = a.shape[0]
+    concordant = (torch.sign(a[:, None] - a[None, :])
+                  * torch.sign(b[:, None] - b[None, :]))
+    i, j = torch.triu_indices(L, L, 1)
+    c = concordant[i, j]
+    return c.sum() / c.shape[0]

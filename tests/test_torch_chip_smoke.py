@@ -1,18 +1,27 @@
-"""chip_smoke.py's kernel-vs-plain tolerance on the CPU: an honest result
-(the same attention evaluated in float64, then rounded to bf16) passes it
-against the float32 plain version, and a kernel that drops a KV tile or
-counts every key as context fails it. The GPU run itself needs a card."""
+"""chip_smoke.py's gates on the CPU. The kernel-vs-plain tolerance: an
+honest result (the same attention evaluated in float64, then rounded to
+bf16) passes it against the float32 plain version, and a kernel that drops
+a KV tile or counts every key as context fails it. RWKV6's state-sharing
+gate on reduced rwkv6-1.6b (the plain scan): every state shared passes it,
+and each planted fault of the hand-off fails it. The GPU run itself needs
+a card."""
+import dataclasses
 import math
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as cs  # noqa: E402
+from repro_torch.configs.registry import get_config  # noqa: E402
+from repro_torch.core.types import SharedKV  # noqa: E402
+from repro_torch.data.tokenizer import SymbolTokenizer  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_mask, flash_attention_reference)
+from repro_torch.models import transformer as tfm  # noqa: E402
 
 
 def _attention64(q, k, v, Sc, window, drop=None, all_context=False):
@@ -58,3 +67,46 @@ def test_tolerance_passes_honest_and_rejects_faults(B, Sq, Sc, Hq, Hkv, D,
         assert cs.tol_ratio(mass, wmass, *cs.MASS_TOLS)[0] < 0.1
         _, wrong = _attention64(q, k, v, Sc, window, all_context=True)
         assert cs.tol_ratio(wrong, wmass, *cs.MASS_TOLS)[0] > 5
+
+
+FAULTS = ("f1_wkv_zeroed", "f2_wkv_transposed", "f3_context_off_by_one",
+          "f4_stream_without_bonus", "f5_shift_zeroed")
+
+
+@pytest.fixture(scope="module")
+def rwkv6_gates():
+    """``chip_smoke.rwkv6_fault_gates`` on reduced rwkv6-1.6b (2 layers, d
+    128, bf16 with its float32 upcast), the bonus drawn as chip_smoke.py
+    draws it, 2 contexts of 40 tokens and queries of 8."""
+    torch.set_num_threads(2)
+    tok = SymbolTokenizer(16, 8)
+    cfg = dataclasses.replace(get_config("rwkv6-1.6b").reduced(),
+                              vocab_size=tok.vocab_size)
+    assert cfg.dtype == "bfloat16"
+    params = cs.draw_rwkv6_bonus(tfm.init_params(cfg, 0, device="cpu"))
+    rng = np.random.default_rng(0)
+    ctx = rng.integers(4, cfg.vocab_size, (2, 40)).astype(np.int32)
+    qry = rng.integers(4, cfg.vocab_size, (2, 8)).astype(np.int32)
+    everything = lambda kv, states, export=None: SharedKV(  # noqa: E731
+        states=states,
+        state_select=torch.ones(cfg.num_layers, dtype=torch.bool))
+    return cs.rwkv6_fault_gates(cfg, params, tok, ctx, qry, everything)
+
+
+def test_rwkv6_state_gate_passes_every_state_shared(rwkv6_gates):
+    honest = rwkv6_gates["honest"]
+    assert honest["ok"], honest["gates"]
+    assert set(honest["gates"]) == {n for n, _ in cs.RWKV6_GATES}
+    assert set(rwkv6_gates) == {"honest", *FAULTS}
+
+
+@pytest.mark.parametrize("fault", FAULTS)
+def test_rwkv6_state_gate_refuses_planted_fault(rwkv6_gates, fault):
+    """Refused at float32 and by a bf16 gate, each at twice its bound."""
+    g = rwkv6_gates[fault]
+    assert not g["ok"]
+    x, bound = g["gates"]["fp32_max_rel"]
+    assert x >= 2 * bound, g["gates"]
+    assert any(x >= 2 * bound for name, (x, bound) in g["gates"].items()
+               if name != "fp32_max_rel"), g["gates"]
+

@@ -2,9 +2,9 @@
 honest result (the same attention evaluated in float64, then rounded to
 bf16) passes it against the float32 plain version, and a kernel that drops
 a KV tile or counts every key as context fails it. RWKV6's state-sharing
-gate on reduced rwkv6-1.6b (the plain scan): every state shared passes it,
-and each planted fault of the hand-off fails it. The GPU run itself needs
-a card."""
+gate on reduced rwkv6-1.6b (the plain scan) and Zamba2's on reduced
+zamba2-2.7b: every state shared passes it, and each planted fault of the
+hand-off fails it. The GPU run itself needs a card."""
 import dataclasses
 import math
 import sys
@@ -17,6 +17,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as cs  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
+from repro_torch.core import protocol  # noqa: E402
+from repro_torch.core.types import KVCommConfig  # noqa: E402
 from repro_torch.core.types import SharedKV  # noqa: E402
 from repro_torch.data.tokenizer import SymbolTokenizer  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -110,3 +112,45 @@ def test_rwkv6_state_gate_refuses_planted_fault(rwkv6_gates, fault):
     assert any(x >= 2 * bound for name, (x, bound) in g["gates"].items()
                if name != "fp32_max_rel"), g["gates"]
 
+
+Z_FAULTS = ("z1_ssm_zeroed", "z2_conv_zeroed", "z3_context_off_by_one",
+            "z4_attn_kv_zeroed")
+
+
+@pytest.fixture(scope="module")
+def zamba2_gates():
+    """``chip_smoke.zamba2_fault_gates`` on reduced zamba2-2.7b (2 Mamba2
+    layers, 2 shared-attention invocations, d 128, bf16 with its float32
+    upcast), 2 contexts of 40 tokens and queries of 8."""
+    torch.set_num_threads(2)
+    tok = SymbolTokenizer(16, 8)
+    cfg = dataclasses.replace(get_config("zamba2-2.7b").reduced(),
+                              vocab_size=tok.vocab_size)
+    assert cfg.dtype == "bfloat16"
+    params = tfm.init_params(cfg, 0, device="cpu")
+    rng = np.random.default_rng(0)
+    ctx = rng.integers(4, cfg.vocab_size, (2, 40)).astype(np.int32)
+    qry = rng.integers(4, cfg.vocab_size, (2, 8)).astype(np.int32)
+    L, n_ssm = cfg.attn_layer_count, protocol._n_ssm(cfg)
+    everything = lambda kv, states, _: protocol.pack_shared(  # noqa: E731
+        KVCommConfig(), kv, torch.ones(L, dtype=torch.bool), states,
+        torch.ones(n_ssm, dtype=torch.bool))
+    return cs.zamba2_fault_gates(cfg, params, tok, ctx, qry, everything)
+
+
+def test_zamba2_state_gate_passes_every_state_shared(zamba2_gates):
+    honest = zamba2_gates["honest"]
+    assert honest["ok"], honest["gates"]
+    assert set(honest["gates"]) == {n for n, _ in cs.ZAMBA2_GATES}
+    assert set(zamba2_gates) == {"honest", *Z_FAULTS}
+
+
+@pytest.mark.parametrize("fault", Z_FAULTS)
+def test_zamba2_state_gate_refuses_planted_fault(zamba2_gates, fault):
+    """Refused at float32 and by a bf16 gate, each at twice its bound."""
+    g = zamba2_gates[fault]
+    assert not g["ok"]
+    x, bound = g["gates"]["fp32_max_rel"]
+    assert x >= 2 * bound, g["gates"]
+    assert any(x >= 2 * bound for name, (x, bound) in g["gates"].items()
+               if name != "fp32_max_rel"), g["gates"]

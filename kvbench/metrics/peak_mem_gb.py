@@ -1,0 +1,6 @@
+"""``torch.cuda.max_memory_allocated`` over the window (reset at its
+start), the resident weights counted, in GB (1e9 bytes)."""
+
+
+def read(rec):
+    return rec.peak_bytes / 1e9 if rec.peak_bytes else None

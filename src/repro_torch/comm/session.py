@@ -50,6 +50,7 @@ from repro_torch.core.layermap import LayerAssignment, get_layer_map
 from repro_torch.core.selection import (gaussian_prior, select_layers,
                                         selection_scores)
 from repro_torch.core.types import KVCommConfig, SharedKV
+from repro_torch.utils import trace
 
 # what the degradation ladder catches: transport and protocol failures
 # (RetriesExhaustedError and CircuitOpenError included) and socket errors;
@@ -317,7 +318,9 @@ class CommSession:
                              "share_mapped (or the 'hetero_kvcomm' method) "
                              "with a LayerMap policy")
         select = self.selection(kvcfg, scores=scores, key=key)
-        kv, states, _ = self.sender.export_kv(context)
+        with trace.span("sender.prefill", rid=rid,
+                        stream=self.sender.device.type == "cuda"):
+            kv, states, _ = self.sender.export_kv(context)
         shared = self._resilient_send(kvcfg, kv, select, states,
                                       self._state_selection(kvcfg, states),
                                       sync=sync, rid=rid)

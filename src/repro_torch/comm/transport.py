@@ -62,6 +62,7 @@ from repro_torch.core.protocol import (build_mapped, build_packed,
                                        pack_shared, scatter_mapped,
                                        selected_layer_ids)
 from repro_torch.core.types import KVCommConfig, SharedKV
+from repro_torch.utils import trace
 
 _WIRE_DTYPES = {"float32": torch.float32, "float16": torch.float16,
                 "bfloat16": torch.bfloat16, "int8": torch.int8}
@@ -308,19 +309,36 @@ def encode_wire(x: torch.Tensor, wire_dtype):
     host. Returns ``((cpu tensors...), n_bytes)``: one array for a float
     wire, (codes, per-layer float32 scales) for int8 and int4 (int4
     nibble-packed along the trailing axis), the group tuples one after
-    another for a plan; scales are counted."""
-    host = tuple(a.cpu() for a in _encode_arrays(
-        x, resolve_wire_dtype(wire_dtype)))
+    another for a plan; scales are counted. From the card each array's
+    copy blocks the host until the stream has drained."""
+    arrays = _encode_arrays(x, resolve_wire_dtype(wire_dtype))
+    with trace.span("wire.host_copy"):
+        host = tuple(a.cpu() for a in arrays)
+    if x.device.type == "cuda":
+        trace.host_sync(len(arrays))
     return host, sum(_nbytes(a) for a in host)
+
+
+def _to_device(arrays, device) -> Tuple[torch.Tensor, ...]:
+    """The wire arrays on ``device``; from host memory to the card each
+    copy blocks the host until the stream has drained."""
+    syncs = sum(a.device.type == "cpu" for a in arrays) \
+        if torch.device(device).type == "cuda" else 0
+    if not syncs:
+        return tuple(a.to(device) for a in arrays)
+    with trace.span("wire.host_copy"):
+        out = tuple(a.to(device) for a in arrays)
+    trace.host_sync(syncs)
+    return out
 
 
 def _decode_uniform(arrays, wire: str, dtype, device) -> torch.Tensor:
     if wire in _SCALED_WIRES:
-        q, s = (a.to(device) for a in arrays)
+        q, s = _to_device(arrays, device)
         if wire == "int4":
             q = _unpack_int4(q)
         return (q.float() * s).to(dtype)
-    return arrays[0].to(device).to(dtype)
+    return _to_device(arrays[:1], device)[0].to(dtype)
 
 
 def decode_wire(wire, wire_dtype, dtype: torch.dtype,
@@ -331,7 +349,7 @@ def decode_wire(wire, wire_dtype, dtype: torch.dtype,
     if not isinstance(wd, WirePlan):
         return _decode_uniform(wire, wd, dtype, device)
     if not len(wd):
-        return wire[0].to(device).to(dtype)
+        return _to_device(wire[:1], device)[0].to(dtype)
     it = iter(wire)
     out = None
     for dt, slots in wd.groups():
@@ -449,7 +467,9 @@ class HostWire:
 
     def wait(self) -> None:
         if self.event is not None:
-            self.event.synchronize()
+            with trace.span("wire.host_copy"):
+                self.event.synchronize()
+            trace.host_sync()
 
 
 def encode_payload(payload, wire_dtype) -> HostWire:
@@ -537,9 +557,11 @@ class Transport(abc.ABC):
     """A byte-accounted link M_s -> M_r.
 
     ``sync=True`` stamps each record with the device-synced wall clock of
-    the transfer; ``sync=False`` records a CUDA event instead and leaves
-    the stamp to ``poll_latency`` / ``flush_latency``, so the serving loop
-    never waits on the card to account a transfer."""
+    the transfer; ``sync=False`` records a pair of CUDA events around it
+    instead and leaves the stamp to ``poll_latency`` / ``flush_latency``,
+    so the serving loop never waits on the card to account a transfer: the
+    stamp is then the transfer's time on the stream (on the CPU, the host's
+    clock up to the settling call)."""
 
     def __init__(self, packed: bool = True, sync: bool = True,
                  store=None) -> None:
@@ -606,9 +628,8 @@ class Transport(abc.ABC):
         self._settle_ingests()
         n = len(self._pending)
         for rec, t0, ev in self._pending:
-            if ev is not None:
-                ev.synchronize()
-            rec.latency_s = time.perf_counter() - t0
+            rec.latency_s = (ev.ms() * 1e-3 if ev is not None
+                             else time.perf_counter() - t0)
         self._pending.clear()
         return n
 
@@ -621,8 +642,9 @@ class Transport(abc.ABC):
             thunk()
         still, n = [], 0
         for rec, t0, ev in self._pending:
-            if ev is None or ev.query():
-                rec.latency_s = time.perf_counter() - t0
+            if ev is None or ev.done():
+                rec.latency_s = (ev.ms() * 1e-3 if ev is not None
+                                 else time.perf_counter() - t0)
                 n += 1
             else:
                 still.append((rec, t0, ev))
@@ -644,35 +666,39 @@ class Transport(abc.ABC):
         if do_sync:
             self.flush_latency()
         dev = _device_of(kv, states)
+        cuda = dev.type == "cuda"
         t0 = time.perf_counter()
+        # a deferred stamp on the card is the stream time between these
+        # two events, which the span reports too
+        ev = trace.Events() if cuda and not do_sync else None
+        with trace.span("transport.send", stream=ev or cuda):
+            shared = self._dispatch(cfg, kvcfg, kv, select, states,
+                                    state_select, assignment, do_sync)
+            if ev is not None:
+                ev.stop()
+        if do_sync:
+            if cuda:
+                torch.cuda.synchronize(dev)
+            self.log[-1].latency_s = time.perf_counter() - t0
+        else:
+            self._pending.append((self.log[-1], t0, ev))
+        return shared
+
+    def _dispatch(self, cfg, kvcfg, kv, select, states, state_select,
+                  assignment, do_sync) -> SharedKV:
         if self.store is not None and kv is not None:
             # a transport whose own paged exchange reads host bytes
             # (RemoteTransport's), and a send with states, keep the eager
             # ingest under sync=False
             if do_sync or states is not None \
                     or type(self)._send_paged is not Transport._send_paged:
-                shared = self._send_paged(kvcfg, kv, select, states,
-                                          state_select, assignment)
-            else:
-                shared = self._send_paged_deferred(kvcfg, kv, select,
-                                                   assignment)
-        elif assignment is not None:
-            shared = self._send_mapped(cfg, kvcfg, kv, assignment, states,
-                                       state_select)
-        else:
-            shared = self._send(cfg, kvcfg, kv, select, states,
-                                state_select)
-        if do_sync:
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            self.log[-1].latency_s = time.perf_counter() - t0
-        else:
-            ev = None
-            if dev.type == "cuda":
-                ev = torch.cuda.Event()
-                ev.record()
-            self._pending.append((self.log[-1], t0, ev))
-        return shared
+                return self._send_paged(kvcfg, kv, select, states,
+                                        state_select, assignment)
+            return self._send_paged_deferred(kvcfg, kv, select, assignment)
+        if assignment is not None:
+            return self._send_mapped(cfg, kvcfg, kv, assignment, states,
+                                     state_select)
+        return self._send(cfg, kvcfg, kv, select, states, state_select)
 
     @abc.abstractmethod
     def _send(self, cfg: ModelConfig, kvcfg: KVCommConfig, kv, select,

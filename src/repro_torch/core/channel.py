@@ -19,7 +19,8 @@ class TransferRecord:
     context_len: int
     wire_dtype: str = "model"   # payload dtype ("model" = compute dtype)
     latency_s: float = 0.0      # device-synced wall clock of the transfer
-                                # (0.0 until a deferred stamp settles)
+                                # (a deferred one on the card: its stream
+                                # time; 0.0 until the stamp settles)
     # the remote breakdown (RemoteTransport stamps these; in-process
     # transports leave them 0): encode and framing, channel write and read
     # back, parse and rebuild; frame_bytes is the whole frame, header and

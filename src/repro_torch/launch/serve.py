@@ -12,10 +12,15 @@ quick-trained there first when absent).
     PYTHONPATH=src python -m repro_torch.launch.serve --config full
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --decode-backend reference --requests 8
+
+``--trace`` serves inside ``repro_torch.utils.trace.recording()`` and
+prints one line per span name of the scheduler's run (how many, host ms,
+stream ms on the card) and its counters.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import numpy as np
@@ -30,6 +35,7 @@ from repro_torch.launch import pairs
 from repro_torch.serving.scheduler import (Scheduler, SchedulerConfig,
                                            accuracy, make_requests,
                                            serve_serial)
+from repro_torch.utils import trace
 
 
 def build_requests(tok, task: str, n: int, max_new: int):
@@ -72,9 +78,14 @@ def main(argv=None) -> None:
                     help="random weights from --seed, or the trained pair "
                          "(--config pair only; quick-trains when no "
                          "checkpoint exists)")
+    ap.add_argument("--trace", action="store_true",
+                    help="record the scheduler's spans and counters and "
+                         "print them by span name")
     args = ap.parse_args(argv)
     if args.weights == "trained" and args.config != "pair":
         ap.error("--weights trained needs --config pair")
+    if args.trace and args.serial:
+        ap.error("--trace reads the scheduler's spans; drop --serial")
 
     device = resolve_device(args.device)
     cfg = (pairs.full_width_config() if args.config == "full"
@@ -107,7 +118,9 @@ def main(argv=None) -> None:
                           config=SchedulerConfig(
                               capacity=args.capacity,
                               decode_backend=args.decode_backend))
-        comps, stats = sched.run(reqs)
+        with (trace.recording() if args.trace
+              else contextlib.nullcontext()):
+            comps, stats = sched.run(reqs)
         mode = f"scheduler(cap={args.capacity}, {args.decode_backend})"
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -123,6 +136,20 @@ def main(argv=None) -> None:
           f"transport[{args.transport}] moved "
           f"{session.transport.total_bytes / 1e6:.2f} MB over "
           f"{len(session.transport.log)} transfers")
+    if args.trace:
+        print_trace(stats["trace"])
+
+
+def print_trace(exported) -> None:
+    """One line per span name (count, host ms, stream ms), then the
+    counters."""
+    for name, row in trace.summary(exported).items():
+        stream = ("-" if row["stream_ms"] is None
+                  else f"{row['stream_ms']:.3f}")
+        print(f"span {name} count {row['count']} host_ms "
+              f"{row['host_ms']:.3f} stream_ms {stream}")
+    for name, n in exported["counters"].items():
+        print(f"counter {name} {n}")
 
 
 if __name__ == "__main__":

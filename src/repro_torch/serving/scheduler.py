@@ -8,10 +8,19 @@
     the pad is masked by per-row real lengths, so a bucketed request
     answers exactly like an unpadded one.
   * Overlap — admission (sender prefill, ``send(sync=False)``, bucketed
-    receiver prefill, slot insert) is only enqueued on the card. The host
+    receiver prefill, slot insert) is only enqueued on the card, except
+    for a serialized transport's codec, whose copies to the host and back
+    block (the recorder's ``admit.host_syncs`` counts them). The host
     reads each iteration's tokens one iteration late, through a
     non-blocking copy to pinned memory and an event, so it never waits
     for the step in flight.
+
+  * Tracing — while ``repro_torch.utils.trace`` records, ``run`` opens
+    spans at its layer boundaries (``scheduler.run``, ``.setup``,
+    ``.admit``, ``.insert``, ``.step``, ``.host_read``, with the
+    session's and the transport's inside an admission) and counts
+    admissions, steps and host waits inside admissions; its stats then
+    carry them under ``"trace"``.
 
   * Paged admission — when the transport has a ``PageStore`` and a
     ``last_table``, a row's prefix is rebuilt from the store's pages
@@ -48,6 +57,7 @@ from repro_torch.core import protocol
 from repro_torch.core.channel import TransferRecord
 from repro_torch.core.types import KVCommConfig, SharedKV
 from repro_torch.models import transformer as tfm
+from repro_torch.utils import trace
 
 
 @dataclass
@@ -107,7 +117,11 @@ class _HostRead:
 
     def numpy(self) -> np.ndarray:
         if self.event is not None:
-            self.event.synchronize()
+            if trace.active() and not self.event.query():
+                with trace.span("scheduler.host_read"):
+                    self.event.synchronize()
+            else:
+                self.event.synchronize()
         return self.host.numpy()
 
 
@@ -153,6 +167,7 @@ class Scheduler:
         self.layers = protocol.selected_layer_ids(self.select)
         self.packed = session.transport.packed
         self.device = session.receiver.device
+        self._cuda = self.device.type == "cuda"
         self.state: Optional[dict] = None   # the last run's slot table
         self.meta: Optional[SharedKV] = None
 
@@ -179,6 +194,11 @@ class Scheduler:
         """Enqueue one request's admission pipeline with no host wait.
         ``force_baseline`` skips the share and admits the request text
         only (the quarantine ``run`` applies when a share raised)."""
+        with trace.span(trace.ADMISSION, rid=req.rid, stream=self._cuda):
+            return self._enqueue_admission(req, state, slot, force_baseline)
+
+    def _enqueue_admission(self, req: Request, state: dict, slot: int,
+                           force_baseline: bool) -> torch.Tensor:
         sess, cfgd = self.session, self.config
         degraded: Optional[DegradationEvent] = None
         shared = None
@@ -205,12 +225,16 @@ class Scheduler:
         sqb = min(_bucket(sq_real, cfgd.query_bucket), state["query_max"])
         qry = np.full((1, sqb), self.pad_token, np.int32)
         qry[0, :sq_real] = req.query
-        out = sess.receiver.prefill(
-            qry, protocol.pad_prefix(shared, scb), max_new=state["budget"],
-            prefix_lens=torch.full((1,), sc_real, dtype=torch.int32,
-                                   device=self.device))
-        tok1 = torch.argmax(out.logits[:, sq_real - 1, :], dim=-1)   # (1,)
-        if req.max_new > 1:
+        with trace.span("receiver.prefill", stream=self._cuda):
+            out = sess.receiver.prefill(
+                qry, protocol.pad_prefix(shared, scb),
+                max_new=state["budget"],
+                prefix_lens=torch.full((1,), sc_real, dtype=torch.int32,
+                                       device=self.device))
+            tok1 = torch.argmax(out.logits[:, sq_real - 1, :], dim=-1)
+        if req.max_new <= 1:
+            return tok1
+        with trace.span("scheduler.insert"):
             geom = dict(src_prefix=scb, dst_prefix=state["dst_prefix"],
                         row_max_len=sqb + state["budget"])
             store = sess.transport.store
@@ -240,10 +264,24 @@ class Scheduler:
             ) -> Tuple[List[Completion], Dict[str, float]]:
         """Serve a request stream to completion. Returns the completions
         (rid order) and metrics (iterations, mean slot occupancy, tokens
-        delivered)."""
+        delivered). While the recorder (``repro_torch.utils.trace``) is
+        active the metrics also hold the run's spans and counters under
+        ``"trace"``."""
         if not requests:
             return [], {"iterations": 0, "steps": 0, "occupancy": 0.0,
                         "tokens": 0}
+        with trace.run_recording() as rec:
+            mark = rec.mark() if rec is not None else None
+            for name in ("admit.count", "admit.host_syncs", "step.count"):
+                trace.count(name, 0)
+            with trace.span("scheduler.run"):
+                completions, stats = self._serve(requests)
+            if rec is not None:
+                stats["trace"] = rec.export(mark)
+        return completions, stats
+
+    def _serve(self, requests: Sequence[Request]
+               ) -> Tuple[List[Completion], Dict[str, float]]:
         sess, cfgd = self.session, self.config
         n_deg0 = len(sess.degradations)    # events of this run only
         cap, dev = cfgd.capacity, self.device
@@ -252,22 +290,24 @@ class Scheduler:
                                  for r in requests), cfgd.prefix_bucket)
         query_max = _bucket(max(int(r.query.shape[0]) for r in requests),
                             cfgd.query_bucket)
-        zshared = self._zero_shared(dst_prefix, cap)
-        table = tfm.init_cache(sess.cfg, cap, query_max + budget,
-                               shared=zshared, device=dev)
-        table["len"] = torch.full((cap,), dst_prefix, dtype=torch.int32,
-                                  device=dev)
-        self.meta = zshared.meta()
-        state = self.state = {
-            "table": table,
-            "prefix_lens": torch.full((cap,), dst_prefix, dtype=torch.int32,
-                                      device=dev),
-            "cur_tok": torch.zeros((cap, 1), dtype=torch.long, device=dev),
-            "active": torch.zeros((cap,), dtype=torch.bool, device=dev),
-            "dst_prefix": dst_prefix,
-            "query_max": query_max,
-            "budget": budget,
-        }
+        with trace.span("scheduler.setup", stream=self._cuda):
+            zshared = self._zero_shared(dst_prefix, cap)
+            table = tfm.init_cache(sess.cfg, cap, query_max + budget,
+                                   shared=zshared, device=dev)
+            table["len"] = torch.full((cap,), dst_prefix, dtype=torch.int32,
+                                      device=dev)
+            self.meta = zshared.meta()
+            state = self.state = {
+                "table": table,
+                "prefix_lens": torch.full((cap,), dst_prefix,
+                                          dtype=torch.int32, device=dev),
+                "cur_tok": torch.zeros((cap, 1), dtype=torch.long,
+                                       device=dev),
+                "active": torch.zeros((cap,), dtype=torch.bool, device=dev),
+                "dst_prefix": dst_prefix,
+                "query_max": query_max,
+                "budget": budget,
+            }
         eos = cfgd.eos_token
         pending = deque(sorted(requests, key=lambda r: r.rid))
         slots: List[Optional[_Slot]] = [None] * cap
@@ -296,6 +336,7 @@ class Scheduler:
                     break
                 if slots[i] is None:
                     req = pending.popleft()
+                    trace.count("admit.count")
                     try:
                         tok1 = self._admit(req, state, i)
                     except _LADDER_ERRORS as e:
@@ -325,16 +366,18 @@ class Scheduler:
                                               start_hist=len(history))
             # 3) one ragged iteration over the whole table
             if any(slots):
-                ntok, _, state["table"] = sess.receiver.ragged_step(
-                    state["cur_tok"], state["table"], self.meta,
-                    state["prefix_lens"], state["active"],
-                    backend=cfgd.decode_backend)
-                state["cur_tok"] = ntok[:, None]
-                history.append(_HostRead(ntok))
-                occ.append(sum(s is not None for s in slots) / cap)
-                for s in slots:
-                    if s is not None:
-                        s.decoded += 1
+                trace.count("step.count")
+                with trace.span("scheduler.step", stream=self._cuda):
+                    ntok, _, state["table"] = sess.receiver.ragged_step(
+                        state["cur_tok"], state["table"], self.meta,
+                        state["prefix_lens"], state["active"],
+                        backend=cfgd.decode_backend)
+                    state["cur_tok"] = ntok[:, None]
+                    history.append(_HostRead(ntok))
+                    occ.append(sum(s is not None for s in slots) / cap)
+                    for s in slots:
+                        if s is not None:
+                            s.decoded += 1
             # 4) read LAST iteration's results while this one runs; the
             #    same lagged reads drive EOS early exit
             while fetch_q and fetch_q[0][0] < it:

@@ -1573,3 +1573,106 @@ def _to(tree, dev):
         return out
 
     return move(tree)
+
+
+# --- the recorder (repro_torch.utils.trace) on the card: it adds no host
+# wait, and its admit.host_syncs counts every one an admission makes
+
+def _trace_scheduler(dev, transport):
+    """A Scheduler on the tiny float32 pair of ``_methods_setup`` over an
+    int8 ``SerializedTransport`` or the in-memory hand-over, and its six
+    requests."""
+    from repro_torch.comm import (CommSession, InMemoryTransport,
+                                  SerializedTransport)
+    from repro_torch.core.types import KVCommConfig
+    from repro_torch.data.synthetic import SyntheticTask, TaskConfig
+    from repro_torch.serving.scheduler import (Scheduler, SchedulerConfig,
+                                               make_requests)
+    _, card, tok, _ = _methods_setup(dev)
+    sess = CommSession(card.sender, card.receiver,
+                       SerializedTransport("int8") if transport == "int8"
+                       else InMemoryTransport())
+    reqs = make_requests([SyntheticTask(tok, TaskConfig(
+        "retrieval", num_facts=nf, seed=11 + nf)).batch(3) for nf in (4, 8)],
+        pad=tok.PAD)
+    for i, r in enumerate(reqs):
+        r.max_new = (4, 2, 1)[i % 3]
+    return Scheduler(sess, KVCommConfig(ratio=0.5, selector="prior_only"),
+                     config=SchedulerConfig(capacity=3, prefix_bucket=8,
+                                            query_bucket=4)), reqs
+
+
+def _synchronising(fn):
+    """(fn's result, the list of synchronising calls
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports while it runs, as
+    it grows: a caller can read it inside fn)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn(caught)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, [w for w in caught if "synchroniz" in str(w.message)]
+
+
+@pytest.mark.parametrize("transport", ["int8", "in_memory"])
+def test_recorded_wave_adds_no_host_sync(cuda, transport):
+    from repro_torch.utils import trace
+    sched, reqs = _trace_scheduler(cuda, transport)
+    sched.run(reqs)                                   # warm
+
+    def recorded(_):
+        with trace.recording():
+            return sched.run(reqs)
+
+    (off, _), syncs_off = _synchronising(lambda _: sched.run(reqs))
+    (on, stats), syncs_on = _synchronising(recorded)
+    assert len(syncs_on) <= len(syncs_off)
+    for a, b in zip(off, on):
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+    timed = [s for s in stats["trace"]["spans"] if s["stream_ms"] is not None]
+    assert {s["name"] for s in timed} >= {
+        "scheduler.setup", "scheduler.admit", "sender.prefill",
+        "transport.send", "receiver.prefill", "scheduler.step"}
+    assert all(s["stream_ms"] >= 0 for s in timed)
+
+
+@pytest.mark.parametrize("n", [1, 6], ids=["one", "six"])
+@pytest.mark.parametrize("transport", ["int8", "in_memory"])
+def test_admit_host_syncs_counts_every_admission_wait(cuda, transport, n):
+    """admit.host_syncs equals the synchronising calls the sync debug mode
+    reports inside admissions (these paths make no explicit wait there):
+    the int8 codec's copies to the host and back, nothing in memory."""
+    from repro_torch.utils import trace
+    sched, reqs = _trace_scheduler(cuda, transport)
+    reqs = reqs[:n]
+    sched.run(reqs)                                   # warm
+    inside = []
+    enqueue = sched._enqueue_admission
+
+    def serve(caught):
+        def counted(*args):
+            k = len(caught)
+            out = enqueue(*args)
+            inside.extend(w for w in caught[k:]
+                          if "synchroniz" in str(w.message))
+            return out
+        sched._enqueue_admission = counted
+        with trace.recording():
+            return sched.run(reqs)
+
+    (_, stats), _ = _synchronising(serve)
+    counters = stats["trace"]["counters"]
+    assert counters["admit.count"] == n
+    assert counters["admit.host_syncs"] == len(inside)
+    if transport == "int8":       # codes and scales of K and V, both ways
+        assert len(inside) == 8 * n
+    # the deferred stamp is the transfer's stream time, the span's too
+    sends = [s for s in stats["trace"]["spans"]
+             if s["name"] == "transport.send"]
+    log = sched.session.transport.log[-n:]
+    np.testing.assert_allclose([r.latency_s * 1e3 for r in log],
+                               [s["stream_ms"] for s in sends], rtol=1e-12)

@@ -59,7 +59,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
      analytic count, random's selection the threefry draw, a two-sender
      mailbox equal to the dense combine_senders view (K/V bit for bit,
      logits within the bf16 rule) and full_kv within 5e-2 of skyline.
-     The methods launch none of K1-K4.
+     The methods launch none of K1, K3 and K4, and K2 only whole
+     prefix-free bf16 prefills, one launch a layer (routed_prefills).
   4e. hetero_pair — llama3.2-3b-pair (28 layers, seed 0) against the same
      widths at 42 layers (seed 1): hetero_kvcomm both ways for each LayerMap
      policy, in memory, at an int8 wire and over a bf16 RemoteTransport,
@@ -67,7 +68,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
      rule, identity at 28 -> 28 bit-equal to kvcomm, a float32 6 -> 10 tiny
      pair card vs CPU; then 8 tokens streamed through the 28 -> 42 mapped
      prefix on K1 (7 x 42 launches) with the first step's logits within
-     5e-2 of the plain backend.
+     5e-2 of the plain backend; before the stream, no kernel but K2 for
+     whole prefix-free bf16 prefills (routed_prefills).
   4f. remote_serving — the 10 requests of phase 4 through RemoteTransport
      over a LoopbackChannel (bf16 streamed and monolithic, int8 streamed)
      beside in-memory and SerializedTransport(int8), and the 12 requests of
@@ -174,13 +176,16 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   5. the kernel entry point — repro_torch.kernels.ops driven at full
      published widths with the K2/K3/K4 counters at 0 (llama3.2-3b-pair
      prefills with and without the Eq. (1) mass, a gemma3-4b local
-     window layer, a 32k decode cache, a windowed decode, the rwkv6-1.6b
-     scan at 4 rows of 2,048 and at one row of 8,192, the single-row
-     prefill of long_500k's context cut to 8,192 steps, where 32 heads
-     take the plan's time segments), then every case, with tiny ones
-     (dead rows, a window, non-causal unaligned lengths, K3 rows no tensor
-     map describes), held against its plain version and timed as in phase
-     2; each K3 case names its route (TMA ring or staged rows) and chunk.
+     window layer, the served sender prefills of the benchmark's largest
+     contexts: starcoder2-7b's 36 / 4 heads at 3,968 positions and
+     internlm2-20b's 48 / 8 at 2,560, a 32k decode cache, a windowed
+     decode, the rwkv6-1.6b scan at 4 rows of 2,048 and at one row of
+     8,192, the single-row prefill of long_500k's context cut to 8,192
+     steps, where 32 heads take the plan's time segments), then every
+     case, with tiny ones (dead rows, a window, non-causal unaligned
+     lengths, K3 rows no tensor map describes), held against its plain
+     version and timed as in phase 2; each K3 case names its route (TMA
+     ring or staged rows) and chunk.
   6. sharded decode — launch.distributed_decode.run over the 32k cache in
      8 shards (counter at 0 first): one K3 launch per shard plus the
      monolithic decode, the LSE combine checked against both; then its
@@ -196,13 +201,17 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
      runs the production meshes' dry run (qwen1.5-110b train_4k,
      mixtral-8x22b decode_32k on 2x16x16, rwkv6-1.6b long_500k,
      whisper-medium train_4k, gemma3-4b prefill_32k --kvcomm): status
-     ok, FLOPs and collective bytes > 0, one line each. K1-K4 stay at 0
-     launches across the phase.
+     ok, FLOPs and collective bytes > 0, one line each. No kernel
+     launches across the phase but K2 in the unsharded port's two bf16
+     prefills, one a layer each (56).
   7. the kernels line — one JSON object listing every kernel (K1-K4),
      with each one's device ms over SDPA's at its main case; K1's launches
      by path (full-width, paged, wire tiers, remote serving, resilient
      serving, the scheduler pool, the hetero stream, state sharing, the
      decoder configs) and its times at the decoder configs' geometries;
+     K2's by path (each serving phase's routed prefills, counted from 0
+     before the first, the entry point, distributed), its main case a
+     served sender prefill;
      K4's (state sharing, entry point) and each K4 case with its plan
      (kernel, time segments).
 
@@ -210,6 +219,7 @@ The second-to-last line is nvidia-smi's name and power limit; the last line
 is {"ok": true, "device": {...}}.
 """
 import json
+import math
 import subprocess
 import sys
 import time
@@ -980,6 +990,20 @@ def kernel_launches():
                                  flash_decode, wkv6)]
 
 
+def routed_prefills(before, where: str, layers: int) -> int:
+    """K2's launches since the ``kernel_launches()`` reading ``before``,
+    after checking that K1, K3 and K4 launched nothing and K2 only whole
+    forwards of ``layers`` attention layers (a divisor of every depth in
+    play): the routing rule (``models.attention.prefill_on_kernel``) sends
+    each layer of a prefix-free bf16 / fp16 prefill on the card to it, one
+    launch a layer, and nothing else."""
+    moved = [a - b for a, b in zip(kernel_launches(), before)]
+    check(moved[0] == moved[2] == moved[3] == 0 and moved[1] % layers == 0,
+          f"{where}: K1-K4 launched {moved}; K2 only whole prefills of "
+          f"{layers} layers were expected")
+    return moved[1]
+
+
 def phase_comm_methods(dev, smi, fw):
     """Every registered method through CommSession.run (hetero_kvcomm on
     this same-depth pair maps depth-proportionally, which is the identity).
@@ -992,8 +1016,10 @@ def phase_comm_methods(dev, smi, fw):
     peak memory per method, each method's bytes against its analytic count,
     random's selection against the threefry draw, a two-sender mailbox
     against the dense combine_senders view, and full_kv against skyline.
-    The methods launch none of K1-K4 (as the reference's reach no Pallas
-    kernel): the counters must not move."""
+    The methods launch none of K1, K3 and K4 (as the reference's reach no
+    Pallas kernel), and K2 only for the prefills the routing rule sends to
+    it (``routed_prefills``: whole full-width bf16 forwards that attend no
+    prefix)."""
     import numpy as np
     import torch
     from repro_torch.comm import (METHODS, Agent, CommSession,
@@ -1111,14 +1137,16 @@ def phase_comm_methods(dev, smi, fw):
     full_rel = float((lf - ls).abs().max() / ls.abs().max())
     check(full_rel <= 5e-2, f"comm_methods: full_kv vs skyline logits rel "
           f"err {full_rel} > 5e-2")
-    check(kernel_launches() == launches0,
-          "comm_methods: the methods launched a kernel")
+    k2_launches = routed_prefills(launches0, "comm_methods",
+                                  fw["cfg"].attn_layer_count)
+    check(k2_launches > 0, "comm_methods: no full-width prefill took K2")
     emit({"phase": "comm_methods_checks", "batch": B, "context_len": Sc + 1,
           "mailbox_prefix_len": packed.prefix_len,
           "mailbox_logits_tol_ratio": mailbox_ratio,
           "mailbox_logits_max_abs_err": mailbox_err,
           "full_kv_vs_skyline_rel_err": full_rel, "bound": 5e-2,
-          "kernel_launches": 0, "phase_wall_s": time.perf_counter() - t0,
+          "k2_launches": k2_launches,
+          "phase_wall_s": time.perf_counter() - t0,
           "card": smi})
     del sess, packed, dense, full
     torch.cuda.empty_cache()
@@ -1192,10 +1220,12 @@ def phase_hetero_pair(dev, smi, fw):
     BOS) with scores from calibrate_side("sender"). Gates: bytes at
     assignment_bytes (2,064,384 for 28 -> 42 depth_proportional in
     memory), packed and dense mapped logits within the bf16 rule, identity
-    at 28 -> 28 bit-equal to kvcomm, the float32 tiny pair card vs CPU;
-    then 8 tokens streamed through the 28 -> 42 mapped prefix on K1 (7 x 42
-    launches, counter at 0 first), the first step's logits against the
-    plain backend within 5e-2. Returns the stream's K1 launches."""
+    at 28 -> 28 bit-equal to kvcomm, the float32 tiny pair card vs CPU, no
+    kernel launched but K2 for whole prefills the routing rule sends to it
+    (``routed_prefills``, of 28 or 42 layers); then 8 tokens streamed
+    through the 28 -> 42 mapped prefix on K1 (7 x 42 launches, counter at
+    0 first), the first step's logits against the plain backend within
+    5e-2. Returns the stream's K1 launches."""
     import dataclasses
     import numpy as np
     import torch
@@ -1301,8 +1331,9 @@ def phase_hetero_pair(dev, smi, fw):
           and a.wire_bytes == b.wire_bytes,
           "hetero_pair: identity at 28->28 differs from kvcomm")
     fp32_rows = hetero_fp32_parity(dev)
-    check(kernel_launches() == launches0,
-          "hetero_pair: hetero_kvcomm launched a kernel")
+    k2_launches = routed_prefills(launches0, "hetero_pair",
+                                  math.gcd(28, 42))
+    check(k2_launches > 0, "hetero_pair: no bf16 sender prefill took K2")
 
     # 8 tokens through the 28 -> 42 mapped prefix on K1
     sess = session(28, 42, InMemoryTransport())
@@ -1337,7 +1368,7 @@ def phase_hetero_pair(dev, smi, fw):
     emit({"phase": "hetero_pair_checks", "deep_layers": 42,
           "deep_params": sum(t.numel() for t in leaves(deep_params)),
           "deep_init_s": init_s, "batch": B, "context_len": Sc,
-          "identity_bit_equal_kvcomm": True,
+          "identity_bit_equal_kvcomm": True, "k2_launches": k2_launches,
           "fp32_card_vs_cpu_rows": fp32_rows,
           "stream_tokens": toks.tolist(), "stream_s": stream_s,
           "stream_k1_launches": launches,
@@ -3691,6 +3722,13 @@ def entry_point_cases(dev):
         # gemma3-4b local layer: sliding window 1024
         fa_case(dev, "gemma3_local_window", bf16, 1, 4096, 0, 8, 4, 256,
                 window=1024, seed=9),
+        # the served sender prefills at the benchmark's longest contexts:
+        # starcoder2-7b's G 9 (36 / 4 heads, each KV head's 9 rows packed
+        # across the 64-row tiles) and internlm2-20b's G 6 (48 / 8)
+        fa_case(dev, "starcoder2_sender_prefill_3968", bf16, 1, 3968, 0, 36,
+                4, 128, seed=24),
+        fa_case(dev, "internlm2_sender_prefill_2560", bf16, 1, 2560, 0, 48,
+                8, 128, seed=25),
         # llama3.2-3b widths over a 32k cache, ragged lengths
         fd_case(dev, "long_cache_32k", bf16, 4, 32768, 24, 8, 128, lc_lens,
                 seed=10),
@@ -3791,7 +3829,7 @@ def phase_entry_point(dev, flush, smi):
         for p in _pieces(out):
             check(bool(torch.isfinite(p.float()).all()),
                   f"{case['name']}: non-finite output on the main path")
-    want = {"flash_attention": 3, "flash_decode": 3, "wkv6": 2}
+    want = {"flash_attention": 5, "flash_decode": 3, "wkv6": 2}
     check(launches == want, f"entry point launches {launches} != {want}")
     del outs
     emit({"phase": "entry_point_main_path", "cases": [c["name"]
@@ -4180,8 +4218,10 @@ def phase_distributed(dev, smi):
     layers selected, B 4 x S 64): logits and masses within 5e-2 of the
     largest of the unsharded port's. (c) The production meshes' dry run
     of five combos in a subprocess: status ok, FLOPs > 0, collective
-    bytes > 0. The K1-K4 counters stay at 0 across the phase: the sharded
-    path, like the reference's, runs the plain attention and scans."""
+    bytes > 0. No kernel launches across the phase but K2 in the
+    unsharded port's two bf16 prefills (one a layer each,
+    ``routed_prefills``): the sharded path, like the reference's, runs the
+    plain attention and scans."""
     import dataclasses
     import numpy as np
     import torch
@@ -4196,7 +4236,7 @@ def phase_distributed(dev, smi):
     from repro_torch.models import transformer as tfm
     t_phase = time.perf_counter()
     dry = start_dryrun()
-    before = kernel_launches()
+    launches0 = kernel_launches()
     mesh = make_host_mesh("cuda")
     fw = pairs.full_width_config()
     corpus = synthetic_byte_corpus() % fw.vocab_size
@@ -4305,11 +4345,11 @@ def phase_distributed(dev, smi):
         check(rec["status"] == "ok" and rec["flops"] > 0
               and rec["collectives"]["total"] > 0,
               f"dry run {rec['arch']} {rec['shape']}: {rec.get('error')}")
-    after = kernel_launches()
-    check(after == before, f"distributed: kernel launches {before} -> "
-          f"{after}")
-    emit({"phase": "distributed", "k1_k4_launches": [a - b for a, b in
-                                                     zip(after, before)],
+    k2_launches = routed_prefills(launches0, "distributed", fw.num_layers)
+    check(k2_launches == 2 * fw.num_layers, f"distributed: {k2_launches} "
+          f"K2 launches, expected the unsharded prefills' 2 x "
+          f"{fw.num_layers}")
+    emit({"phase": "distributed", "k2_launches": k2_launches,
           "train": {k: {"max_rel": v["max_rel"], "bit_equal": v["bit_equal"]}
                     for k, v in train.items()},
           "seconds": time.perf_counter() - t_phase, "card": smi})
@@ -4363,8 +4403,21 @@ def main() -> int:
     flush = lambda: scratch.zero_()          # noqa: E731  (> the 50 MB L2)
     cases = phase_kernel_vs_plain(dev, flush)
     phase_fp32_parity(dev)
+    from repro_torch.kernels.flash_attention import flash_attention
+    k2_paths, k2_seen = {}, 0
+
+    def k2_path(name):
+        """K2's launches since the last reading, under ``name``: the
+        prefills the routing rule sent to it in the phases between."""
+        nonlocal k2_seen
+        k2_paths[name] = flash_attention.launches - k2_seen
+        k2_seen = flash_attention.launches
+
     fw = full_width_pair(dev)
+    torch.cuda.synchronize()
+    flash_attention.launches = 0            # K2's served launches from here
     runs, launches = phase_full_width(dev, smi, fw)
+    k2_path("full_width_serving")
 
     # the kernel at the main path's own shape: a selected layer of the
     # served table, with that table's per-row lengths
@@ -4380,16 +4433,25 @@ def main() -> int:
     del runs, st, layer, q
     torch.cuda.empty_cache()
     plan = phase_wire_codec(dev, smi, fw)
+    k2_path("wire_codec")
     paged_launches, paged_steps = phase_paged_serving(dev, smi, fw)
+    k2_path("paged_serving")
     tier_launches, tier_steps = phase_wire_tiers(dev, smi, fw, plan)
+    k2_path("wire_tiers")
     phase_comm_methods(dev, smi, fw)
+    k2_path("comm_methods")
     hetero_launches = phase_hetero_pair(dev, smi, fw)
+    k2_path("hetero_pair")
     remote_launches, remote_steps = phase_remote_serving(dev, smi, fw, plan)
+    k2_path("remote_serving")
     # the second process starts now and loads while the next phases run
     server = start_remote_server()
     res_launches, res_steps = phase_resilient_serving(dev, smi, fw)
+    k2_path("resilient_serving")
     pool_launches, pool_steps = phase_fabric_serving(dev, smi, fw)
+    k2_path("scheduler_pool")
     phase_remote_serve_two_process(dev, smi, fw, server)
+    k2_path("remote_serve_two_process")
     k1_paths = {"full_width_serving": launches,
                 "paged_serving": paged_launches,
                 "wire_tiers": tier_launches,
@@ -4405,22 +4467,29 @@ def main() -> int:
     from repro_torch.launch import pairs
     k4_state, k4_cases = phase_rwkv6_state_sharing(dev, smi, flush,
                                                    pairs.pair_tokenizer())
+    k2_path("rwkv6_state_sharing")
     k1_state, state_steps = phase_zamba2_state_sharing(
         dev, smi, flush, pairs.pair_tokenizer())
+    k2_path("zamba2_state_sharing")
     k1_paths["state_sharing"] = k1_state
     launches += k1_state
     k1_arch, arch_steps, arch_cases = phase_decoder_archs(
         dev, smi, flush, pairs.pair_tokenizer())
     k1_paths["decoder_archs"] = k1_arch
     launches += k1_arch
+    k2_path("decoder_archs")
     ep_launches, ep_results = phase_entry_point(dev, flush, smi)
+    k2_paths["entry_point"] = ep_launches["flash_attention"]
+    k2_seen = flash_attention.launches       # the entry point reset it
     sharded = phase_sharded_decode(dev, smi, flush)
     # starcoder2-7b's G 9 over the same sharded cache (F7)
     sharded_g9 = phase_sharded_decode(dev, smi, flush, Hq=36, Hkv=4)
     k1_train = phase_training(dev, smi, pairs.pair_tokenizer())
     k1_paths["quick_trained_pair"] = k1_train
     launches += k1_train
+    k2_path("training")
     phase_distributed(dev, smi)
+    k2_path("distributed")
     results = cases + [main] + ep_results + k4_cases + arch_cases
     kernels = {"kernels": [
         {**kernel_entry(results, "ragged_decode",
@@ -4445,10 +4514,21 @@ def main() -> int:
                                "max_abs_err", "tol_ratio")}
              for c in arch_cases},
          "launches_by_path": k1_paths},
-        kernel_entry(results, "flash_attention",
-                     "src/repro_torch/kernels/csrc/flash_attention.cu",
-                     "src/repro/kernels/flash_attention.py:31",
-                     ep_launches["flash_attention"], "sender_prefill_2049"),
+        {**kernel_entry(results, "flash_attention",
+                        "src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:31",
+                        sum(k2_paths.values()),
+                        "starcoder2_sender_prefill_3968"),
+         # the served sender prefills (the routing rule's), beside the
+         # entry point's cases
+         "launches_by_path": k2_paths,
+         "cases": {c["case"]: {
+             k: c[k] for k in ("B", "Sq", "Skv", "Hq", "Hkv", "D", "window",
+                               "device_ms", "bound_ms", "library_device_ms",
+                               "ms", "plain_ms", "library_ms",
+                               "max_abs_err", "tol_ratio")}
+             for c in ep_results if c["kernel"] == "flash_attention"
+             and c["dtype"] == "bfloat16"}},
         {**kernel_entry(results, "flash_decode",
                         "src/repro_torch/kernels/csrc/flash_decode.cu",
                         "src/repro/kernels/flash_decode.py:32",

@@ -22,6 +22,15 @@ of ``cfg.attn_block_q``.
 to the ragged decode kernel, the counterpart of the reference's
 ``"pallas"``; windowed layers decode masked-dense, as there.
 
+A cached prefill of a sequence from its start that attends only its own
+tokens (empty cache, uniform rows from position 0, no prefix in the layer
+or anywhere in the forward, no mass) of
+bf16 / fp16 CUDA tensors runs the prefill kernel ``flash_attention``
+(``prefill_on_kernel`` is the rule, read from the inputs alone); every
+other call, and every call on the CPU, runs the plain core. While the
+recorder is on, each call with S > 1 counts under ``prefill.attn_kernel``
+or ``prefill.attn_plain``.
+
 Whisper's decoder layers add cross-attention over the encoder's output
 (``cross_kv`` projects it once per layer, ``cross_attention`` attends it
 unmasked, at zero positions and without RoPE); it runs on the plain core,
@@ -36,11 +45,16 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from repro_torch.distributed.sharding import local_attention, write_seq
+from repro_torch.kernels import flash_attention as _k2
 from repro_torch.kernels.ragged_decode import per_row as _rows
 from repro_torch.kernels.ragged_decode import ragged_decode
 from repro_torch.models.layers import (attention_core,
                                        attention_core_chunked, dense_init,
                                        rope)
+from repro_torch.utils import trace
+
+KERNEL_PREFILLS = "prefill.attn_kernel"
+PLAIN_PREFILLS = "prefill.attn_plain"
 
 
 def _core(cfg):
@@ -57,6 +71,33 @@ def _run_core(blk_q, q, k, v, **kw):
     if blk_q:
         return attention_core_chunked(q, k, v, blk_q=blk_q, **kw)
     return attention_core(q, k, v, **kw)
+
+
+def prefill_on_kernel(q, k, *, mode: str, cache_len, pos_shift,
+                      prefix_len: int, shared_prefix_len: int, prefix_lens,
+                      collect_mass: bool, ring: bool) -> bool:
+    """Does this self-attention call run the prefill kernel in place of the
+    plain core? Only a cached prefill (S > 1) of a sequence from its start
+    that attends its own tokens alone: an empty cache (``cache_len`` the int
+    0), uniform rows starting at position 0 (``pos_shift`` the int 0, no
+    ``prefix_lens``), no prefix in this layer (``prefix_len``) nor in the
+    forward (``shared_prefix_len``), no mass, not the ring; q a plain bf16 /
+    fp16 CUDA tensor at a geometry the kernel takes; no autograd (the kernel
+    has no backward). The forward's prefix keeps every layer of a receiver
+    prefill on the plain core, those that hold none too (the packed view's
+    unselected layers, at shift 0 under ``zero_unselected``), so the packed
+    and dense views run one arithmetic."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    return (mode == "cached" and S > 1 and not ring
+            and isinstance(cache_len, int) and cache_len == 0
+            and isinstance(pos_shift, int) and pos_shift == 0
+            and prefix_lens is None and prefix_len == 0
+            and shared_prefix_len == 0 and not collect_mass
+            and not isinstance(q, DTensor) and q.is_cuda
+            and q.dtype in (torch.bfloat16, torch.float16)
+            and Hq % Hkv == 0 and _k2.supports(Hq // Hkv, D, q.dtype)
+            and not (torch.is_grad_enabled() and q.requires_grad))
 
 
 def init_attn(gen, cfg, dtype, device):
@@ -83,10 +124,13 @@ def _proj(p, x, name, H, Dh):
 def self_attention(p, cfg, x, *, mode: str, causal: bool = True,
                    use_rope: bool = True, window: Optional[int] = None,
                    pos_shift=0, prefix_len: int = 0,
+                   shared_prefix_len: int = 0,
                    ctx_valid: Optional[bool] = None, cache_k=None,
                    cache_v=None, cache_len=None, prefix_lens=None,
                    collect_mass: bool = False, backend: str = "reference"):
-    """Returns (out, (cache_k, cache_v) or (k, v), mass)."""
+    """Returns (out, (cache_k, cache_v) or (k, v), mass).
+    ``shared_prefix_len`` is the forward's shared prefix, whether this
+    layer holds it (``prefix_len``) or not; it only routes the call."""
     B, S, _ = x.shape
     dev = x.device
     Hq, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -103,6 +147,8 @@ def self_attention(p, cfg, x, *, mode: str, causal: bool = True,
             k = rope(k, pb, cfg.rope_theta)
         out, mass = _core(cfg)(q, k, v, q_pos=pos, kv_pos=pos,
                                causal=causal, window=window)
+        if S > 1:
+            trace.count(PLAIN_PREFILLS)
         return out.reshape(B, S, -1) @ p["wo"], (k, v), mass
 
     ragged = (isinstance(cache_len, torch.Tensor)
@@ -120,8 +166,15 @@ def self_attention(p, cfg, x, *, mode: str, causal: bool = True,
         k = rope(k, pb, cfg.rope_theta)
 
     Smax = cache_k.shape[1]
-    if (cfg.ring_cache and window is not None and Smax == window
-            and prefix_len == 0 and not ragged):
+    ring = bool(cfg.ring_cache and window is not None and Smax == window
+                and prefix_len == 0 and not ragged)
+    kernel = prefill_on_kernel(
+        q, k, mode=mode, cache_len=cache_len, pos_shift=pos_shift,
+        prefix_len=prefix_len, shared_prefix_len=shared_prefix_len,
+        prefix_lens=prefix_lens, collect_mass=collect_mass, ring=ring)
+    if S > 1:
+        trace.count(KERNEL_PREFILLS if kernel else PLAIN_PREFILLS)
+    if ring:
         return _ring_attention(p, cfg, q, k, v, q_pos, cache_k, cache_v,
                                cache_len, pos_shift, causal, window)
 
@@ -138,6 +191,13 @@ def self_attention(p, cfg, x, *, mode: str, causal: bool = True,
         start = max(0, min(cache_len, Smax - S))
         write_seq(cache_k, start, k.to(cache_k.dtype))
         write_seq(cache_v, start, v.to(cache_v.dtype))
+
+    if kernel:
+        # the cache holds these S entries alone, at relative positions
+        # equal to the rows', so k and v of this call are the whole range
+        out, _ = _k2.flash_attention(q, k, v, context_len=0, q_offset=0,
+                                     causal=causal, window=window)
+        return out.reshape(B, S, -1) @ p["wo"], (cache_k, cache_v), None
 
     if backend == "kernel" and S == 1 and window is None \
             and not collect_mass:

@@ -519,7 +519,7 @@ def apply_model(params, cfg: ModelConfig, tokens: torch.Tensor, *,
         attn_kw = dict(
             mode=mode, causal=spec.causal, use_rope=not audio,
             window=spec.window, pos_shift=shift,
-            prefix_len=pfx,
+            prefix_len=pfx, shared_prefix_len=prefix_len,
             ctx_valid=sel if has_prefix else None,
             cache_k=entry["k"] if entry else None,
             cache_v=entry["v"] if entry else None,

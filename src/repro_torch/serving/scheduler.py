@@ -272,7 +272,8 @@ class Scheduler:
                         "tokens": 0}
         with trace.run_recording() as rec:
             mark = rec.mark() if rec is not None else None
-            for name in ("admit.count", "admit.host_syncs", "step.count"):
+            for name in ("admit.count", "admit.host_syncs", "step.count",
+                         "prefill.attn_kernel", "prefill.attn_plain"):
                 trace.count(name, 0)
             with trace.span("scheduler.run"):
                 completions, stats = self._serve(requests)

@@ -1676,3 +1676,107 @@ def test_admit_host_syncs_counts_every_admission_wait(cuda, transport, n):
     log = sched.session.transport.log[-n:]
     np.testing.assert_allclose([r.latency_s * 1e3 for r in log],
                                [s["stream_ms"] for s in sends], rtol=1e-12)
+
+
+# --- the sender's prefix-free prefill on the prefill kernel (K2): a bf16
+# sender prefill at the served geometries takes K2 in every attention
+# layer, its KV and last-position logits within the bf16 tolerance (2e-2 of
+# the largest value) of the plain core on the same card, and no farther
+# from a float32 plain run than the plain bf16 core is (1.1 x its error
+# plus 1e-3 of the largest value)
+
+def _prefill_run(params, cfg, toks):
+    """(KV stacked over the attention layers, last-position logits) of a
+    sender prefill: ``protocol.sender_prefill``'s forward, logits kept."""
+    from repro_torch.core import protocol
+    from repro_torch.models import transformer as tfm
+    out = tfm.apply_model(params, cfg, toks, mode="cached",
+                          cache=tfm.init_cache(cfg, *toks.shape,
+                                               device=toks.device),
+                          logits_mode="last")
+    kv = protocol.extract_kv(cfg, out.cache)
+    return torch.cat([kv["k"].flatten(), kv["v"].flatten()]).float(), \
+        out.logits.float()
+
+
+@pytest.mark.parametrize("arch,S,overrides", [
+    ("starcoder2-7b", 1537, {}), ("starcoder2-7b", 2561, {}),
+    ("internlm2-20b", 1537, {}), ("internlm2-20b", 2561, {}),
+    ("gemma3-4b", 2049, {"local_window": 1024}),   # 8/4 x 256, windowed
+], ids=["sc-1537", "sc-2561", "il-1537", "il-2561", "gemma3-window"])
+def test_sender_prefill_takes_the_prefill_kernel(cuda, monkeypatch, arch, S,
+                                                 overrides):
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import protocol
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import attention
+    from repro_torch.models import transformer as tfm
+    cfg = dataclasses.replace(get_config(arch), num_layers=2,
+                              dtype="bfloat16", **overrides)
+    L = cfg.attn_layer_count
+    if arch == "gemma3-4b":        # both layers local, within the window
+        assert [s.window for s in tfm.layer_specs(cfg)] == [1024] * L
+    params = tfm.init_params(cfg, 7, device=cuda)
+    g = torch.Generator().manual_seed(S)
+    toks = torch.randint(0, cfg.vocab_size, (1, S), generator=g).to(cuda)
+
+    before = flash_attention.launches
+    protocol.sender_prefill(params, cfg, toks)
+    assert flash_attention.launches == before + L
+    kernel = _prefill_run(params, cfg, toks)
+    assert flash_attention.launches == before + 2 * L
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    exact = _prefill_run(_upcast(params), cfg32, toks)
+    with monkeypatch.context() as m:
+        m.setattr(attention, "prefill_on_kernel", lambda *a, **k: False)
+        plain = _prefill_run(params, cfg, toks)
+    assert flash_attention.launches == before + 2 * L
+    torch.cuda.synchronize()
+    for got, want, ref in zip(kernel, plain, exact):
+        top = float(ref.abs().max())
+        assert float((got - want).abs().max()) <= 2e-2 * float(
+            want.abs().max())
+        err_k, err_p = (float((x - ref).abs().max()) for x in (got, want))
+        assert err_k <= 1.1 * err_p + 1e-3 * top, (err_k, err_p, top)
+
+
+def _upcast(tree):
+    if isinstance(tree, dict):
+        return {k: _upcast(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_upcast(v) for v in tree]
+    return tree.float() if tree.is_floating_point() else tree
+
+
+@pytest.mark.parametrize("pos_mode", ["shift", "zero_unselected"])
+def test_receiver_prefill_keeps_the_plain_core(cuda, pos_mode):
+    """A bf16 receiver prefill over the sender's prefix launches no K2 in
+    any layer, in the packed view (whose unselected layers hold no prefix)
+    as in the dense one, so the two views' logits agree within the bf16
+    rule in either position mode."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import protocol
+    from repro_torch.core.types import KVCommConfig
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import transformer as tfm
+    cfg = dataclasses.replace(get_config("internlm2-20b"), num_layers=4,
+                              dtype="bfloat16")
+    params = tfm.init_params(cfg, 11, device=cuda)
+    g = torch.Generator().manual_seed(3)
+    ctx = torch.randint(0, cfg.vocab_size, (2, 1025), generator=g).to(cuda)
+    query = torch.randint(0, cfg.vocab_size, (2, 33), generator=g).to(cuda)
+    kv, _ = protocol.sender_prefill(params, cfg, ctx)
+    select = torch.tensor([True, False, True, False])
+    kvcfg = KVCommConfig(ratio=0.5, pos_mode=pos_mode)
+    before = flash_attention.launches
+    logits = [protocol.receiver_prefill(params, cfg, query,
+                                        build(kvcfg, kv, select),
+                                        max_new=4).logits
+              for build in (protocol.build_shared, protocol.pack_shared)]
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before
+    dense, packed = logits
+    assert float((packed - dense).abs().max()) <= 1e-2 * float(
+        dense.abs().max())

@@ -103,9 +103,14 @@ def test_span_tree(pair, transport):
         assert below[r.rid] == want
     steps = [s for s in spans.values() if s["name"] == "scheduler.step"]
     assert len(steps) == stats["steps"] > 0
+    # every prefill on the CPU takes the plain core: the sender's and the
+    # receiver's, one self-attention call a layer each
+    L = pair[1].attn_layer_count
     assert tr["counters"] == {"admit.count": len(reqs),
                               "admit.host_syncs": 0,
-                              "step.count": stats["steps"]}
+                              "step.count": stats["steps"],
+                              "prefill.attn_kernel": 0,
+                              "prefill.attn_plain": 2 * L * len(reqs)}
     assert len(tr["anchor"]) == 2
 
 

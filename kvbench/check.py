@@ -22,12 +22,23 @@ the timed path produced:
 
 The sample is drawn from the seed and always holds the request with the
 longest answer; it grows until it covers ``sample_tokens`` served tokens.
+
+A configuration's family (``kvbench.families``) may name more numbers in
+``EXTRA_NUMBERS``; its ``extra_numbers(view)`` reads them from what was
+judged, the program's side or the control's alike. ``view`` holds
+``token_gaps`` (per sampled request, the (n,) gaps of the judged side's
+tokens at each served position, in the float32 reference), ``scores``
+(the judged side's Eq. (1) scores of the calibration request),
+``ref_scores``, ``picked``, ``layers``, ``wire``, ``bos`` and the float32
+references ``sender`` and ``receiver``. Each is held to the cell's limit
+like the four; a limit that is missing is an error, never a pass.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from types import ModuleType
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +46,31 @@ import torch
 from kvbench import reference as ref
 
 NUMBERS = ("gap_max", "score_err", "sel_mismatch", "failed")
+
+
+def names(family: Optional[ModuleType]) -> Tuple[str, ...]:
+    """The numbers compared for a configuration of ``family``: the four,
+    then the family's own."""
+    return NUMBERS + tuple(getattr(family, "EXTRA_NUMBERS", ()))
+
+
+def extra(family: Optional[ModuleType], view: Dict) -> Dict:
+    """The family's own numbers read from ``view``; every one it names
+    has to be there."""
+    want = getattr(family, "EXTRA_NUMBERS", ())
+    if not want:
+        return {}
+    taken = set(want) & {*NUMBERS, "sampled_requests", "sampled_tokens",
+                         "gaps", "ref_scores"}
+    if taken:
+        raise ValueError(f"{family.__name__}.EXTRA_NUMBERS reuses "
+                         f"{sorted(taken)}")
+    got = family.extra_numbers(view)
+    missing = [n for n in want if n not in got]
+    if missing:
+        raise ValueError(f"{family.__name__}.extra_numbers gave no "
+                         f"{missing}")
+    return {n: got[n] for n in want}
 
 
 def gaussian_prior(L: int, sigma: float = 10.0) -> np.ndarray:
@@ -99,9 +135,9 @@ def judge(sender: ref.Reference, receiver: ref.Reference,
           picked: Sequence[Served], layers: Sequence[int],
           wire: Optional[str], bos: int) -> Dict:
     """The reference's logits at each served token, in blocks of requests;
-    returns gap_max and the per-request gaps."""
+    returns gap_max, the per-request gaps and the per-token ones."""
     dev = sender.dev
-    per = []
+    per, tok = [], []
     for a in range(0, len(picked), 4):
         blk = picked[a:a + 4]
         logits = ref.served_logits(
@@ -109,16 +145,21 @@ def judge(sender: ref.Reference, receiver: ref.Reference,
             [_t(s.query, dev) for s in blk],
             [_t(s.tokens, dev) for s in blk], layers, wire, bos)
         for s, lg in zip(blk, logits):
-            per.append(float(ref.gaps(lg, _t(s.tokens, dev)).max()))
-    return {"gap_max": max(per) if per else float("inf"), "gaps": per}
+            g = ref.gaps(lg, _t(s.tokens, dev))
+            per.append(float(g.max()))
+            tok.append(g.cpu().numpy())
+    return {"gap_max": max(per) if per else float("inf"), "gaps": per,
+            "token_gaps": tok}
 
 
 def numbers(*, sender: ref.Reference, receiver: ref.Reference,
             served: Sequence[Served], calib: Served,
             prog_scores: np.ndarray, prog_select: np.ndarray,
             ratio: float, alpha: float, wire: Optional[str], bos: int,
-            seed: int, sample_tokens: int) -> Dict:
-    """Every number the check compares, with what it was read on."""
+            seed: int, sample_tokens: int,
+            family: Optional[ModuleType] = None) -> Dict:
+    """Every number the check compares (the four, then ``family``'s own),
+    with what it was read on."""
     picked = sample(served, seed, sample_tokens)
     layers = [int(i) for i in np.nonzero(prog_select)[0]]
     out = judge(sender, receiver, picked, layers, wire, bos)
@@ -127,12 +168,17 @@ def numbers(*, sender: ref.Reference, receiver: ref.Reference,
         sender, receiver, _t(calib.context, dev), _t(calib.query, dev),
         bos).numpy()
     rule = paper_selection(np.asarray(prog_scores), ratio, alpha)
+    own = extra(family, dict(
+        token_gaps=out["token_gaps"], scores=np.asarray(prog_scores),
+        ref_scores=ref_scores, picked=picked, layers=layers, wire=wire,
+        bos=bos, sender=sender, receiver=receiver))
     return {
         "gap_max": out["gap_max"],
         "score_err": float(np.abs(np.asarray(prog_scores, np.float64)
                                   - ref_scores).max()),
         "sel_mismatch": int((rule != np.asarray(prog_select)).sum()),
         "failed": failures(served),
+        **own,
         "sampled_requests": len(picked),
         "sampled_tokens": int(sum(s.answer for s in picked)),
         "gaps": out["gaps"],
@@ -143,14 +189,15 @@ def numbers(*, sender: ref.Reference, receiver: ref.Reference,
 def control_numbers(*, sender: ref.Reference, receiver: ref.Reference,
                     sender8: ref.Reference, receiver8: ref.Reference,
                     picked: Sequence[Served], calib: Served,
-                    layers: Sequence[int], wire: Optional[str], bos: int
-                    ) -> Dict:
+                    layers: Sequence[int], wire: Optional[str], bos: int,
+                    family: Optional[ModuleType] = None) -> Dict:
     """The control: the reference at float8 in the program's place. At
     each position of the same prompts and served tokens, the gap (in the
-    float32 reference) of the token float8 puts first; and float8's
-    Eq. (1) scores against float32's."""
+    float32 reference) of the token float8 puts first; float8's Eq. (1)
+    scores against float32's; and ``family``'s own numbers read on
+    float8's side."""
     dev = sender.dev
-    per = []
+    per, tok = [], []
     for a in range(0, len(picked), 4):
         blk = picked[a:a + 4]
         args = ([_t(s.context, dev) for s in blk],
@@ -159,16 +206,26 @@ def control_numbers(*, sender: ref.Reference, receiver: ref.Reference,
         exact = ref.served_logits(sender, receiver, *args)
         low = ref.served_logits(sender8, receiver8, *args)
         for e, lo in zip(exact, low):
-            per.append(float(ref.gaps(e, lo.argmax(dim=-1)).max()))
+            g = ref.gaps(e, lo.argmax(dim=-1))
+            per.append(float(g.max()))
+            tok.append(g.cpu().numpy())
     c, q = _t(calib.context, dev), _t(calib.query, dev)
     s32 = ref.calibration_scores(sender, receiver, c, q, bos).numpy()
     s8 = ref.calibration_scores(sender8, receiver8, c, q, bos).numpy()
-    return {"gap_max": max(per), "score_err": float(np.abs(s8 - s32).max())}
+    own = extra(family, dict(
+        token_gaps=tok, scores=s8, ref_scores=s32, picked=list(picked),
+        layers=list(layers), wire=wire, bos=bos, sender=sender,
+        receiver=receiver))
+    return {"gap_max": max(per), "score_err": float(np.abs(s8 - s32).max()),
+            **own}
 
 
-def verdict(nums: Dict, limits: Dict) -> bool:
-    return all(nums[k] <= limits[k] for k in NUMBERS)
+def verdict(nums: Dict, limits: Dict, names: Sequence[str] = NUMBERS
+            ) -> bool:
+    """Every number at or below its limit; a missing limit raises."""
+    return all(nums[k] <= limits[k] for k in names)
 
 
-def lines(nums: Dict, limits: Dict) -> List[str]:
-    return [f"check {k} {nums[k]!r} limit {limits[k]!r}" for k in NUMBERS]
+def lines(nums: Dict, limits: Dict, names: Sequence[str] = NUMBERS
+          ) -> List[str]:
+    return [f"check {k} {nums[k]!r} limit {limits[k]!r}" for k in names]

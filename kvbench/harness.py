@@ -18,13 +18,13 @@ import json
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
-from types import SimpleNamespace
+from types import ModuleType, SimpleNamespace
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from kvbench import generator, weights
+from kvbench import check, families, generator, weights
 from kvbench.check import Served
 
 HERE = Path(__file__).resolve().parent
@@ -46,6 +46,8 @@ class Cell:
     config: Dict            # kvbench/configs/<config>.json
     mix: Dict               # kvbench/traffic/<traffic>.json
     spec: Dict              # kvbench/workloads/<cell>.json
+    family: ModuleType      # kvbench/families/<config's "family">.py
+    numbers: tuple          # the names the check compares
 
     @property
     def model(self) -> Dict:
@@ -56,6 +58,20 @@ class Cell:
         return self.config["mlp"]
 
 
+def make_cell(name: str, entry: Dict, config: Dict, mix: Dict,
+              spec: Dict) -> Cell:
+    """A cell with its family resolved and a limit in ``spec`` for every
+    number the check compares; raises before any weights are made."""
+    family = families.of(config)
+    names = check.names(family)
+    missing = [n for n in names if n not in spec["limits"]]
+    if missing:
+        raise ValueError(f"{name}: kvbench/workloads/{name}.json has no "
+                         f"limit for {missing}")
+    return Cell(name=name, entry=entry, config=config, mix=mix, spec=spec,
+                family=family, numbers=names)
+
+
 def load_cell(manifest: Dict, name: str, base: Path = HERE) -> Cell:
     """Find a cell and its configuration, traffic and check files by the
     names ``BENCHMARK.json`` gives."""
@@ -63,16 +79,22 @@ def load_cell(manifest: Dict, name: str, base: Path = HERE) -> Cell:
     if name not in entries:
         raise KeyError(f"no workload {name!r} in BENCHMARK.json")
     e = entries[name]
-    return Cell(name=name, entry=e,
-                config=load_json(base / "configs" / f"{e['config']}.json"),
-                mix=generator.validate(
-                    load_json(base / "traffic" / f"{e['traffic']}.json")),
-                spec=load_json(base / "workloads" / f"{name}.json"))
+    return make_cell(name, e,
+                     load_json(base / "configs" / f"{e['config']}.json"),
+                     generator.validate(
+                         load_json(base / "traffic" / f"{e['traffic']}.json")),
+                     load_json(base / "workloads" / f"{name}.json"))
+
+
+def reader_name(metric: str) -> str:
+    """The reader of a metric: the part of its name before the first dot
+    (``mfu_pct.doc_qa`` is read as ``mfu_pct`` is)."""
+    return metric.split(".", 1)[0]
 
 
 def metric_module(name: str):
-    """The reader of a metric: ``kvbench/metrics/<name>.py``."""
-    return importlib.import_module(f"kvbench.metrics.{name}")
+    """The reader of a metric: ``kvbench/metrics/<reader_name>.py``."""
+    return importlib.import_module(f"kvbench.metrics.{reader_name(name)}")
 
 
 @dataclass
@@ -214,10 +236,11 @@ class Bench:
 
 def make_param_sets(cell: Cell, seed: int, device) -> tuple:
     """(sender, receiver) parameters: two sets (seed, seed + 1) or one
-    serving both roles, as the configuration file states."""
+    serving both roles, as the configuration file states, in the leaves
+    of the configuration's family."""
+    spec = cell.family.leaves(cell.model, cell.mlp)
     dt = getattr(torch, cell.model.get("dtype", "bfloat16"))
     n = cell.config["parameter_sets"]
-    a = weights.make_params(cell.model, cell.mlp, seed, device, dt)
-    b = (weights.make_params(cell.model, cell.mlp, seed + 1, device, dt)
-         if n == 2 else a)
+    a = weights.make_params(spec, seed, device, dt)
+    b = weights.make_params(spec, seed + 1, device, dt) if n == 2 else a
     return a, b

@@ -1,9 +1,9 @@
 """K1 (the ragged decode, ``kernels/ragged_decode.py``) in the traced
 wave: the least time its needed bytes take at the card's HBM bandwidth
-over its device time, in %. The bytes (``kvbench.counts.k1_bytes``) are
-the K and V of each live row's attended positions, read once, and its
-query and output rows; decode attention is bound by bytes."""
-from kvbench import counts
+over its device time, in %. The bytes (the configuration's family's
+``k1_bytes``, ``kvbench.counts.k1_bytes`` for the dense one) are the K
+and V of each live row's attended positions, read once, and its query and
+output rows; decode attention is bound by bytes."""
 from kvbench.peaks import peak
 
 KERNELS = ("ragged_mma_kernel", "ragged_split_kernel", "ragged_merge_kernel")
@@ -16,5 +16,6 @@ def read(rec):
     busy = rec.trace["groups"].get("k1_roofline_pct", 0.0)
     if busy <= 0:
         return None
-    need = counts.k1_bytes(rec.cell.model, rec.traced.items, rec.layers)
+    need = rec.cell.family.k1_bytes(rec.cell.model, rec.traced.items,
+                                    rec.layers)
     return 100.0 * need / bw / busy

@@ -33,7 +33,6 @@ def main(argv=None) -> int:
     import torch
     sys.path.insert(0, str(ROOT / "src"))
     from kvbench import check, generator
-    from kvbench import reference as ref
     from kvbench.harness import (ALPHA, BOS, RATIO, Bench, load_cell,
                                  load_json, make_param_sets)
     if not torch.cuda.is_available():
@@ -42,6 +41,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cell = load_cell(load_json(ROOT / "BENCHMARK.json"), args.workload)
+    fam = cell.family
     dev = torch.device("cuda", 0)
     for n, seed in enumerate(args.seeds):
         t = time.perf_counter()
@@ -60,16 +60,16 @@ def main(argv=None) -> int:
         del bench
         gc.collect()
         torch.cuda.empty_cache()
-        r32 = (ref.Reference(cell.model, cell.mlp, params[0]),
-               ref.Reference(cell.model, cell.mlp, params[1]))
+        r32 = (fam.Reference(cell.model, cell.mlp, params[0]),
+               fam.Reference(cell.model, cell.mlp, params[1]))
         nums = check.numbers(
             sender=r32[0], receiver=r32[1], served=served, calib=calib,
             prog_scores=scores, prog_select=select, ratio=RATIO,
             alpha=ALPHA, wire=wire, bos=BOS, seed=seed,
-            sample_tokens=cell.spec["sample_tokens"])
+            sample_tokens=cell.spec["sample_tokens"], family=fam)
         t_ref = time.perf_counter()
         line = {"cell": cell.name, "seed": seed,
-                **{k: nums[k] for k in check.NUMBERS},
+                **{k: nums[k] for k in check.names(fam)},
                 "sampled_requests": nums["sampled_requests"],
                 "sampled_tokens": nums["sampled_tokens"],
                 "layers": layers,
@@ -81,14 +81,14 @@ def main(argv=None) -> int:
             picked = check.sample(served, seed, cell.spec["sample_tokens"])
             ctl = check.control_numbers(
                 sender=r32[0], receiver=r32[1],
-                sender8=ref.Reference(cell.model, cell.mlp, params[0],
+                sender8=fam.Reference(cell.model, cell.mlp, params[0],
                                       "fp8"),
-                receiver8=ref.Reference(cell.model, cell.mlp, params[1],
+                receiver8=fam.Reference(cell.model, cell.mlp, params[1],
                                         "fp8"),
                 picked=picked, calib=calib, layers=layers, wire=wire,
-                bos=BOS)
-            line["control_gap_max"] = ctl["gap_max"]
-            line["control_score_err"] = ctl["score_err"]
+                bos=BOS, family=fam)
+            for k, v in ctl.items():
+                line[f"control_{k}"] = v
         line["program_s"] = t_prog - t
         line["check_s"] = t_ref - t_prog
         line["seconds"] = time.perf_counter() - t

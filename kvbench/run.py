@@ -6,12 +6,12 @@ from the root of a checkout that holds ``BENCHMARK.json``, ``kvbench/`` and
 the program (``src/repro_torch``). Set-up (weights from the seed, the K1
 build or load, calibration, one warm-up wave), then the window, then, with
 ``--trace 1``, one more wave under ``torch.profiler``; then the program's
-state is freed and the reference judges a sample of what the window
-served. The last line of standard output is the result as one JSON
-object; the last lines of standard error are the numbers compared, each
-beside its limit. Exits 2 without a CUDA card (or with fewer than the
-cell asks for) and 3 if JAX or the JAX package was loaded, printing no
-result either way.
+state is freed and the reference of the configuration's family
+(``kvbench.families``) judges a sample of what the window served. The
+last line of standard output is the result as one JSON object; the last
+lines of standard error are the numbers compared, each beside its limit.
+Exits 2 without a CUDA card (or with fewer than the cell asks for) and 3
+if JAX or the JAX package was loaded, printing no result either way.
 """
 import time
 
@@ -51,12 +51,12 @@ def execute(manifest, cell, seed: int, seconds: float, trace_on: bool,
     Returns (result dict, stderr lines)."""
     import torch
     from kvbench import check, generator, trace
-    from kvbench import reference as ref
     from kvbench.harness import (ALPHA, BOS, RATIO, Bench, Record,
-                                 metric_module)
+                                 metric_module, reader_name)
 
     cuda = dev.type == "cuda"
     kind = torch.cuda.get_device_name(dev) if cuda else "cpu"
+    names = cell.numbers
 
     # ---- set-up -----------------------------------------------------------
     bench = Bench(cell, seed, dev)
@@ -79,7 +79,7 @@ def execute(manifest, cell, seed: int, seconds: float, trace_on: bool,
     readers = {m["name"]: metric_module(m["name"]) for m in wanted}
     if trace_on:
         from torch.profiler import ProfilerActivity, profile, record_function
-        groups = {n: r.KERNELS for n, r in readers.items()
+        groups = {reader_name(n): r.KERNELS for n, r in readers.items()
                   if hasattr(r, "KERNELS")}
         items = generator.wave(cell.mix, seed, k, bench.cfg.vocab_size)
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda
@@ -108,17 +108,18 @@ def execute(manifest, cell, seed: int, seconds: float, trace_on: bool,
     if cuda:
         torch.cuda.empty_cache()
     limits = cell.spec["limits"]
+    fam = cell.family
     nums = check.numbers(
-        sender=ref.Reference(cell.model, cell.mlp, params[0]),
-        receiver=ref.Reference(cell.model, cell.mlp, params[1]),
+        sender=fam.Reference(cell.model, cell.mlp, params[0]),
+        receiver=fam.Reference(cell.model, cell.mlp, params[1]),
         served=served, calib=calib, prog_scores=scores, prog_select=select,
         ratio=RATIO, alpha=ALPHA, wire=wire, bos=BOS, seed=seed,
-        sample_tokens=cell.spec["sample_tokens"])
+        sample_tokens=cell.spec["sample_tokens"], family=fam)
 
     device = {"platform": "gpu" if cuda else "cpu", "kind": kind,
               "count": cell.entry["chips"],
               "memory_peak_bytes": int(memory_peak)}
-    result = {"correct": check.verdict(nums, limits),
+    result = {"correct": check.verdict(nums, limits, names),
               "attempted": len(served), "failed": int(nums["failed"]),
               "metrics": metrics, "device": device}
     if rec.trace is not None:
@@ -128,14 +129,14 @@ def execute(manifest, cell, seed: int, seconds: float, trace_on: bool,
             "device_ops": [[n, s] for n, s in rec.trace["device_ops"]],
             "idle_gaps": [[n, s] for n, s in rec.trace["idle_gaps"]]}
     result["check"] = {n: {"value": nums[n], "limit": limits[n]}
-                       for n in check.NUMBERS}
+                       for n in names}
     lines = [f"kvbench: {cell.name} seed {seed}: {len(rec.waves)} waves in "
              f"{rec.window_s:.3f} s (each {[w.seconds for w in rec.waves]} "
              f"s, the warm-up's {rec.warmup_s} s), sampled "
              f"{nums['sampled_requests']} "
              f"requests / {nums['sampled_tokens']} tokens, layers "
              f"{list(rec.layers)}, gaps {nums['gaps']}"]
-    return result, lines + check.lines(nums, limits)
+    return result, lines + check.lines(nums, limits, names)
 
 
 def parse(argv):

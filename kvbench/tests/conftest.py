@@ -22,20 +22,25 @@ TINY_LIMITS = {"gap_max": 0.04, "score_err": 0.02, "sel_mismatch": 0,
                "failed": 0}
 
 
-def tiny_cell(name="starcoder2-7b.doc_qa", transport="serialized"):
+def tiny_cell(name="starcoder2-7b.doc_qa", transport="serialized",
+              family=None, limits=None):
+    """``family`` goes into the configuration file's ``"family"`` key,
+    ``limits`` beside the tiny ones."""
     from kvbench import generator
-    from kvbench.harness import Cell
+    from kvbench.harness import make_cell
     mix = {"context": {"dist": "log_uniform", "min": 24, "max": 60},
            "query": {"dist": "uniform", "min": 4, "max": 9},
            "answer": {"dist": "uniform", "min": 3, "max": 7},
            "wave": 4, "capacity": 4, "transport": transport}
     if transport == "serialized":
         mix["wire_dtype"] = "int8"
-    return Cell(name=name, entry={"chips": 1},
-                config={"name": "starcoder2-tiny", "model": TINY_MODEL,
-                        "mlp": "gelu", "parameter_sets": 2},
-                mix=generator.validate(mix),
-                spec={"sample_tokens": 20, "limits": dict(TINY_LIMITS)})
+    config = {"name": "starcoder2-tiny", "model": TINY_MODEL, "mlp": "gelu",
+              "parameter_sets": 2}
+    if family is not None:
+        config["family"] = family
+    return make_cell(name, {"chips": 1}, config, generator.validate(mix),
+                     {"sample_tokens": 20,
+                      "limits": {**TINY_LIMITS, **(limits or {})}})
 
 
 @pytest.fixture

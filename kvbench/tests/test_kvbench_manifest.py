@@ -67,6 +67,7 @@ def test_names_units_and_keys(manifest):
 
 
 def test_every_name_resolves(manifest):
+    from kvbench import check
     from kvbench.harness import load_cell, metric_module
     configs = {c["name"]: c for c in manifest["configs"]}
     cells = {w["name"] for w in manifest["workloads"]}
@@ -84,8 +85,7 @@ def test_every_name_resolves(manifest):
     for w in manifest["workloads"]:
         cell = load_cell(manifest, w["name"])
         used.add(w["config"])
-        assert set(cell.spec["limits"]) == {"gap_max", "score_err",
-                                            "sel_mismatch", "failed"}
+        assert set(cell.spec["limits"]) == set(check.names(cell.family))
     assert used == set(configs)
     for m in manifest["end_to_end"] + manifest["per_layer"]:
         assert callable(metric_module(m["name"]).read)
@@ -95,6 +95,19 @@ def test_every_name_resolves(manifest):
     for w in cells:   # every cell reports a per-layer metric
         assert [m for m in manifest["per_layer"]
                 if w in m.get("workloads", cells)]
+
+
+def test_each_cell_reports_what_its_per_layer_metrics_move(manifest):
+    """A per-layer metric's cells each report the end-to-end metric it
+    moves, and every cell reports set-up and one more end-to-end metric."""
+    cells = [w["name"] for w in manifest["workloads"]]
+    e2e = {m["name"]: m for m in manifest["end_to_end"]}
+    for w in cells:
+        held = [n for n, m in e2e.items() if w in m.get("workloads", cells)]
+        assert "setup_s" in held and len(held) >= 2, w
+    for m in manifest["per_layer"]:
+        reported = e2e[m["moves"]].get("workloads", cells)
+        assert set(m.get("workloads", cells)) <= set(reported), m["name"]
 
 
 def test_files_under_paths_are_named_from_name_characters():

@@ -38,10 +38,20 @@ def test_reads_nothing_from_a_wave_without_a_recording():
 
 
 def test_manifest_entry(manifest):
-    m = next(e for e in manifest["per_layer"]
-             if e["name"] == "prefill_kernel_pct")
-    assert m == {"name": "prefill_kernel_pct", "unit": "%",
-                 "better": "higher", "source": "program_counter",
-                 "layer": "model (models/, core/protocol.py)",
-                 "moves": "ttft_p90_ms",
-                 "workloads": [w["name"] for w in manifest["workloads"]]}
+    """Every cell reads it once: the cells that hold TTFT end to end under
+    its own name, the decode-paced cell (which holds none) under
+    ``.long_answer``, tied to the end-to-end metric that cell reports."""
+    per = {e["name"]: e for e in manifest["per_layer"]}
+    ttft = next(e for e in manifest["end_to_end"]
+                if e["name"] == "ttft_p90_ms")
+    same = {"unit": "%", "better": "higher", "source": "program_counter",
+            "layer": "model (models/, core/protocol.py)"}
+    assert per["prefill_kernel_pct"] == {
+        "name": "prefill_kernel_pct", **same, "moves": "ttft_p90_ms",
+        "workloads": ttft["workloads"]}
+    assert per["prefill_kernel_pct.long_answer"] == {
+        "name": "prefill_kernel_pct.long_answer", **same,
+        "moves": "peak_mem_gb",
+        "workloads": ["starcoder2-7b.long_answer"]}
+    assert sorted(ttft["workloads"] + ["starcoder2-7b.long_answer"]) \
+        == sorted(w["name"] for w in manifest["workloads"])

@@ -189,8 +189,9 @@ with open({root!r} + "/BENCHMARK.json") as f:
 res, _ = run.execute(man, tiny_cell(), 100, 0.3, True, torch.device("cpu"),
                      time.perf_counter())
 import kvbench.readings, kvbench.metrics
+from kvbench.harness import metric_module
 for m in man["end_to_end"] + man["per_layer"]:
-    __import__("kvbench.metrics." + m["name"])
+    metric_module(m["name"])
 print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))
 """
 
@@ -212,7 +213,8 @@ def test_no_jax_in_the_measuring_process():
 def test_reference_imports_nothing_of_the_program():
     code = ("import sys; sys.path[:0] = [{r!r}, {r!r} + '/src'];"
             "import kvbench.reference, kvbench.check, kvbench.counts, "
-            "kvbench.generator, kvbench.weights;"
+            "kvbench.generator, kvbench.weights, kvbench.families, "
+            "kvbench.families.dense;"
             "print(sorted({{m.split('.')[0] for m in sys.modules}}))"
             ).format(r=str(ROOT))
     p = subprocess.run([sys.executable, "-c", code], capture_output=True,

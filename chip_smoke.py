@@ -167,12 +167,25 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
      ring cache = the full cache over a 1,100-token prefill and 8 steps
      past the 1,024 window (1e-3), the chunked core = the plain one on a
      2,048-token prefill, logits and Eq. (1) masses (1e-4). olmoe: the
-     float32 skyline on dense_all; dropping = dense_all at capacity
-     E / k = 8 (float32 1e-4, bf16 3e-2 of the largest value), the drop
-     count at 1.25, each strategy's MoE layer ms. pixtral: a forward with
+     float32 skyline on dense_all; dropping = the dense_all loop over
+     experts at capacity E / k = 8 (float32 1e-4, bf16 3e-2 of the
+     largest value), K5 (the bf16 dense_all call's path on the card) =
+     the loop at bf16 within 3e-2, the drop count at 1.25, the loop's,
+     K5's and dropping's MoE layer ms. olmoe's and mixtral's bf16 MoE
+     calls run K5 throughout the phase (the kernels line's K5 launches). pixtral: a forward with
      256 seeded patch embeddings beside a text-only one. mixtral: the
      4,096 window bites on a 4,100-token context, ring = full cache at
      bf16 within 5e-2. These are K1 paths.
+  4l. moe_grouped — K5 (kernels/moe_grouped.py, Triton) at mellum2-12b's
+     served shapes: a 4,096-position sender prefill's 32,768 assignments
+     and a 16-row decode step's 128, over 64 experts of width 896 at
+     d 2,304, two launches a call; each against its plain version (2e-2:
+     h and each gated row are rounded to bf16 before the final sum, in
+     both), timed beside the dense_all loop it replaces ("plain") and
+     torch._grouped_mm over the same sorted rows ("library"), the bound
+     counting the experts the routing touched. Then K1 at G 8 over
+     mellum2-12b's full layers: 16 rows, 32 / 4 heads of 128, a 7,952
+     prefix bucket.
   5. the kernel entry point — repro_torch.kernels.ops driven at full
      published widths with the K2/K3/K4 counters at 0 (llama3.2-3b-pair
      prefills with and without the Eq. (1) mass, a gemma3-4b local
@@ -204,7 +217,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
      ok, FLOPs and collective bytes > 0, one line each. No kernel
      launches across the phase but K2 in the unsharded port's two bf16
      prefills, one a layer each (56).
-  7. the kernels line — one JSON object listing every kernel (K1-K4),
+  7. the kernels line — one JSON object listing every kernel (K1-K5),
      with each one's device ms over SDPA's at its main case; K1's launches
      by path (full-width, paged, wire tiers, remote serving, resilient
      serving, the scheduler pool, the hetero stream, state sharing, the
@@ -213,7 +226,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
      before the first, the entry point, distributed), its main case a
      served sender prefill;
      K4's (state sharing, entry point) and each K4 case with its plan
-     (kernel, time segments).
+     (kernel, time segments); K5's by path (counted from 0 before the
+     first serving phase: the decoder configs' bf16 MoE calls and the
+     moe_grouped phase) and its cases.
 
 The second-to-last line is nvidia-smi's name and power limit; the last line
 is {"ok": true, "device": {...}}.
@@ -3128,11 +3143,14 @@ def gemma3_gates(dev, cfg, params, tok, ctx, qry):
 
 
 def olmoe_gates(dev, cfg, params, tok, ctx, qry):
-    """The float32 skyline (dense_all); dropping against dense_all on one
-    layer's experts at capacity E / k (nothing drops): float32 within
-    1e-4 and bf16 within MOE_DROP_BF16_BOUND of the largest value; the
-    drop count at the default 1.25; each strategy's MoE layer ms at the
-    stream's prefill (4 x 2,049 tokens) and decode (4 x 1)."""
+    """The float32 skyline (dense_all); dropping against the dense_all
+    loop over experts (``apply_moe_dense_all``) on one layer's experts at
+    capacity E / k (nothing drops): float32 within 1e-4 and bf16 within
+    MOE_DROP_BF16_BOUND of the largest value; the grouped path (K5, which
+    the bf16 dense_all call takes on the card) against the same loop at
+    bf16 within the same bound; the drop count at the default 1.25; the
+    loop's, K5's and dropping's MoE layer ms at the stream's prefill
+    (4 x 2,049 tokens) and decode (4 x 1)."""
     import dataclasses
     import torch
     from repro_torch.core import protocol
@@ -3158,24 +3176,36 @@ def olmoe_gates(dev, cfg, params, tok, ctx, qry):
         xd = x.to(dt)
         check(layers.moe_dropped(pd, xd, full) == 0,
               f"olmoe: capacity E/k drops at {dt}")
-        want, _ = layers.apply_moe(pd, xd, cfg)
+        want, _ = layers.apply_moe_dense_all(pd, xd, k)
         got, _ = layers.apply_moe(pd, xd, full)
         rels[str(dt).replace("torch.", "")], _ = rel_and_agree(got, want)
+        if dt == torch.bfloat16:
+            check(layers.moe_on_kernel(pd, xd, cfg),
+                  "olmoe: the bf16 dense_all call does not take K5")
+            grouped, _ = layers.apply_moe(pd, xd, cfg)
+            grouped_rel, _ = rel_and_agree(grouped, want)
+            del grouped
         del pd, xd, want, got
     check(rels["float32"] <= 1e-4
           and rels["bfloat16"] <= MOE_DROP_BF16_BOUND,
           f"olmoe: dropping at capacity E/k vs dense_all {rels}")
+    check(grouped_rel <= MOE_DROP_BF16_BOUND,
+          f"olmoe: K5 vs the dense_all loop at bf16 {grouped_rel}")
     dropped = layers.moe_dropped(p, x, drop)
+    loop = lambda p, x, c: layers.apply_moe_dense_all(  # noqa: E731
+        p, x, c.num_experts_per_tok)
     ms = {}
-    for impl, c in (("dense_all", cfg), ("dropping", drop)):
-        ms[f"moe_{impl}_prefill_ms"] = wall_ms(
-            lambda: layers.apply_moe(p, x, c))
-        ms[f"moe_{impl}_decode_ms"] = wall_ms(
-            lambda: layers.apply_moe(p, x[:, :1], c))
+    for impl, fn, c in (("dense_all", loop, cfg),
+                        ("grouped", layers.apply_moe, cfg),
+                        ("dropping", layers.apply_moe, drop)):
+        ms[f"moe_{impl}_prefill_ms"] = wall_ms(lambda: fn(p, x, c))
+        ms[f"moe_{impl}_decode_ms"] = wall_ms(lambda: fn(p, x[:, :1], c))
     del x
     torch.cuda.empty_cache()
     return {"skyline": sky, "fp32_bound": FP32_FULL_BOUND,
             "dropping_vs_dense_all_rel_at_capacity_E_over_k": rels,
+            "grouped_vs_dense_all_rel_bf16": grouped_rel,
+            "moe_bound": MOE_DROP_BF16_BOUND,
             "dropped_assignments_at_1_25": dropped,
             "assignments": ARCH_B * (ctx.shape[1] + 1) * k, **ms}
 
@@ -3807,6 +3837,111 @@ def compare_case(case, flush):
             "library_device_ms": dev_ms["library"]}
 
 
+MOE_CASES = [
+    # mellum2-12b's expert layer: 64 experts of width 896 at d 2304, top 8;
+    # a 4,096-position sender prefill's 32,768 assignments, and a 16-row
+    # decode step's 128
+    ("mellum2_prefill_4096x8", 4096),
+    ("mellum2_decode_16", 16),
+]
+MOE_E, MOE_K, MOE_D, MOE_F = 64, 8, 2304, 896
+MOE_TOLS = (2e-2, 2e-2)
+
+
+def moe_case(dev, name, N, seed):
+    """A K5 case in ``fa_case``'s form: routed tokens of mellum2-12b's
+    expert layer (the router at the benchmark's scale, 2 / sqrt(d)), the
+    kernel, its plain version (checked in float32 products), the dense_all
+    loop it replaces (timed as "plain") and ``torch._grouped_mm`` over the
+    same sorted rows as the yardstick; the bound counts the experts the
+    routing touched, read once, and x and the output."""
+    import math
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.moe_grouped import (
+        block_m, grouped_experts, grouped_experts_reference)
+    from repro_torch.models.layers import (combine_weights, expert_sum,
+                                           router_probs)
+    g = torch.Generator().manual_seed(seed)
+    E, k, D, Fd = MOE_E, MOE_K, MOE_D, MOE_F
+    p = {"router": (torch.randn(D, E, generator=g) * 2 / math.sqrt(D)).to(
+        dev),
+         "w_gate": (torch.randn(E, D, Fd, generator=g) / math.sqrt(D)).to(
+             dev, torch.bfloat16),
+         "w_up": (torch.randn(E, D, Fd, generator=g) / math.sqrt(D)).to(
+             dev, torch.bfloat16),
+         "w_down": (torch.randn(E, Fd, D, generator=g) / math.sqrt(Fd)).to(
+             dev, torch.bfloat16)}
+    x = torch.randn(N, D, generator=g).to(dev, torch.bfloat16)
+    gates, idx, _ = router_probs(p, x, k)
+    comb = combine_weights(gates, idx, p)
+    touched = int((torch.bincount(idx.reshape(-1), minlength=E) > 0).sum())
+    args = (x, p["w_gate"], p["w_up"], p["w_down"], gates, idx)
+
+    def grouped_mm():
+        order = torch.sort(idx.reshape(-1), stable=True).indices
+        ends = torch.searchsorted(idx.reshape(-1)[order],
+                                  torch.arange(E, device=dev), right=True)
+        offs = ends.to(torch.int32)
+        xs = x[order // k]
+        h = F.silu(torch._grouped_mm(xs, p["w_gate"], offs=offs)) \
+            * torch._grouped_mm(xs, p["w_up"], offs=offs)
+        y = torch._grouped_mm(h, p["w_down"], offs=offs)
+        out = torch.empty_like(y)
+        out[order] = y * gates.reshape(-1)[order, None]
+        return out.view(N, k, D).sum(1, dtype=torch.float32).to(x.dtype)
+
+    library, library_error = None, None
+    try:                     # the yardstick, where this PyTorch has it
+        grouped_mm()
+        library = grouped_mm
+    except (AttributeError, RuntimeError) as e:
+        library_error = str(e)[:200]
+    return {"name": name, "kernel": "moe_grouped",
+            "counter": grouped_experts, "dtype": torch.bfloat16,
+            # h and each gated expert row are rounded to bf16 before the
+            # final sum's rounding, in both versions: a one-ulp difference
+            # in any of the three reaches the output, so two ulps
+            "tols": [MOE_TOLS],
+            "run": lambda: grouped_experts(*args),
+            "plain": lambda: expert_sum(p, x, comb),
+            "check_plain": lambda: grouped_experts_reference(
+                *args, bm=block_m(N * k, E)),
+            "library": library,
+            "nbytes": touched * 3 * D * Fd * 2 + 2 * N * D * 2,
+            "flops": 6 * N * k * D * Fd, "plain_iters": 3,
+            "shape": {"N": N, "E": E, "k": k, "D": D, "F": Fd,
+                      "assignments": N * k, "experts_touched": touched,
+                      "block_m": block_m(N * k, E),
+                      "library_error": library_error}}
+
+
+def phase_moe_grouped(dev, flush, smi):
+    """K5 at mellum2-12b's served shapes against its plain version and
+    timed beside the dense_all loop and torch._grouped_mm; then K1 at G 8
+    over mellum2-12b's full layers (32 / 4 heads of 128, 16 rows over a
+    7,952-position prefix bucket)."""
+    import torch
+    from repro_torch.kernels.moe_grouped import grouped_experts
+    results = []
+    for i, (name, N) in enumerate(MOE_CASES):
+        case = moe_case(dev, name, N, seed=40 + i)
+        before = grouped_experts.launches
+        case["run"]()
+        torch.cuda.synchronize()
+        made = grouped_experts.launches - before
+        check(made == 2, f"{name}: {made} launches, expected 2")
+        results.append(compare_case(case, flush))
+        emit({"phase": "moe_grouped_kernel_vs_plain", "card": smi,
+              **results[-1]})
+    case = rd_case("mellum2_full_layer_g8", *served_case(
+        dev, torch.bfloat16, 16, 8039, 7952, 32, 4, 128, seed=42),
+        prefix_len=7952)
+    results.append(compare_case(case, flush))
+    emit({"phase": "mellum2_k1_g8", "card": smi, **results[-1]})
+    return results
+
+
 def phase_entry_point(dev, flush, smi):
     """Drive ops.flash_attention / decode_attention / wkv6_scan at the full
     published widths with the counters at 0 (the slice's main path), then
@@ -4404,20 +4539,26 @@ def main() -> int:
     cases = phase_kernel_vs_plain(dev, flush)
     phase_fp32_parity(dev)
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_grouped import grouped_experts
     k2_paths, k2_seen = {}, 0
+    k5_paths, k5_seen = {}, 0
 
-    def k2_path(name):
-        """K2's launches since the last reading, under ``name``: the
-        prefills the routing rule sent to it in the phases between."""
-        nonlocal k2_seen
+    def served_path(name):
+        """K2's and K5's launches since the last reading, under ``name``:
+        the prefills the routing rule sent to K2, and the bf16 dense_all
+        MoE calls that took K5, in the phases between."""
+        nonlocal k2_seen, k5_seen
         k2_paths[name] = flash_attention.launches - k2_seen
         k2_seen = flash_attention.launches
+        k5_paths[name] = grouped_experts.launches - k5_seen
+        k5_seen = grouped_experts.launches
 
     fw = full_width_pair(dev)
     torch.cuda.synchronize()
     flash_attention.launches = 0            # K2's served launches from here
+    grouped_experts.launches = 0            # and K5's
     runs, launches = phase_full_width(dev, smi, fw)
-    k2_path("full_width_serving")
+    served_path("full_width_serving")
 
     # the kernel at the main path's own shape: a selected layer of the
     # served table, with that table's per-row lengths
@@ -4433,25 +4574,25 @@ def main() -> int:
     del runs, st, layer, q
     torch.cuda.empty_cache()
     plan = phase_wire_codec(dev, smi, fw)
-    k2_path("wire_codec")
+    served_path("wire_codec")
     paged_launches, paged_steps = phase_paged_serving(dev, smi, fw)
-    k2_path("paged_serving")
+    served_path("paged_serving")
     tier_launches, tier_steps = phase_wire_tiers(dev, smi, fw, plan)
-    k2_path("wire_tiers")
+    served_path("wire_tiers")
     phase_comm_methods(dev, smi, fw)
-    k2_path("comm_methods")
+    served_path("comm_methods")
     hetero_launches = phase_hetero_pair(dev, smi, fw)
-    k2_path("hetero_pair")
+    served_path("hetero_pair")
     remote_launches, remote_steps = phase_remote_serving(dev, smi, fw, plan)
-    k2_path("remote_serving")
+    served_path("remote_serving")
     # the second process starts now and loads while the next phases run
     server = start_remote_server()
     res_launches, res_steps = phase_resilient_serving(dev, smi, fw)
-    k2_path("resilient_serving")
+    served_path("resilient_serving")
     pool_launches, pool_steps = phase_fabric_serving(dev, smi, fw)
-    k2_path("scheduler_pool")
+    served_path("scheduler_pool")
     phase_remote_serve_two_process(dev, smi, fw, server)
-    k2_path("remote_serve_two_process")
+    served_path("remote_serve_two_process")
     k1_paths = {"full_width_serving": launches,
                 "paged_serving": paged_launches,
                 "wire_tiers": tier_launches,
@@ -4467,17 +4608,19 @@ def main() -> int:
     from repro_torch.launch import pairs
     k4_state, k4_cases = phase_rwkv6_state_sharing(dev, smi, flush,
                                                    pairs.pair_tokenizer())
-    k2_path("rwkv6_state_sharing")
+    served_path("rwkv6_state_sharing")
     k1_state, state_steps = phase_zamba2_state_sharing(
         dev, smi, flush, pairs.pair_tokenizer())
-    k2_path("zamba2_state_sharing")
+    served_path("zamba2_state_sharing")
     k1_paths["state_sharing"] = k1_state
     launches += k1_state
     k1_arch, arch_steps, arch_cases = phase_decoder_archs(
         dev, smi, flush, pairs.pair_tokenizer())
     k1_paths["decoder_archs"] = k1_arch
     launches += k1_arch
-    k2_path("decoder_archs")
+    served_path("decoder_archs")
+    moe_results = phase_moe_grouped(dev, flush, smi)
+    served_path("moe_grouped")
     ep_launches, ep_results = phase_entry_point(dev, flush, smi)
     k2_paths["entry_point"] = ep_launches["flash_attention"]
     k2_seen = flash_attention.launches       # the entry point reset it
@@ -4487,10 +4630,11 @@ def main() -> int:
     k1_train = phase_training(dev, smi, pairs.pair_tokenizer())
     k1_paths["quick_trained_pair"] = k1_train
     launches += k1_train
-    k2_path("training")
+    served_path("training")
     phase_distributed(dev, smi)
-    k2_path("distributed")
-    results = cases + [main] + ep_results + k4_cases + arch_cases
+    served_path("distributed")
+    results = (cases + [main] + ep_results + k4_cases + arch_cases
+               + moe_results)
     kernels = {"kernels": [
         {**kernel_entry(results, "ragged_decode",
                         "src/repro_torch/kernels/csrc/ragged_decode.cu",
@@ -4559,7 +4703,29 @@ def main() -> int:
              k: c[k] for k in ("B", "T", "H", "hd", "plan", "device_ms",
                                "bound_ms", "ms", "plain_ms", "max_abs_err",
                                "tol_ratio")}
-             for c in results if c["kernel"] == "wkv6"}}]}
+             for c in results if c["kernel"] == "wkv6"}},
+        {**kernel_entry(results, "moe_grouped",
+                        "src/repro_torch/kernels/moe_grouped.py",
+                        "none (the dense_all loop of models/layers.py)",
+                        sum(k5_paths.values()), "mellum2_prefill_4096x8"),
+         # mellum2-12b's served shapes; "plain" is the dense_all loop it
+         # replaces, "library" torch._grouped_mm over the same sorted rows
+         "route": "triton",
+         # every launch, counted from 0 before the first serving phase:
+         # the decoder configs' bf16 MoE calls (olmoe, mixtral) and the
+         # moe_grouped phase's cases
+         "launches_by_path": k5_paths,
+         "cases": {c["case"]: {
+             k: c[k] for k in ("N", "assignments", "experts_touched",
+                               "block_m", "device_ms", "bound_ms",
+                               "bound_by", "library_device_ms", "ms",
+                               "plain_ms", "plain_device_ms", "library_ms",
+                               "max_abs_err", "tol_ratio")}
+             for c in moe_results if c["kernel"] == "moe_grouped"},
+         "k1_mellum2_full_layer_g8": next(
+             {k: c[k] for k in ("device_ms", "bound_ms", "ms", "plain_ms",
+                                "library_device_ms", "tol_ratio")}
+             for c in moe_results if c["kernel"] == "ragged_decode")}]}
     emit(kernels)
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -65,6 +65,10 @@ class ModelConfig:
     sliding_window: Optional[int] = None       # uniform SWA (mixtral)
     local_global_ratio: int = 0         # gemma3: N local layers per 1 global
     local_window: Optional[int] = None  # window of local layers
+    # YaRN on the full-attention layers (the windowed ones keep plain RoPE
+    # at rope_theta): (factor, original max positions, beta_fast,
+    # beta_slow, attention_factor); a port-only field
+    yarn: Optional[Tuple[float, int, float, float, float]] = None
     # MoE
     num_experts: int = 0
     num_experts_per_tok: int = 0
@@ -101,6 +105,11 @@ class ModelConfig:
                                         # bodies ONCE, so rooflines lower
                                         # with unroll=True for exact FLOPs)
 
+    def __post_init__(self):
+        # a JSON list (a configuration file's) is kept as the tuple
+        if self.yarn is not None and not isinstance(self.yarn, tuple):
+            object.__setattr__(self, "yarn", tuple(self.yarn))
+
     # ----- derived -----
     @property
     def resolved_head_dim(self) -> int:
@@ -129,6 +138,7 @@ class ModelConfig:
                 plan.append(LayerSpec(kind="mamba", count=k))
                 plan.append(LayerSpec(kind="shared_attn", count=1))
             return tuple(plan)
+        moe = self.num_experts > 0
         if self.local_global_ratio:  # gemma3 pattern: N local then 1 global
             n = self.local_global_ratio
             w = self.local_window
@@ -136,13 +146,14 @@ class ModelConfig:
             remaining = self.num_layers
             while remaining > 0:
                 c = min(n, remaining)
-                plan.append(LayerSpec(kind="attn", count=c, window=w))
+                plan.append(LayerSpec(kind="attn", count=c, window=w,
+                                      moe=moe))
                 remaining -= c
                 if remaining > 0:
-                    plan.append(LayerSpec(kind="attn", count=1, window=None))
+                    plan.append(LayerSpec(kind="attn", count=1, window=None,
+                                          moe=moe))
                     remaining -= 1
             return tuple(plan)
-        moe = self.num_experts > 0
         return (LayerSpec(kind="attn", count=self.num_layers, moe=moe,
                           window=self.sliding_window,
                           cross_attn=self.encoder_layers > 0),)
@@ -194,6 +205,11 @@ class ModelConfig:
             small["local_global_ratio"] = 1
             small["local_window"] = 8
             small["num_layers"] = 2
+            if self.num_experts:     # one whole period, experts in each
+                small["local_global_ratio"] = self.local_global_ratio
+                small["num_layers"] = self.local_global_ratio + 1
+        if self.yarn is not None:    # the ramp bites within a few tokens
+            small["yarn"] = (self.yarn[0], 16) + tuple(self.yarn[2:])
         small.update(overrides)
         return dataclasses.replace(self, **small)
 

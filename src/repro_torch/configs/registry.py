@@ -1,9 +1,11 @@
-"""Registry of the configs the port runs, the reference's eleven: the
+"""Registry of the configs the port runs: the reference's eleven (the
 paper's pair, the decoder-only attention models (dense, MoE,
 sliding-window, the VLM with its stub patch embeddings), the
 encoder-decoder ``whisper-medium`` with its stub audio frames, the
 attention-free RWKV6 and the hybrid Zamba2 (Mamba2 plus shared
-attention)."""
+attention)), and ``PORT_ONLY``, those the reference package does not
+have: ``mellum2-12b`` (sparse experts in every layer, sliding-window and
+YaRN full attention 3:1)."""
 from __future__ import annotations
 
 from typing import Dict
@@ -12,6 +14,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.gemma3_4b import CONFIG as _GEMMA3
 from repro_torch.configs.internlm2_20b import CONFIG as _INTERNLM2
 from repro_torch.configs.llama3_3b_pair import CONFIG as _LLAMA_PAIR
+from repro_torch.configs.mellum2_12b import CONFIG as _MELLUM2
 from repro_torch.configs.mixtral_8x22b import CONFIG as _MIXTRAL
 from repro_torch.configs.olmoe_1b_7b import CONFIG as _OLMOE
 from repro_torch.configs.pixtral_12b import CONFIG as _PIXTRAL
@@ -24,7 +27,8 @@ from repro_torch.configs.zamba2_2_7b import CONFIG as _ZAMBA2
 _REGISTRY: Dict[str, ModelConfig] = {
     c.name: c for c in (_MIXTRAL, _STARCODER2, _WHISPER, _INTERNLM2, _QWEN,
                         _PIXTRAL, _GEMMA3, _RWKV6, _OLMOE, _ZAMBA2,
-                        _LLAMA_PAIR)}
+                        _LLAMA_PAIR, _MELLUM2)}
+PORT_ONLY = ("mellum2-12b",)
 
 
 def get_config(name: str) -> ModelConfig:
@@ -35,6 +39,11 @@ def get_config(name: str) -> ModelConfig:
 
 def list_archs() -> list[str]:
     return sorted(_REGISTRY)
+
+
+def reference_archs() -> list[str]:
+    """The registered configs the reference package has too."""
+    return sorted(set(_REGISTRY) - set(PORT_ONLY))
 
 
 ASSIGNED_ARCHS = [

@@ -29,7 +29,12 @@ bf16 / fp16 CUDA tensors runs the prefill kernel ``flash_attention``
 (``prefill_on_kernel`` is the rule, read from the inputs alone); every
 other call, and every call on the CPU, runs the plain core. While the
 recorder is on, each call with S > 1 counts under ``prefill.attn_kernel``
-or ``prefill.attn_plain``.
+or ``prefill.attn_plain``, and each cached one-token call under
+``decode.attn_kernel`` or ``decode.attn_plain``.
+
+Each layer rotates by its own rotary (``layers.layer_yarn``): YaRN on a
+config's full-attention layers where it sets ``yarn``, plain RoPE at
+``rope_theta`` everywhere else.
 
 Whisper's decoder layers add cross-attention over the encoder's output
 (``cross_kv`` projects it once per layer, ``cross_attention`` attends it
@@ -50,11 +55,13 @@ from repro_torch.kernels.ragged_decode import per_row as _rows
 from repro_torch.kernels.ragged_decode import ragged_decode
 from repro_torch.models.layers import (attention_core,
                                        attention_core_chunked, dense_init,
-                                       rope)
+                                       layer_yarn, rope)
 from repro_torch.utils import trace
 
 KERNEL_PREFILLS = "prefill.attn_kernel"
 PLAIN_PREFILLS = "prefill.attn_plain"
+KERNEL_DECODES = "decode.attn_kernel"
+PLAIN_DECODES = "decode.attn_plain"
 
 
 def _core(cfg):
@@ -138,13 +145,14 @@ def self_attention(p, cfg, x, *, mode: str, causal: bool = True,
     k = _proj(p, x, "k", Hkv, Dh)
     v = _proj(p, x, "v", Hkv, Dh)
     ar = torch.arange(S, device=dev)
+    yarn = layer_yarn(cfg, window)
 
     if mode == "train":
         pos = pos_shift + ar
         if use_rope:
             pb = pos[None].expand(B, S)
-            q = rope(q, pb, cfg.rope_theta)
-            k = rope(k, pb, cfg.rope_theta)
+            q = rope(q, pb, cfg.rope_theta, yarn)
+            k = rope(k, pb, cfg.rope_theta, yarn)
         out, mass = _core(cfg)(q, k, v, q_pos=pos, kv_pos=pos,
                                causal=causal, window=window)
         if S > 1:
@@ -162,8 +170,8 @@ def self_attention(p, cfg, x, *, mode: str, causal: bool = True,
         q_pos = pos_shift + cache_len - prefix_len + ar             # (S,)
     if use_rope:
         pb = q_pos if q_pos.dim() == 2 else q_pos[None].expand(B, S)
-        q = rope(q, pb, cfg.rope_theta)
-        k = rope(k, pb, cfg.rope_theta)
+        q = rope(q, pb, cfg.rope_theta, yarn)
+        k = rope(k, pb, cfg.rope_theta, yarn)
 
     Smax = cache_k.shape[1]
     ring = bool(cfg.ring_cache and window is not None and Smax == window
@@ -172,8 +180,13 @@ def self_attention(p, cfg, x, *, mode: str, causal: bool = True,
         q, k, mode=mode, cache_len=cache_len, pos_shift=pos_shift,
         prefix_len=prefix_len, shared_prefix_len=shared_prefix_len,
         prefix_lens=prefix_lens, collect_mass=collect_mass, ring=ring)
+    # one-token decode on K1: no window (K1 has none), no mass
+    decode_kernel = (backend == "kernel" and S == 1 and window is None
+                     and not collect_mass)
     if S > 1:
         trace.count(KERNEL_PREFILLS if kernel else PLAIN_PREFILLS)
+    else:
+        trace.count(KERNEL_DECODES if decode_kernel else PLAIN_DECODES)
     if ring:
         return _ring_attention(p, cfg, q, k, v, q_pos, cache_k, cache_v,
                                cache_len, pos_shift, causal, window)
@@ -199,8 +212,7 @@ def self_attention(p, cfg, x, *, mode: str, causal: bool = True,
                                      causal=causal, window=window)
         return out.reshape(B, S, -1) @ p["wo"], (cache_k, cache_v), None
 
-    if backend == "kernel" and S == 1 and window is None \
-            and not collect_mass:
+    if decode_kernel:
         # positions are baked into q and the cache (RoPE above), so only
         # the validity geometry ships: kv_len = valid entries, pfx = real
         # prefix entries (0 where ctx_valid masks an unselected layer)

@@ -1,8 +1,11 @@
-"""Core primitives of the port: init, RMSNorm, RoPE, whisper's sinusoid
-positions, masked GQA attention
+"""Core primitives of the port: init, RMSNorm, RoPE (with YaRN on the
+layers a config gives it), whisper's sinusoid positions, masked GQA
+attention
 (causal, sliding window) with the Eq. (1) context mass, its query-blocked
 form, the swiglu and gelu MLPs and the top-k MoE in both of the
-reference's strategies (``dense_all`` and capacity-based ``dropping``).
+reference's strategies (``dense_all`` and capacity-based ``dropping``);
+``dense_all`` runs as a loop over the experts on the CPU and in float32,
+and over the routed rows alone on the card (``moe_on_kernel``).
 
 Each function mirrors the reference's dtype steps: norms and rotary run in
 float32 and cast back, attention scores are computed in the input dtype and
@@ -16,10 +19,17 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.selection import _exp_f32
+from repro_torch.kernels.moe_grouped import grouped_experts
+from repro_torch.utils import trace
 
 NEG_INF = -1e30
+MOE_SPAN = "moe.experts"
+MOE_ASSIGNMENTS = "moe.assignments"
+MOE_GROUPED = "moe.grouped"
+MOE_LOOP = "moe.loop"
 
 
 # ---------------------------------------------------------------------------
@@ -49,17 +59,55 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5):
     return (x * (1.0 + w.float())).to(dt)
 
 
-def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
-    """Half-split rotary embedding. x: (B, S, H, D); positions: (B, S)."""
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+         yarn: Optional[Tuple[float, int, float, float, float]] = None):
+    """Half-split rotary embedding. x: (B, S, H, D); positions: (B, S).
+    With ``yarn`` (``ModelConfig.yarn``) the frequencies are YaRN's
+    (``yarn_freqs``) and cos and sin are scaled by its attention factor."""
     half = x.shape[-1] // 2
     freq = torch.exp(-math.log(theta) * torch.arange(
         half, dtype=torch.float32, device=x.device) / half)
+    if yarn is not None:
+        freq = yarn_freqs(freq, theta, yarn)
     ang = positions.float()[..., None] * freq            # (B, S, half)
     ang = ang[..., None, :]                              # (B, S, 1, half)
     cos, sin = torch.cos(ang), torch.sin(ang)
+    if yarn is not None:
+        cos, sin = cos * yarn[4], sin * yarn[4]
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def yarn_freqs(freq: torch.Tensor, theta: float,
+               yarn: Tuple[float, int, float, float, float]) -> torch.Tensor:
+    """YaRN's rotary frequencies from the plain ones ``freq`` (d / 2,
+    float32): a frequency that turns fewer than ``beta_slow`` times over
+    the original length is divided by ``factor``, one that turns more
+    than ``beta_fast`` times is kept, and a linear ramp over the
+    dimensions between blends the two. The ramp's ends are
+    floor / ceil of d ln(L0 / (2 pi beta)) / (2 ln theta), clamped to
+    [0, d / 2 - 1]."""
+    factor, orig, beta_fast, beta_slow, _ = yarn
+    half = freq.shape[0]
+    d = 2 * half
+
+    def dim_of(turns):
+        return d * math.log(orig / (turns * 2 * math.pi)) \
+            / (2 * math.log(theta))
+    low = min(max(math.floor(dim_of(beta_fast)), 0), half - 1)
+    high = min(max(math.ceil(dim_of(beta_slow)), 0), half - 1)
+    if low == high:
+        high += 0.001
+    ramp = ((torch.arange(half, dtype=torch.float32, device=freq.device)
+             - low) / (high - low)).clamp(0.0, 1.0)
+    return freq / factor * ramp + freq * (1.0 - ramp)
+
+
+def layer_yarn(cfg, window: Optional[int]):
+    """The rotary scaling of a layer: the config's YaRN on full-attention
+    layers, none on windowed ones (they keep plain RoPE)."""
+    return cfg.yarn if window is None else None
 
 
 def sinusoid_positions(positions: torch.Tensor, d_model: int):
@@ -269,9 +317,12 @@ def route(p, x, k: int):
 
 def apply_moe_dense_all(p, x, k: int):
     """Every expert on every token, accumulated over the experts in order
-    in x's dtype with each token's gate (zero where not routed)."""
+    in x's dtype with each token's gate (zero where not routed); the
+    expert sum is a ``moe.experts`` span."""
     gates, idx, aux = router_probs(p, x, k)
-    return expert_sum(p, x, combine_weights(gates, idx, p)), aux
+    with trace.span(MOE_SPAN, stream=x.is_cuda):
+        out = expert_sum(p, x, combine_weights(gates, idx, p))
+    return out, aux
 
 
 def combine_weights(gates, idx, p):
@@ -366,9 +417,45 @@ def moe_dropped(p, x, cfg) -> int:
     return G * n * k - kept
 
 
+def moe_on_kernel(p, x: torch.Tensor, cfg) -> bool:
+    """Does a ``dense_all`` MoE call take the grouped path (K5,
+    ``kernels/moe_grouped.py``) in place of the loop over experts? Read
+    from the inputs alone: a plain (not DTensor) bf16 / fp16 CUDA tensor,
+    and no autograd through x, the router or the experts (the kernel has
+    no backward and reads the weights as raw pointers). The CPU, float32
+    and a mesh keep the loop."""
+    return (cfg.moe_impl == "dense_all" and not isinstance(x, DTensor)
+            and x.is_cuda and x.dtype in (torch.bfloat16, torch.float16)
+            and not (torch.is_grad_enabled() and any(
+                t.requires_grad for t in (x, p["router"], p["w_gate"],
+                                          p["w_up"], p["w_down"]))))
+
+
+def apply_moe_grouped(p, x, k: int):
+    """``apply_moe_dense_all``'s function over the routed rows alone: the
+    same routing, then every (token, expert) assignment once through the
+    grouped expert kernel, gated and summed over each token's k experts
+    (``kernels.moe_grouped.grouped_experts``)."""
+    gates, idx, aux = router_probs(p, x, k)
+    B, S, D = x.shape
+    with trace.span(MOE_SPAN, stream=x.is_cuda):
+        out = grouped_experts(x.reshape(B * S, D), p["w_gate"], p["w_up"],
+                              p["w_down"], gates.reshape(B * S, k),
+                              idx.reshape(B * S, k))
+    return out.reshape(B, S, D), aux
+
+
 def apply_moe(p, x, cfg):
+    """The config's MoE. While the recorder is on, each call counts its
+    routed assignments under ``moe.assignments`` and a ``dense_all`` call
+    its path under ``moe.grouped`` or ``moe.loop``."""
+    k = cfg.num_experts_per_tok
+    trace.count(MOE_ASSIGNMENTS, x.shape[0] * x.shape[1] * k)
     if cfg.moe_impl == "dropping":
-        return apply_moe_dropping(p, x, cfg.num_experts_per_tok,
-                                  cfg.moe_capacity_factor,
+        return apply_moe_dropping(p, x, k, cfg.moe_capacity_factor,
                                   groups=cfg.moe_groups)
-    return apply_moe_dense_all(p, x, cfg.num_experts_per_tok)
+    if moe_on_kernel(p, x, cfg):
+        trace.count(MOE_GROUPED)
+        return apply_moe_grouped(p, x, k)
+    trace.count(MOE_LOOP)
+    return apply_moe_dense_all(p, x, k)

@@ -273,7 +273,9 @@ class Scheduler:
         with trace.run_recording() as rec:
             mark = rec.mark() if rec is not None else None
             for name in ("admit.count", "admit.host_syncs", "step.count",
-                         "prefill.attn_kernel", "prefill.attn_plain"):
+                         "prefill.attn_kernel", "prefill.attn_plain",
+                         "decode.attn_kernel", "decode.attn_plain",
+                         "moe.grouped", "moe.loop", "moe.assignments"):
                 trace.count(name, 0)
             with trace.span("scheduler.run"):
                 completions, stats = self._serve(requests)

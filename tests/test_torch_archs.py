@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_bridge import port_cfg, port_params, t
+from _torch_bridge import as_reference, port_cfg, port_params, t
 from repro.comm import Agent as JAgent
 from repro.comm import CommSession as JSession
 from repro.configs.registry import get_config as jget_config
@@ -33,7 +33,8 @@ from repro.serving.scheduler import Request as JRequest
 from repro.serving.scheduler import Scheduler as JScheduler
 from repro.serving.scheduler import SchedulerConfig as JSchedulerConfig
 from repro_torch.comm import Agent, CommSession
-from repro_torch.configs.registry import get_config, list_archs
+from repro_torch.configs.registry import (get_config, list_archs,
+                                          reference_archs)
 from repro_torch.core import protocol
 from repro_torch.core.types import KVCommConfig
 from repro_torch.kernels import ragged_decode as rd
@@ -94,8 +95,8 @@ def _patches(cfg, B, seed=1):
 @pytest.mark.parametrize("name", ARCHS)
 def test_config_and_plan_match_reference(name):
     ref, cfg = jget_config(name), get_config(name)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
-    assert dataclasses.asdict(cfg.reduced()) \
+    assert as_reference(cfg, ref) == dataclasses.asdict(ref)
+    assert as_reference(cfg.reduced(), ref.reduced()) \
         == dataclasses.asdict(ref.reduced())
     for c, r in ((cfg, ref), (cfg.reduced(), ref.reduced())):
         assert [dataclasses.asdict(s) for s in c.layer_plan()] \
@@ -110,8 +111,10 @@ def test_registry_holds_every_decoder_and_names_whisper():
     ported, and the model refused it); an unknown name raises KeyError
     listing the known ones."""
     assert set(ARCHS) < set(list_archs())
-    assert len(list_archs()) == 11
-    assert dataclasses.asdict(get_config("whisper-medium")) == \
+    assert len(list_archs()) == 12
+    assert set(list_archs()) - set(reference_archs()) == {"mellum2-12b"}
+    assert as_reference(get_config("whisper-medium"),
+                        jget_config("whisper-medium")) == \
         dataclasses.asdict(jget_config("whisper-medium"))
     with pytest.raises(KeyError, match="whisper-medium"):
         get_config("gpt-7")

@@ -6,7 +6,7 @@ import dataclasses
 import numpy as np
 import pytest
 
-from _torch_bridge import port_cfg
+from _torch_bridge import as_reference, port_cfg
 from repro.configs.registry import get_config as jget_config
 from repro.data.synthetic import SyntheticTask as JTask
 from repro.data.synthetic import TaskConfig as JTaskConfig
@@ -21,22 +21,24 @@ from repro_torch.launch import pairs
 
 def test_configs_round_trip():
     ref = jget_config("llama3.2-3b-pair")
-    assert dataclasses.asdict(get_config("llama3.2-3b-pair")) \
+    assert as_reference(get_config("llama3.2-3b-pair"), ref) \
         == dataclasses.asdict(ref)
     assert port_cfg(ref) == get_config("llama3.2-3b-pair")
     assert list_archs() == ["gemma3-4b", "internlm2-20b",
-                            "llama3.2-3b-pair", "mixtral-8x22b",
+                            "llama3.2-3b-pair", "mellum2-12b",
+                            "mixtral-8x22b",
                             "olmoe-1b-7b", "pixtral-12b", "qwen1.5-110b",
                             "rwkv6-1.6b", "starcoder2-7b", "whisper-medium",
                             "zamba2-2.7b"]
-    assert dataclasses.asdict(pairs.pair_config()) \
+    assert as_reference(pairs.pair_config(), jpairs.pair_config()) \
         == dataclasses.asdict(jpairs.pair_config())
     full = pairs.full_width_config()
     assert (full.num_layers, full.d_model, full.num_heads,
             full.num_kv_heads, full.resolved_head_dim, full.d_ff,
             full.vocab_size, full.dtype, full.tie_embeddings) == \
         (28, 3072, 24, 8, 128, 8192, 128256, "bfloat16", True)
-    assert dataclasses.asdict(get_config("whisper-medium")) == \
+    assert as_reference(get_config("whisper-medium"),
+                        jget_config("whisper-medium")) == \
         dataclasses.asdict(jget_config("whisper-medium"))
     with pytest.raises(KeyError):
         get_config("mixtral-8x7b")

@@ -30,7 +30,7 @@ from repro.training import train_loop as jtl
 from repro.utils import analytic as janalytic
 from repro_torch.configs.base import INPUT_SHAPES
 from repro_torch.configs.registry import ASSIGNED_ARCHS, get_config, \
-    list_archs
+    reference_archs
 from repro_torch.distributed import hints
 from repro_torch.distributed import sharding as shd
 from repro_torch.launch import dryrun
@@ -100,7 +100,7 @@ def _port_leaves(cfg, params):
 # sharding rules (a superset of tests/test_distributed.py::TestParamSpecRules)
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("layout", sorted(MESHES))
-@pytest.mark.parametrize("arch", sorted(list_archs()))
+@pytest.mark.parametrize("arch", reference_archs())
 def test_param_spec_matches_reference_for_every_leaf(arch, layout):
     """Every leaf of the reference's tree: the same spec from the same
     stacked shape at tp_size 16; then the port's per-layer tree gets the
@@ -203,7 +203,7 @@ def test_combo_table_matches_reference():
     assert (n_ok + n_skip, n_skip) == (40, 6)
 
 
-@pytest.mark.parametrize("arch", sorted(list_archs()))
+@pytest.mark.parametrize("arch", reference_archs())
 def test_analytic_matches_reference(arch):
     """job_cost, forward_flops (window-aware and not), param_count,
     active_param_count and param_bytes: identical for every shape."""

@@ -11,6 +11,8 @@ Tolerances: float32 2e-5 abs/rel (same arithmetic, another summation
 order); bf16/fp16 2e-2 relative to the largest output (the plain version
 rounds the scores and probabilities to the input dtype, the kernel keeps
 them in float32)."""
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -1780,3 +1782,112 @@ def test_receiver_prefill_keeps_the_plain_core(cuda, pos_mode):
     dense, packed = logits
     assert float((packed - dense).abs().max()) <= 1e-2 * float(
         dense.abs().max())
+
+
+# --- K5 the grouped expert kernels against the dense_all loop, at
+# mellum2-12b's served shapes: a 4,096-position sender prefill (32,768
+# assignments over 64 experts, 128-row tiles) and a 16-row decode step
+# (128 assignments, 16-row tiles). The loop rounds each expert's h and
+# output to bf16 and accumulates the gated outputs in bf16 over the 64
+# experts; the kernel keeps h's products in float32 and sums a token's 8
+# gated rows in float32: 2e-2 of the largest output, as the bf16 kernels
+# above. Against its plain version (float32 products, the same
+# roundings): 2e-2 of the largest output too.
+
+@pytest.mark.parametrize("N", [4096, 16])
+def test_grouped_experts_match_the_loop(cuda, N):
+    import math
+    from repro_torch.kernels.moe_grouped import (grouped_experts,
+                                                 grouped_experts_reference)
+    from repro_torch.models import layers
+    E, k, D, F = 64, 8, 2304, 896
+    g = torch.Generator().manual_seed(N)
+    p = {"router": (torch.randn(D, E, generator=g) * 2 / math.sqrt(D)).to(
+        cuda),
+         "w_gate": (torch.randn(E, D, F, generator=g) / math.sqrt(D)).to(
+             cuda, torch.bfloat16),
+         "w_up": (torch.randn(E, D, F, generator=g) / math.sqrt(D)).to(
+             cuda, torch.bfloat16),
+         "w_down": (torch.randn(E, F, D, generator=g) / math.sqrt(F)).to(
+             cuda, torch.bfloat16)}
+    x = torch.randn(1, N, D, generator=g).to(cuda, torch.bfloat16)
+    cfg = types.SimpleNamespace(moe_impl="dense_all", num_experts_per_tok=k)
+    assert layers.moe_on_kernel(p, x, cfg)
+    before = grouped_experts.launches
+    got, aux = layers.apply_moe(p, x, cfg)
+    assert grouped_experts.launches - before == 2
+    want, want_aux = layers.apply_moe_dense_all(p, x, k)
+    torch.cuda.synchronize()
+    scale = float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= 2e-2 * scale
+    assert torch.equal(aux, want_aux)
+    gates, idx, _ = layers.router_probs(p, x, k)
+    plain = grouped_experts_reference(
+        x[0], p["w_gate"], p["w_up"], p["w_down"], gates[0], idx[0])
+    assert float((got[0].float() - plain.float()).abs().max()) \
+        <= 2e-2 * scale
+
+
+def test_grouped_experts_make_no_host_sync(cuda):
+    """K5's dispatch (sort, offsets, tile table), both launches and the
+    combine make no synchronising call (``set_sync_debug_mode``)."""
+    import math
+    from repro_torch.models import layers
+    E, k, D, F = 64, 8, 2304, 896
+    g = torch.Generator().manual_seed(3)
+    p = {"router": (torch.randn(D, E, generator=g) * 2 / math.sqrt(D)).to(
+        cuda),
+         "w_gate": torch.randn(E, D, F, generator=g).to(cuda, torch.bfloat16)
+         / math.sqrt(D),
+         "w_up": torch.randn(E, D, F, generator=g).to(cuda, torch.bfloat16)
+         / math.sqrt(D),
+         "w_down": torch.randn(E, F, D, generator=g).to(cuda, torch.bfloat16)
+         / math.sqrt(F)}
+    x = torch.randn(16, 1, D, generator=g).to(cuda, torch.bfloat16)
+    cfg = types.SimpleNamespace(moe_impl="dense_all", num_experts_per_tok=k)
+    layers.apply_moe(p, x, cfg)                       # build the kernels
+    # the first switch to the debug mode warns once that it is a
+    # prototype, in words that match the helper's filter: absorb it
+    _synchronising(lambda caught: None)
+    _, syncs = _synchronising(lambda caught: layers.apply_moe(p, x, cfg))
+    assert syncs == [], [(w.filename, w.lineno, str(w.message))
+                         for w in syncs]
+
+
+def test_mellum_served_on_the_grouped_path(cuda):
+    """mellum2-12b cut to one period (3 windowed layers, then a full one
+    under YaRN), bf16, through ``Scheduler.run`` on the kernel backend
+    with an int8 wire: every MoE call takes K5 (``moe.loop`` 0), K1 runs
+    the full layer alone (a quarter of the one-token calls), and an
+    admission makes no more host syncs than the int8 codec's 8."""
+    from repro_torch.comm import Agent, CommSession, SerializedTransport
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.types import KVCommConfig
+    from repro_torch.data.synthetic import SyntheticTask, TaskConfig
+    from repro_torch.data.tokenizer import SymbolTokenizer
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.scheduler import (Scheduler, SchedulerConfig,
+                                               make_requests)
+    from repro_torch.utils import trace
+    tok = SymbolTokenizer(16, 8)
+    cfg = get_config("mellum2-12b").reduced(
+        num_experts=8, num_experts_per_tok=2, vocab_size=tok.vocab_size,
+        dtype="bfloat16")
+    params = tfm.init_params(cfg, 0, device=cuda)
+    sess = CommSession(Agent("s", cfg, params, tok),
+                       Agent("r", cfg, params, tok),
+                       SerializedTransport("int8"))
+    reqs = make_requests([SyntheticTask(tok, TaskConfig(
+        "retrieval", num_facts=6, seed=3)).batch(4)], pad=tok.PAD)
+    sched = Scheduler(sess, KVCommConfig(ratio=0.5, selector="prior_only"),
+                      config=SchedulerConfig(capacity=4, prefix_bucket=8,
+                                             query_bucket=4,
+                                             decode_backend="kernel"))
+    sched.run(reqs)                                   # warm
+    with trace.recording():
+        _, stats = sched.run(reqs)
+    c = stats["trace"]["counters"]
+    assert c["moe.loop"] == 0 and c["moe.grouped"] > 0
+    assert c["decode.attn_kernel"] == stats["steps"] > 0
+    assert c["decode.attn_plain"] == 3 * stats["steps"]
+    assert c["admit.host_syncs"] == 8 * c["admit.count"]

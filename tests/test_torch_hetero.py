@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_bridge import port_cfg, port_params
+from _torch_bridge import as_reference, port_cfg, port_params
 from repro.comm import Agent as JAgent
 from repro.comm import CommSession as JSession
 from repro.comm import InMemoryTransport as JInMemory
@@ -144,7 +144,8 @@ def test_registry_and_invariants():
 
 def test_deep_receiver_config_is_the_references():
     from repro.launch.pairs import deep_receiver_config
-    assert dataclasses.asdict(pairs.deep_receiver_config()) \
+    assert as_reference(pairs.deep_receiver_config(),
+                        deep_receiver_config()) \
         == dataclasses.asdict(deep_receiver_config())
 
 

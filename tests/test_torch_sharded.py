@@ -33,7 +33,7 @@ from types import SimpleNamespace
 import pytest
 
 from repro_torch.configs.base import InputShape
-from repro_torch.configs.registry import get_config, list_archs
+from repro_torch.configs.registry import get_config, reference_archs
 from repro_torch.distributed import sharding as shd
 from repro_torch.launch.specs import params_specs
 from repro_torch.utils import analytic
@@ -314,8 +314,8 @@ def runs():
         code = SHARDED.format(src=SRC, store=os.path.join(tmp, "store"),
                               archs=ARCHS)
         ranks = [_start(code, (str(r),)) for r in range(4)]
-        jaxp = _start(JAX_INDICES.format(src=SRC, archs=sorted(
-            list_archs())), env_extra={"JAX_PLATFORMS": "cpu"})
+        jaxp = _start(JAX_INDICES.format(src=SRC, archs=reference_archs()),
+                      env_extra={"JAX_PLATFORMS": "cpu"})
         dry = _start(DRYRUN.format(src=SRC, combos=COMBOS))
         one = _start(ONE_RANK.format(src=SRC))
         procs = ranks + [jaxp, dry, one]
@@ -396,7 +396,7 @@ def test_local_shards_match_jax(runs, mesh_name):
                            ndim=len(shape))
     indices = runs["indices"]
     n = 0
-    for arch in sorted(list_archs()):
+    for arch in reference_archs():
         cfg = get_config(arch).reduced()
         params = params_specs(cfg)
         pl = shd.param_shardings(cfg, mesh, params)

@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_bridge import port_cfg, port_params, t
+from _torch_bridge import as_reference, port_cfg, port_params, t
 from repro import core as jcore
 from repro.comm import Agent as JAgent
 from repro.comm import CommSession as JSession
@@ -83,8 +83,8 @@ def _state(rng, shapes):
 @pytest.mark.parametrize("name", ARCHS)
 def test_configs_and_reduced_match_reference(name):
     ref = jget_config(name)
-    assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(ref)
-    assert dataclasses.asdict(get_config(name).reduced()) \
+    assert as_reference(get_config(name), ref) == dataclasses.asdict(ref)
+    assert as_reference(get_config(name).reduced(), ref.reduced()) \
         == dataclasses.asdict(ref.reduced())
     cfg = get_config(name)
     assert cfg.attn_layer_count == ref.attn_layer_count

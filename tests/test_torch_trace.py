@@ -104,13 +104,19 @@ def test_span_tree(pair, transport):
     steps = [s for s in spans.values() if s["name"] == "scheduler.step"]
     assert len(steps) == stats["steps"] > 0
     # every prefill on the CPU takes the plain core: the sender's and the
-    # receiver's, one self-attention call a layer each
+    # receiver's, one self-attention call a layer each; every ragged step
+    # one one-token call a layer, on the plain core (the reference
+    # backend); no experts
     L = pair[1].attn_layer_count
     assert tr["counters"] == {"admit.count": len(reqs),
                               "admit.host_syncs": 0,
                               "step.count": stats["steps"],
                               "prefill.attn_kernel": 0,
-                              "prefill.attn_plain": 2 * L * len(reqs)}
+                              "prefill.attn_plain": 2 * L * len(reqs),
+                              "decode.attn_kernel": 0,
+                              "decode.attn_plain": L * stats["steps"],
+                              "moe.grouped": 0, "moe.loop": 0,
+                              "moe.assignments": 0}
     assert len(tr["anchor"]) == 2
 
 
@@ -210,3 +216,47 @@ def test_threads_keep_their_own_stacks_and_lose_no_count():
             assert s["parent"] is None
         else:
             assert spans[s["parent"]]["rid"] == s["rid"]
+
+
+@pytest.mark.parametrize("grouped", [False, True], ids=["loop", "grouped"])
+def test_moe_and_decode_counters(monkeypatch, grouped):
+    """mellum2-12b cut to one period (3 windowed layers, then a full one,
+    experts in each) through ``Scheduler.run`` on the kernel backend: a
+    ragged step's one-token calls run K1 on the full layer alone (25%),
+    every MoE call counts its path and its assignments, and its expert
+    computation is a ``moe.experts`` span, L of them inside each step.
+    ``grouped`` sends the calls down the grouped path (its plain version
+    on the CPU) as the card's bf16 calls go."""
+    from repro_torch.models import layers
+    tok = SymbolTokenizer(16, 8)
+    cfg = get_config("mellum2-12b").reduced(
+        num_experts=8, num_experts_per_tok=2, vocab_size=tok.vocab_size,
+        dtype="float32")
+    if grouped:
+        monkeypatch.setattr(layers, "moe_on_kernel", lambda p, x, cfg: True)
+    params = tfm.init_params(cfg, 0, device="cpu")
+    batches = [SyntheticTask(tok, TaskConfig("retrieval", num_facts=4,
+                                             seed=5)).batch(3)]
+    reqs = make_requests(batches, pad=tok.PAD)
+    sess = CommSession(Agent("s", cfg, params, tok),
+                       Agent("r", cfg, params, tok), InMemoryTransport())
+    sched = Scheduler(sess, KVCFG, config=SchedulerConfig(
+        capacity=3, prefix_bucket=8, query_bucket=4,
+        decode_backend="kernel"))
+    with trace.recording():
+        _, stats = sched.run(reqs)
+    tr = stats["trace"]
+    c = tr["counters"]
+    L, k = cfg.attn_layer_count, cfg.num_experts_per_tok
+    assert L == 4 and stats["steps"] > 0
+    assert c["decode.attn_kernel"] == stats["steps"]
+    assert c["decode.attn_plain"] == 3 * stats["steps"]
+    calls = c["moe.grouped"] + c["moe.loop"]
+    assert c["moe.grouped" if grouped else "moe.loop"] == calls > 0
+    assert c["moe.assignments"] % k == 0 and c["moe.assignments"] >= k * calls
+    by_id = {s["id"]: s for s in tr["spans"]}
+    moe = [s for s in tr["spans"] if s["name"] == "moe.experts"]
+    assert len(moe) == calls
+    in_step = [s for s in moe
+               if by_id[s["parent"]]["name"] == "scheduler.step"]
+    assert len(in_step) == L * stats["steps"]

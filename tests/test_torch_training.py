@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_bridge import port_cfg, port_params, t
+from _torch_bridge import as_reference, port_cfg, port_params, t
 from repro.configs.registry import get_config as jget_config
 from repro.data import pipeline as jpipeline
 from repro.launch import pairs as jpairs
@@ -400,8 +400,9 @@ def test_pipelines_match_reference(tok):
 
 def test_task_suite_matches_reference(tok):
     got, want = pairs.task_suite(tok, seed=7), jpairs.task_suite(tok, seed=7)
-    assert [dataclasses.asdict(a.cfg) for a in got] == \
+    assert [as_reference(a.cfg, b.cfg) for a, b in zip(got, want)] == \
         [dataclasses.asdict(b.cfg) for b in want]
+    assert len(got) == len(want)
 
 
 def test_load_pair_reads_a_reference_checkpoint(tmp_path, monkeypatch):

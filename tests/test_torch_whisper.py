@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_bridge import port_cfg, port_params, t
+from _torch_bridge import as_reference, port_cfg, port_params, t
 from repro import core as jcore
 from repro.comm import transport as jtransport
 from repro.configs.registry import get_config as jget_config
@@ -89,8 +89,8 @@ def _frames(cfg, B, seeded=False):
 # ---------------------------------------------------------------------------
 def test_config_and_plan_match_reference():
     ref, cfg = jget_config(NAME), get_config(NAME)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
-    assert dataclasses.asdict(cfg.reduced()) \
+    assert as_reference(cfg, ref) == dataclasses.asdict(ref)
+    assert as_reference(cfg.reduced(), ref.reduced()) \
         == dataclasses.asdict(ref.reduced())
     assert (cfg.reduced().encoder_layers, cfg.reduced().encoder_seq) == (2,
                                                                        16)
